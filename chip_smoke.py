@@ -1,0 +1,546 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``mixermdm_tpu_torch``) on one GPU.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each printing its wall-clock seconds:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build of the CUDA kernels from ``mixermdm_tpu_torch/csrc`` (plain nvcc);
+3. each kernel and each of the four entry points against its plain PyTorch
+   version on the card, in bf16, at the shapes of the sampling path: max
+   abs/rel error and tolerance, kernel / plain / library times and the
+   card's bound for the same work;
+4. the sampling path at full published width (two 1024-d in2IN denoisers,
+   the 512-d mixer, the ViT-L/14 text tower; T = 299, DDIM-50, CFG 3.5,
+   mixing mode 4, random weights from a seed): one CFG mixer step on the
+   kernels against the same step on the plain versions, then the whole
+   chain through ``MixerMDMSystem.generate_cond`` and ``sample``, with the
+   launch counts of that run;
+5. one JSON line per kernel and entry point, then the result line.
+
+Any failure exits nonzero and prints no result line.  The script imports
+nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import faulthandler
+import json
+import math
+import subprocess
+import sys
+import time
+
+BUDGET_S = 1100          # hard stop, under the 1200 s limit of a run
+H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM at 700 W
+H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+
+PROMPTS = [
+    ("two people shake hands and then hug", "a person reaches out and hugs",
+     "a person raises an arm and hugs"),
+    ("one person pushes the other who stumbles back",
+     "a person pushes forward with both hands", "a person stumbles backwards"),
+]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def phase(name):
+    print(f"== {name}", flush=True)
+    return time.time()
+
+
+def done(t0):
+    print(f"   phase seconds: {time.time() - t0:.1f}", flush=True)
+
+
+def _events_ms(run, n):
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def timed(fn, reps=20, warmup=3):
+    """Mean milliseconds per call of eager back-to-back calls (CUDA events):
+    the device timeline, which the host's launch cost fills where a call's
+    kernels are shorter than its Python and launch overhead."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _events_ms(fn, reps)
+
+
+def graph_timed(fn, reps=10, replays=5):
+    """Mean device milliseconds per call: ``reps`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events, so no host
+    overhead is in the number."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _events_ms(graph.replay, replays) / reps
+
+
+def bound_ms(n_bytes, flops, peak_flops=H100_BF16_FLOPS):
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_ops = flops / peak_flops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def kernel_checks(gen):
+    """Yield one result dict per check."""
+    import torch
+    import torch.nn.functional as F
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import _lib, attention as attn_mod
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf)
+
+    def compare(name, kernel, plain, tol, n_bytes, flops, library=None, kind=None,
+                peak=H100_BF16_FLOPS, **shape):
+        out_k = kernel()
+        torch.cuda.synchronize()
+        out_p = plain()
+        diff = (out_k.float() - out_p.float()).abs()
+        ref_scale = max(out_p.float().abs().max().item(), 1e-6)
+        max_abs = diff.max().item()
+        finite = bool(torch.isfinite(out_k.float()).all().item())
+        ok = finite and max_abs <= tol * ref_scale
+        b_ms, b_by = bound_ms(n_bytes, flops, peak)
+        res = {
+            "check": name, "kind": kind, "shape": shape, "max_abs_err": max_abs,
+            "max_rel_err": max_abs / ref_scale, "tol_rel": tol, "ok": ok,
+            "ms": graph_timed(kernel), "plain_ms": graph_timed(plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if library is None else graph_timed(library),
+            "eager_ms": timed(kernel),
+        }
+        print("   " + json.dumps(res), flush=True)
+        return res
+
+    # --- attention kernel, through the fused_attention entry point ---------
+    def attn_case(name, B, H, Tq, Tk, D, zero_attn, causal=False, kpm_rows=(), tol=2e-2):
+        q, k, v = rnd(B, H, Tq, D), rnd(B, H, Tk, D), rnd(B, H, Tk, D)
+        kpm = None
+        if kpm_rows:
+            kpm = torch.zeros(B, Tk, dtype=torch.bool, device=dev)
+            kpm[:, Tk - Tk // 5:] = True          # padded tail
+            for r in kpm_rows:
+                kpm[r] = True                      # fully masked key rows
+        amask = torch.triu(torch.full((Tq, Tk), float("-inf"), device=dev), 1) if causal else None
+
+        bias = torch.zeros(B, 1, Tq, Tk + int(zero_attn), device=dev, dtype=bf)
+        if kpm is not None:
+            bias[..., :Tk] += attn_mod.key_bias(kpm)[:, None, None, :].to(bf)
+        if amask is not None:
+            bias[..., :Tk] += amask.to(bf)
+        kz = torch.cat([k, k.new_zeros(B, H, 1, D)], 2) if zero_attn else k
+        vz = torch.cat([v, v.new_zeros(B, H, 1, D)], 2) if zero_attn else v
+        flops = 4 * B * H * Tq * Tk * D
+        n_bytes = 2 * (2 * B * H * Tq * D + 2 * B * H * Tk * D) + (4 * B * Tk if kpm is not None else 0) \
+            + (4 * Tq * Tk if causal else 0)
+        return compare(
+            name, lambda: ops.fused_attention(q, k, v, kpm, amask, zero_attn),
+            lambda: ops.fused_attention_plain(q, k, v, kpm, amask, zero_attn),
+            tol, n_bytes, flops,
+            library=lambda: F.scaled_dot_product_attention(q, kz, vz, attn_mask=bias),
+            kind="attention", B=B, H=H, Tq=Tq, Tk=Tk, D=D, zero_attn=zero_attn,
+            causal=causal, masked_rows=list(kpm_rows))
+
+    results = []
+    # CLIP ViT-L/14 tower: encode_cond runs it once per text field and
+    # head, on the 2 prompts: (2, 12 heads of 64, 77), causal.
+    results.append(attn_case("attention clip tower", 2, 12, 77, 77, 64, False, causal=True))
+    # CLIP post-encoder after each tower call: 8 heads of 96.
+    results.append(attn_case("attention post-encoder D=96", 2, 8, 77, 77, 96, False))
+    # Denoisers (D=128) and mixer core (D=64) at T=299, zero-attn.
+    results.append(attn_case("attention denoiser D=128", 8, 8, 299, 299, 128, True))
+    results.append(attn_case("attention mixer D=64", 8, 8, 299, 299, 64, True))
+    # Key padding with a fully masked row, with and without zero-attn;
+    # Tq != Tk and a T that is a multiple of nothing.
+    results.append(attn_case("attention kpm + masked row, zero-attn", 4, 8, 131, 299, 128, True,
+                             kpm_rows=(1,)))
+    results.append(attn_case("attention kpm + masked row, no zero-attn", 4, 8, 131, 131, 96,
+                             False, kpm_rows=(2,)))
+
+    # --- adaln_modulate ---------------------------------------------------
+    for B, T, E in ((8, 299, 1024), (8, 299, 512), (3, 131, 1024)):
+        x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
+        results.append(compare(
+            f"adaln_modulate E={E} T={T}", lambda: ops.adaln_modulate(x, sc, sh),
+            lambda: ops.adaln_modulate_plain(x, sc, sh), 2e-2,
+            2 * (2 * B * T * E + 2 * B * E), 8 * B * T * E, kind="adaln_modulate",
+            peak=H100_F32_FLOPS, B=B, T=T, E=E))
+
+    # --- linear_epilogue ----------------------------------------------------
+    def lin_case(name, M, K, N, act=None, res=False, tol=2e-2):
+        x, w, b = rnd(M, K), rnd(N, K, std=K ** -0.5), rnd(N, std=0.1)
+        r = rnd(M, N) if res else None
+        n_bytes = 2 * (M * K + N * K + N + M * N * (2 if res else 1))
+        lib = (lambda: F.linear(x, w, b)) if (act is None and not res) else None
+        return compare(
+            name, lambda: ops.linear(x, w, b, activation=act, residual=r),
+            lambda: ops.linear_plain(x, w, b, activation=act, residual=r), tol,
+            n_bytes, 2 * M * N * K, library=lib, kind="linear_epilogue",
+            M=M, K=K, N=N, activation=act, residual=res)
+
+    M = 8 * 299
+    results.append(lin_case("linear QKV E=1024", M, 1024, 3072))
+    results.append(lin_case("linear FFN1 gelu E=1024", M, 1024, 2048, act="gelu"))
+    results.append(lin_case("linear FFN2 +residual E=1024", M, 2048, 1024, res=True))
+    results.append(lin_case("linear QKV E=512", M, 512, 1536))
+    results.append(lin_case("linear motion_embed K=262", M, 262, 1024))
+    results.append(lin_case("linear final N=262", M, 1024, 262))
+    results.append(lin_case("linear influence head N=23", M, 512, 23))
+    results.append(lin_case("linear clip c_fc", 2 * 77, 768, 3072))
+
+    # --- the four entry points: fused blocks ---------------------------------
+    def block_params(E, F_=None):
+        p = {"w_qkv": rnd(3 * E, E, std=E ** -0.5), "b_qkv": rnd(3 * E, std=0.1),
+             "w_o": rnd(E, E, std=E ** -0.5), "b_o": rnd(E, std=0.1)}
+        if F_:
+            p.update(w1=rnd(F_, E, std=E ** -0.5), b1=rnd(F_, std=0.1),
+                     w2=rnd(E, F_, std=F_ ** -0.5), b2=rnd(E, std=0.1))
+        return p
+
+    def sa_case(B, T, E, H, residual, kpm_tail=False):
+        x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
+        p = block_params(E)
+        kpm = None
+        if kpm_tail:
+            kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
+            kpm[:, T - T // 4:] = True
+        args = (x, sc, sh, p["w_qkv"], p["b_qkv"], p["w_o"], p["b_o"], kpm)
+        kw = dict(n_heads=H, residual=residual)
+        n_bytes = 2 * (2 * B * T * E + 2 * B * E + 4 * E * E + 4 * E)
+        flops = 2 * B * T * E * 4 * E + 4 * B * T * T * E
+        return compare(f"fused_sa_block E={E} T={T} residual={residual}",
+                       lambda: ops.fused_sa_block(*args, **kw),
+                       lambda: ops.fused_sa_block_plain(*args, **kw), 3e-2, n_bytes, flops,
+                       kind="fused_sa_block", B=B, T=T, E=E, H=H, residual=residual,
+                       key_padding=kpm_tail)
+
+    def ca_case(B, T, E, H, residual):
+        x, xf = rnd(B, T, E), rnd(B, T, E)
+        mods = [rnd(B, E, std=0.2) for _ in range(4)]
+        p = block_params(E)
+        args = (x, xf, *mods, p["w_qkv"], p["b_qkv"], p["w_o"], p["b_o"], None)
+        kw = dict(n_heads=H, residual=residual)
+        n_bytes = 2 * (3 * B * T * E + 4 * B * E + 4 * E * E + 4 * E)
+        flops = 2 * B * T * E * 4 * E + 4 * B * T * T * E
+        return compare(f"fused_ca_block E={E} T={T} residual={residual}",
+                       lambda: ops.fused_ca_block(*args, **kw),
+                       lambda: ops.fused_ca_block_plain(*args, **kw), 3e-2, n_bytes, flops,
+                       kind="fused_ca_block", B=B, T=T, E=E, H=H, residual=residual)
+
+    def ffn_case(B, T, E, F_, residual, modulate=True):
+        x = rnd(B, T, E)
+        sc, sh = (rnd(B, E, std=0.2), rnd(B, E, std=0.2)) if modulate else (None, None)
+        p = block_params(E, F_)
+        args = (x, sc, sh, p["w1"], p["b1"], p["w2"], p["b2"])
+        n_bytes = 2 * (2 * B * T * E + (2 * B * E if modulate else 0) + 2 * E * F_ + F_ + E)
+        return compare(f"fused_ffn_block E={E} F={F_} residual={residual} adaln={modulate}",
+                       lambda: ops.fused_ffn_block(*args, residual=residual),
+                       lambda: ops.fused_ffn_block_plain(*args, residual=residual), 3e-2,
+                       n_bytes, 4 * B * T * E * F_, kind="fused_ffn_block",
+                       B=B, T=T, E=E, F=F_, residual=residual, adaln=modulate)
+
+    results.append(sa_case(8, 299, 1024, 8, True))
+    results.append(sa_case(8, 299, 1024, 8, False, kpm_tail=True))
+    results.append(sa_case(8, 299, 512, 8, True))
+    results.append(sa_case(3, 131, 512, 8, False))
+    results.append(ca_case(8, 299, 1024, 8, True))
+    results.append(ca_case(8, 299, 512, 8, False))
+    results.append(ca_case(3, 131, 1024, 8, True))
+    results.append(ffn_case(8, 299, 1024, 2048, True))
+    results.append(ffn_case(8, 299, 512, 1024, False))
+    results.append(ffn_case(3, 131, 1024, 2048, True, modulate=False))
+
+    _lib.reset_launch_counts()  # comparison launches do not count
+    return results
+
+
+# --------------------------------------------------------------------------
+# Phase 4: the sampling path at full width
+# --------------------------------------------------------------------------
+
+# Kernel path against plain path inside the sampling path, same inputs, bf16.
+# The networks (text conds, both denoisers) are held on max |diff| / max |plain|.
+# The whole CFG mixer step is held on ||diff|| / ||plain||, for two reasons:
+# its raw-space x0 goes through the per-joint Gram-Schmidt of the 6d
+# rotations, which normalises near-zero vectors of a random-weight model, so
+# a few elements swing by O(1) on bf16 noise; and CFG (s = 3.5) forms
+# s * cond - (s - 1) * uncond, which scales independent branch errors by
+# sqrt(s^2 + (s - 1)^2) = 4.3.  0.1 allows 2.3% of network noise per branch.
+# The limit was set after two readings on an H100 (rel(max) 0.65, rel(fro)
+# 0.036); the witness below tests the explanation on every run.
+NET_TOL = 5e-2
+STEP_TOL = 1e-1
+# Witness for STEP_TOL: the same step in f32 (same weights, plain versions).
+# The kernels and the plain versions round at the same points (bf16 operands,
+# f32 accumulation, one rounding per output), so if the step's gap above is
+# bf16 noise amplified by CFG and Gram-Schmidt, the kernel path lies about as
+# far from f32 as the plain bf16 path does.  A kernel fault adds its own error
+# on top; the kernel path's gap may be at most 1.5 x the plain path's.
+WITNESS_RATIO = 1.5
+
+
+def _gaps(a, b):
+    """(max |a - b|, that over max |b|, ||a - b|| / ||b||)."""
+    a, b = a.float(), b.float()
+    max_abs = (a - b).abs().max().item()
+    rel_max = max_abs / max(b.abs().max().item(), 1e-6)
+    rel_fro = ((a - b).norm() / b.norm().clamp_min(1e-6)).item()
+    return max_abs, rel_max, rel_fro
+
+
+def _agree(name, a, b, tol, metric, what="kernels vs plain"):
+    """Print the gaps of ``a`` to ``b``; fail unless rel(metric) <= tol
+    (with ``tol=None``, only that it is finite).  Returns rel(fro)."""
+    max_abs, rel_max, rel_fro = _gaps(a, b)
+    value = rel_max if metric == "max" else rel_fro
+    ok = math.isfinite(value) and (tol is None or value <= tol)
+    held = "a reading, held finite" if tol is None else f"held on rel({metric}) <= {tol:.4g}"
+    print(f"   {name}, {what}: max_abs_err {max_abs:.4g}, rel(max) {rel_max:.4g}, "
+          f"rel(fro) {rel_fro:.4g}; {held}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure(f"{name}: {what} disagree")
+    return rel_fro
+
+
+def sample_phase(seed):
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli.infer_mixermdm import build_system
+
+    t0 = time.time()
+    system = build_system(None, device="cuda", quant_frozen=False, seed=seed,
+                          zero_init_std=0.02)
+    torch.cuda.synchronize()
+    print(f"   built full-width system in {time.time() - t0:.1f} s: "
+          f"{sum(p.numel() for p in system.parameters()) / 1e6:.1f} M parameters, "
+          f"compute dtype {system.compute_dtype}", flush=True)
+    batch = {
+        "text_interaction": [p[0] for p in PROMPTS],
+        "text_individual1": [p[1] for p in PROMPTS],
+        "text_individual2": [p[2] for p in PROMPTS],
+    }
+    B, T = len(PROMPTS), 299
+
+    def both(fn):
+        k = fn()
+        with ops.plain_versions():
+            p = fn()
+        return k, p
+
+    # The text conds, both denoisers at the step's (CFG x person) batch, and
+    # one CFG mixer step, on the kernels and on the plain versions.
+    cond, cond_p = both(lambda: system.generate_cond(batch))
+    _agree("text conds (3 towers + post-encoders)", cond, cond_p, NET_TOL, "max")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x = torch.randn(B, T, 2 * system.nfeats, generator=gen, device="cuda")
+    t = torch.full((B,), 979, dtype=torch.long, device="cuda")
+    bf = system.compute_dtype
+    with torch.inference_mode():
+        x1 = torch.cat([x[..., :system.nfeats], x[..., system.nfeats:]] * 2, 0).to(bf)
+        t4 = torch.cat([t] * 4)
+        c1 = torch.randn(4 * B, system.text_dim, generator=gen, device="cuda").to(bf)
+        c2 = torch.randn(2 * B, 3 * system.text_dim, generator=gen, device="cuda").to(bf)
+        d1 = system.model1.denoisers["individual"]
+        d2 = system.model2.denoisers["interaction"]
+        _agree("individual denoiser (8 x 1024-d)", *both(lambda: d1(x1, t4, None, c1)),
+               NET_TOL, "max")
+        _agree("interaction denoiser (8 x 1024-d)",
+               *both(lambda: d2(torch.cat([x, x]).to(bf), t4[:2 * B], None, c2)), NET_TOL, "max")
+    step = lambda: system.cfg_mixer_step(x, x, t, cond)  # noqa: E731
+    step_k, step_p = both(step)
+    _agree("one CFG mixer step", step_k, step_p, STEP_TOL, "fro")
+    twin = copy.deepcopy(system).cast_(None)
+    with ops.plain_versions():
+        step_f = twin.cfg_mixer_step(x, x, t, cond)
+    del twin
+    torch.cuda.empty_cache()
+    gap_p = _agree("one CFG mixer step", step_p, step_f, None, "fro", "plain bf16 vs f32")
+    _agree("one CFG mixer step", step_k, step_f, WITNESS_RATIO * gap_p, "fro",
+           f"kernels vs f32 (at most {WITNESS_RATIO} x plain bf16 vs f32)")
+
+    # Where one step's time goes: the eager device timeline against the same
+    # step's kernels replayed as one CUDA graph (no host work in between).
+    eager = timed(step, reps=5, warmup=1)
+    replay = graph_timed(step, reps=1, replays=5)
+    print(f"   one CFG mixer step (B={B}, T={T}): eager {eager:.3f} ms, CUDA-graph replay "
+          f"{replay:.3f} ms; device idle in eager {1 - replay / eager:.3f}", flush=True)
+
+    # The main path, counted: text encoding + the whole DDIM chain.
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cond = system.generate_cond(batch)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    out = system.sample(cond, T, generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    t2 = time.time()
+    counts = dict(ops.launches)
+    n_steps = system.sample_schedule.num_timesteps
+    print(f"   generate_cond {t1 - t0:.3f} s; sample: output {tuple(out.shape)} {out.dtype}, "
+          f"{t2 - t1:.3f} s for {n_steps} DDIM steps = {(t2 - t1) / n_steps:.4f} s/step "
+          f"(B={B}, T={T}); max |out| {out.abs().max().item():.4g}", flush=True)
+    print(f"   launches in the main path: {json.dumps(counts, sort_keys=True)}", flush=True)
+    if tuple(out.shape) != (B, T, 2 * system.nfeats):
+        raise SmokeFailure(f"sample shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise SmokeFailure("sample output is not finite")
+    return counts
+
+
+# --------------------------------------------------------------------------
+
+KERNELS = {
+    # name: (source, TPU kernel it replaces)
+    "adaln_modulate": ("mixermdm_tpu_torch/csrc/adaln.cu",
+                       "mixermdm_tpu/ops/fused_block.py:80 (LN + modulation prologue of "
+                       "_sa_block_kernel, _ca_block_kernel :259, _ffn_kernel :438)"),
+    "linear_epilogue": ("mixermdm_tpu_torch/csrc/linear.cu",
+                        "mixermdm_tpu/ops/fused_block.py:80 (projections of "
+                        "_sa_block_kernel, _ca_block_kernel :259, _ffn_kernel :438)"),
+    "attention": ("mixermdm_tpu_torch/csrc/attention.cu",
+                  "mixermdm_tpu/ops/attention.py:47 (_attn_body; attention loop of "
+                  "fused_block.py:80 and :259)"),
+    "fused_attention": ("mixermdm_tpu_torch/ops/attention.py",
+                        "mixermdm_tpu/ops/attention.py:103 (fused_attention -> pallas_call :273)"),
+    "fused_sa_block": ("mixermdm_tpu_torch/ops/fused_block.py",
+                       "mixermdm_tpu/ops/fused_block.py:172 (fused_sa_block -> pallas_call :240)"),
+    "fused_ca_block": ("mixermdm_tpu_torch/ops/fused_block.py",
+                       "mixermdm_tpu/ops/fused_block.py:346 (fused_ca_block -> pallas_call :406)"),
+    "fused_ffn_block": ("mixermdm_tpu_torch/ops/fused_block.py",
+                        "mixermdm_tpu/ops/fused_block.py:473 (fused_ffn_block -> pallas_call :522)"),
+}
+# The check whose numbers stand for each name in the kernels line: the
+# largest main-path shape.
+REPRESENTATIVE = {
+    "adaln_modulate": "adaln_modulate E=1024 T=299",
+    "linear_epilogue": "linear QKV E=1024",
+    "attention": "attention denoiser D=128",
+    "fused_attention": "attention clip tower",
+    "fused_sa_block": "fused_sa_block E=1024 T=299 residual=True",
+    "fused_ca_block": "fused_ca_block E=1024 T=299 residual=True",
+    "fused_ffn_block": "fused_ffn_block E=1024 F=2048 residual=True adaln=True",
+}
+
+
+def kernels_line(results, counts):
+    by_name = {r["check"]: r for r in results}
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        r = by_name[REPRESENTATIVE[name]]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": int(counts.get(name, 0)),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+        })
+    return {"kernels": rows}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    faulthandler.dump_traceback_later(BUDGET_S, exit=True)
+    t_start = time.time()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; this script needs one GPU", file=sys.stderr)
+        return 2
+    try:
+        from mixermdm_tpu_torch.ops import _lib
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port ({e}); run from the repository root",
+              file=sys.stderr)
+        return 2
+
+    t0 = phase("1. device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
+        else f"nvidia-smi failed (rc {smi.returncode})"
+    print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s), {torch.cuda.get_device_name(0)}", flush=True)
+    done(t0)
+
+    t0 = phase("2. build")
+    lib_path, log = _lib.build()
+    print(log if log else f"   reused {lib_path}", flush=True)
+    _lib.library()
+    done(t0)
+
+    t0 = phase("3. kernels against their plain versions (bf16, on the card)")
+    torch.manual_seed(args.seed)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    results = kernel_checks(gen)
+    bad = [r["check"] for r in results if not r["ok"]]
+    done(t0)
+    if bad:
+        raise SmokeFailure("kernels disagree with their plain versions: " + ", ".join(bad))
+
+    t0 = phase("4. sampling path at full width")
+    counts = sample_phase(args.seed)
+    done(t0)
+
+    t0 = phase("5. summary")
+    line = kernels_line(results, counts)
+    missing = [r["name"] for r in line["kernels"] if not r["launches"]]
+    if missing:
+        raise SmokeFailure("not launched in the main path: " + ", ".join(missing))
+    done(t0)
+    print(f"   total seconds: {time.time() - t_start:.1f}", flush=True)
+    print(card)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Kernels (``csrc/``): ``adaln_modulate``, ``linear_epilogue``, ``attention``.
+Entry points, one per Pallas entry point of ``mixermdm_tpu/ops``:
+:func:`fused_attention`, :func:`fused_sa_block`, :func:`fused_ca_block`,
+:func:`fused_ffn_block`.  Each wrapper takes its plain version for a CPU
+tensor and launches its kernel (or raises) for a CUDA tensor; inside
+:func:`plain_versions` it takes its plain version on any device.  That is the
+only choice between kernel and plain version in the package: the modules
+call the entry points unconditionally.
+"""
+
+from ._lib import launches, plain_versions, reset_launch_counts
+from .adaln import adaln_modulate, adaln_modulate_plain
+from .attention import fused_attention, fused_attention_plain, reference_attention
+from .fused_block import (
+    fused_ca_block,
+    fused_ca_block_plain,
+    fused_ffn_block,
+    fused_ffn_block_plain,
+    fused_sa_block,
+    fused_sa_block_plain,
+)
+from .linear import linear, linear_plain
+
+__all__ = [
+    "launches", "plain_versions", "reset_launch_counts",
+    "adaln_modulate", "adaln_modulate_plain",
+    "fused_attention", "fused_attention_plain", "reference_attention",
+    "fused_sa_block", "fused_sa_block_plain",
+    "fused_ca_block", "fused_ca_block_plain",
+    "fused_ffn_block", "fused_ffn_block_plain",
+    "linear", "linear_plain",
+]

@@ -1,0 +1,194 @@
+"""MixerMDM system: two frozen in2IN denoisers composed per step by the
+Mixer, sampled with a dual-stream CFG DDIM chain; counterpart of
+``mixermdm_tpu/systems/mixermdm.py`` (``__init__``, ``encode_cond``,
+``sample``; reference mixermdm.py:18-602).
+
+As in the JAX package, CFG cond/uncond and the two person streams are
+stacked into the batch, so one DDIM step runs each frozen denoiser once at
+4B rows (2 CFG x 2 persons).  The networks run in ``compute_dtype`` (bf16 on
+the card, f32 on the CPU); the weights are cast to it once, at
+construction, as the JAX package pre-casts its frozen trees once per
+sampling call.  The diffusion arithmetic and the alignment stay f32.  The
+kernels take bf16 only: f32 networks on the card run inside
+``ops.plain_versions()``, else the first kernel call raises.
+
+Not ported yet: training (discriminators, losses), the DPM-Solver++
+sampler, trajectory control / warm start, and the W8A8 (``QUANT_FROZEN``)
+projections, which raise rather than fall back to bf16.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import MIXERMDM_DEFAULT, Config
+from ..diffusion.mixer_diffusion import ddim_sample_loop_x2
+from ..diffusion.schedule import named_schedule, resolve_sampler_strategy
+from ..models.cfg import cfg_model_x2
+from ..models.clip_text import ClipTextConfig
+from ..models.mixer import MixerConfig, MixerCore, make_mixer_forward
+from ..utils.normalizer import Normalizer, hml3d_normalizer, interhuman_normalizer
+from .in2in import In2INSystem
+from .text import TextPipeline
+
+# Width from which the JAX package runs the fused-block projections as int8
+# under QUANT_FROZEN (mixermdm_tpu/models/layers.py: _W8A8_MIN_DIM).
+W8A8_MIN_DIM = 512
+
+
+def resolve_compute_dtype(compute_dtype, device: torch.device) -> Optional[torch.dtype]:
+    """``"auto"``: bf16 on CUDA, f32 (None) elsewhere, as the JAX package
+    picks bf16 on TPU and f32 elsewhere."""
+    if compute_dtype == "auto":
+        return torch.bfloat16 if device.type == "cuda" else None
+    if compute_dtype in ("bf16", "bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    if compute_dtype in (None, "f32", "float32", torch.float32):
+        return None
+    raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+
+
+class MixerMDMSystem(nn.Module):
+    _FIV_FROM_CONFIG = object()  # sentinel: use the config's FORCE_INFLUENCE_VAL
+
+    def __init__(self, cfg: Optional[Config] = None, model1: Optional[In2INSystem] = None,
+                 model2: Optional[In2INSystem] = None,
+                 clip_cfg: Optional[ClipTextConfig] = None, align: bool = True,
+                 data_root: str = "./data", normalizer1: Optional[Normalizer] = None,
+                 normalizer2: Optional[Normalizer] = None, compute_dtype="auto",
+                 device="cuda"):
+        super().__init__()
+        device = torch.device(device)
+        self.cfg = cfg or MIXERMDM_DEFAULT
+        g = self.cfg.GENERATOR if "GENERATOR" in self.cfg else self.cfg
+        self.nfeats = int(g.INPUT_DIM)
+        self.align = align
+        self.compute_dtype = resolve_compute_dtype(compute_dtype, device)
+
+        sampler_type, strategy = resolve_sampler_strategy(self.cfg)
+        if sampler_type != "ddim":
+            raise NotImplementedError(f"sampler {sampler_type!r} is not ported yet (ddim is)")
+
+        with torch.device(device):
+            self.model1 = (model1 if model1 is not None
+                           else In2INSystem(mode="individual", clip_cfg=clip_cfg))
+            self.model2 = (model2 if model2 is not None
+                           else In2INSystem(mode="interaction", clip_cfg=clip_cfg))
+            self._refuse_w8a8(int(g.LATENT_DIM))
+            self.text_dim = (clip_cfg or self.model2.text.clip_cfg).width
+            self.mixer_cfg = MixerConfig(
+                nfeats=self.nfeats, latent_dim=int(g.LATENT_DIM), ff_size=int(g.FF_SIZE),
+                n_blocks=int(g.NUM_LAYERS), n_heads=int(g.NUM_HEADS),
+                mixing_mode=int(self.cfg.MIXING_MODE), align=align, text_dim=self.text_dim,
+                denoiser1_text_dim=self.model1.text_dim, denoiser2_text_dim=self.model2.text_dim)
+            c = self.mixer_cfg
+            self.core = MixerCore(nfeats=c.nfeats, latent_dim=c.latent_dim, ff_size=c.ff_size,
+                                  n_blocks=c.n_blocks, n_heads=c.n_heads, text_dim=c.text_dim,
+                                  mixing_mode=c.mixing_mode)
+            # The mixer's own CLIP post-encoder for the influence conds.
+            self.text = TextPipeline(clip_cfg or self.model2.text.clip_cfg, heads=("mixer",))
+        self.to(device)
+
+        steps = int(self.cfg.DIFFUSION_STEPS)
+        self.sample_schedule = named_schedule(self.cfg.BETA_SCHEDULER, steps, strategy,
+                                              device=device)
+        self.normalizer1 = (normalizer1 if normalizer1 is not None
+                            else hml3d_normalizer(data_root)).to(device)
+        self.normalizer2 = (normalizer2 if normalizer2 is not None
+                            else interhuman_normalizer(data_root)).to(device)
+        self.cfg_weight = float(self.cfg.CFG_WEIGHT)
+        fiv = self.cfg.get("FORCE_INFLUENCE_VAL", None)
+        self.force_influence_val = None if fiv in (None, "None", "") else float(fiv)
+        self.cast_(self.compute_dtype)
+
+    def cast_(self, compute_dtype) -> "MixerMDMSystem":
+        """Run the networks in ``compute_dtype`` (None: f32) from now on,
+        with the weights cast to it once.  Buffers (normalizer statistics,
+        positional tables) stay f32."""
+        self.compute_dtype = compute_dtype
+        for p in self.parameters():
+            p.data = p.data.to(compute_dtype or torch.float32)
+        self._mixer_forward = make_mixer_forward(
+            self.mixer_cfg, self.model1.denoiser_apply("individual"),
+            self.model2.denoiser_apply("interaction"), self.core,
+            self.normalizer1, self.normalizer2, compute_dtype=compute_dtype)
+        return self
+
+    def _refuse_w8a8(self, mixer_width: int) -> None:
+        """QUANT_FROZEN runs the fused-block projections as int8 in the JAX
+        package wherever it uses the fused blocks (bf16) at width >= 512.
+        The port has no int8 kernels yet: refuse rather than run bf16."""
+        widths = (self.model1.latent_dim, self.model2.latent_dim, mixer_width)
+        if (bool(self.cfg.get("QUANT_FROZEN", False)) and self.compute_dtype is not None
+                and max(widths) >= W8A8_MIN_DIM):
+            raise NotImplementedError(
+                "QUANT_FROZEN: true asks for the W8A8 projections of the fused blocks "
+                "(mixermdm_tpu/ops/fused_block.py: _sa_block_kernel_q8, _ca_block_kernel_q8, "
+                "_ffn_kernel_q8); the port's int8 kernels are the next slice. Set "
+                "QUANT_FROZEN: false (infer-mixermdm --no-quant) for the bf16 path.")
+
+    @property
+    def device(self) -> torch.device:
+        return self.core.text_embed.weight.device
+
+    # ------------------------------------------------------------------- text
+    def tokenize_batch(self, batch: dict) -> dict:
+        text_inter = batch.get("text_interaction", batch.get("text"))
+        return {"tokens_inter": self.text.tokenize(text_inter),
+                "tokens_i1": self.text.tokenize(batch["text_individual1"]),
+                "tokens_i2": self.text.tokenize(batch["text_individual2"])}
+
+    @torch.inference_mode()
+    def encode_cond(self, tokens_inter, tokens_i1, tokens_i2) -> torch.Tensor:
+        """(B, 8 * 768) f32 cond, ordered [I, I_i1, I_i2, ind_i1, ind_i2,
+        mix_I, mix_i1, mix_i2] (reference mixermdm.py:315-356)."""
+        enc2 = lambda tok: self.model2.encode_tokens(tok, "interaction")  # noqa: E731
+        enc1 = lambda tok: self.model1.encode_tokens(tok, "individual")  # noqa: E731
+        encm = lambda tok: self.text.encode(tok, "mixer")  # noqa: E731
+        return torch.cat([enc2(tokens_inter), enc2(tokens_i1), enc2(tokens_i2),
+                          enc1(tokens_i1), enc1(tokens_i2),
+                          encm(tokens_inter), encm(tokens_i1), encm(tokens_i2)], dim=1)
+
+    def generate_cond(self, batch: dict) -> torch.Tensor:
+        """Host tokenisation of the three text fields, then :meth:`encode_cond`."""
+        toks = self.tokenize_batch(batch)
+        return self.encode_cond(toks["tokens_inter"], toks["tokens_i1"], toks["tokens_i2"])
+
+    # ----------------------------------------------------------------- sample
+    def _mixer_eval(self, fiv, with_influence: bool):
+        def mixer_eval(x, x2, t_orig, mask, c):
+            mixed, _, _, infl = self._mixer_forward(x, t_orig, c, mask, x2, fiv)
+            return (mixed, infl) if with_influence else mixed
+        return mixer_eval
+
+    @torch.inference_mode()
+    def cfg_mixer_step(self, x, x2, t_orig, cond, mask=None) -> torch.Tensor:
+        """One CFG-guided mixer call of the chain: raw-space mixed x0 for
+        latents ``x`` (model-1 space) and ``x2`` (model-2 space)."""
+        fn = cfg_model_x2(self._mixer_eval(self.force_influence_val, False), self.cfg_weight)
+        return fn(x, x2, t_orig, mask, cond)
+
+    @torch.inference_mode()
+    def sample(self, cond: torch.Tensor, n_frames: int, *,
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None, collect_influence: bool = False,
+               force_influence_val=_FIV_FROM_CONFIG):
+        """Full dual-stream CFG DDIM chain (reference mixermdm.py:490-548).
+
+        Returns raw motion (B, n_frames, 2 * 262) f32; with
+        ``collect_influence`` also the per-step (infl1, infl2) histories.
+        The initial noise is ``noise`` or a draw from ``generator``.
+        """
+        fiv = (self.force_influence_val if force_influence_val is MixerMDMSystem._FIV_FROM_CONFIG
+               else force_influence_val)
+        cond = cond.to(self.device, torch.float32)
+        model = cfg_model_x2(self._mixer_eval(fiv, collect_influence), self.cfg_weight,
+                             with_influence=collect_influence)
+        return ddim_sample_loop_x2(
+            model, self.sample_schedule, (cond.shape[0], n_frames, self.nfeats * 2), cond,
+            normalizer1=self.normalizer1, normalizer2=self.normalizer2, align=self.align,
+            noise=noise, generator=generator, nfeats=self.nfeats,
+            collect_influence=collect_influence)
