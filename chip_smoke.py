@@ -9,16 +9,18 @@ Phases, each printing its wall-clock seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the CUDA kernels from ``mixermdm_tpu_torch/csrc`` (plain nvcc);
-3. each kernel and each of the four entry points against its plain PyTorch
-   version on the card, in bf16, at the shapes of the sampling path: max
-   abs/rel error and tolerance, kernel / plain / library times and the
-   card's bound for the same work;
+3. each kernel and each entry point against its plain PyTorch version on
+   the card, at the shapes of the sampling path, bf16 and W8A8: max abs/rel
+   error and tolerance, kernel / plain / library times and the card's bound
+   for the same work;
 4. the sampling path at full published width (two 1024-d in2IN denoisers,
    the 512-d mixer, the ViT-L/14 text tower; T = 299, DDIM-50, CFG 3.5,
-   mixing mode 4, random weights from a seed): one CFG mixer step on the
-   kernels against the same step on the plain versions, then the whole
-   chain through ``MixerMDMSystem.generate_cond`` and ``sample``, with the
-   launch counts of that run;
+   mixing mode 4, random weights from a seed), on the shipped config's W8A8
+   path (``QUANT_FROZEN: true``) and on the bf16 path of the same weights:
+   both denoisers and one CFG mixer step on the kernels against the plain
+   versions (and against f32), the int8 launch count of one step, then for
+   each path the whole chain through ``MixerMDMSystem.generate_cond`` and
+   ``sample``, with the launch counts of that run;
 5. one JSON line per kernel and entry point, then the result line.
 
 Any failure exits nonzero and prints no result line.  The script imports
@@ -28,6 +30,8 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import copy
 import faulthandler
 import json
@@ -38,6 +42,7 @@ import time
 
 BUDGET_S = 1100          # hard stop, under the 1200 s limit of a run
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM at 700 W
+H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 
@@ -291,7 +296,174 @@ def kernel_checks(gen):
     results.append(ffn_case(8, 299, 512, 1024, False))
     results.append(ffn_case(3, 131, 1024, 2048, True, modulate=False))
 
+    results += q8_checks(gen, compare, block_params, rnd)
     _lib.reset_launch_counts()  # comparison launches do not count
+    return results
+
+
+def _bf16_ulps(got, want):
+    """max |got - want| in units of one bf16 rounding of ``want`` (2^-8 of
+    its binade, the least nonzero step being that of 2^-126)."""
+    import torch
+
+    want = want.float()
+    _, exp = torch.frexp(want.abs().clamp_min(2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(want), exp - 8)
+    return ((got.float() - want).abs() / ulp).max().item()
+
+
+def q8_checks(gen, compare, block_params, rnd):
+    """The W8A8 kernels and entry points against their plain versions, at
+    the shapes of the QUANT_FROZEN sampling path (8 sequences of 299 frames,
+    E = 1024 / 512)."""
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import attention as attn_mod
+
+    dev = torch.device("cuda")
+    results = []
+    M = 8 * 299
+
+    # --- quant_rows: int8 values and scales bitwise equal -------------------
+    for dt, K in ((torch.bfloat16, 1024), (torch.bfloat16, 512), (torch.float32, 2048),
+                  (torch.float32, 1024), (torch.float32, 512)):
+        x = torch.randn(M, K, generator=gen, device=dev).to(dt)
+        x8, xs = ops.quant_rows(x)
+        torch.cuda.synchronize()
+        with ops.plain_versions():
+            p8, ps = ops.quant_rows(x)
+        err8 = (x8.int() - p8.int()).abs().max().item()
+        errs = (xs - ps).abs().max().item()
+        n_bytes = M * K * (x.element_size() + 1) + 4 * M
+        b_ms, b_by = bound_ms(n_bytes, 4 * M * K, H100_F32_FLOPS)
+        res = {
+            "check": f"quant_rows {str(dt)[6:]} M={M} K={K}", "kind": "quant_rows",
+            "shape": {"M": M, "K": K, "dtype": str(dt)[6:]}, "max_abs_err": float(err8),
+            "max_scale_err": errs, "tol": "bitwise", "ok": err8 == 0 and errs == 0,
+            "ms": graph_timed(lambda: ops.quant_rows(x)),
+            "plain_ms": graph_timed(lambda: ops.quant_rows_plain(x)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "eager_ms": timed(lambda: ops.quant_rows(x)),
+        }
+        print("   " + json.dumps(res), flush=True)
+        results.append(res)
+
+    # --- linear_q8: f32 out to 1e-5 of max |plain|, bf16 out within one
+    # bf16 rounding per element --------------------------------------------
+    def q8_case(name, K, N, act=None, res=False):
+        x8, xs = ops.quant_rows(torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16))
+        w8, ws = ops.quantize_weight(rnd(N, K, std=K ** -0.5))
+        b = rnd(N, std=0.1)
+        r = rnd(M, N) if res else None
+        run = lambda: ops.linear_q8(x8, xs, w8, ws, b, activation=act, residual=r)  # noqa: E731
+        plain = lambda: ops.linear_q8_plain(x8, xs, w8, ws, b, activation=act,  # noqa: E731
+                                            residual=r)
+        out_k = run()
+        torch.cuda.synchronize()
+        out_p = plain()
+        max_abs = (out_k.float() - out_p.float()).abs().max().item()
+        rel = max_abs / max(out_p.float().abs().max().item(), 1e-6)
+        if act == "gelu":
+            ok, tol = rel <= 1e-5, "1e-5 of max |plain|"
+        else:
+            ulps = _bf16_ulps(out_k, out_p)
+            ok, tol = ulps <= 1.0, f"one bf16 rounding per element (read {ulps:.3g})"
+        out_bytes = M * N * (4 if act == "gelu" else 2)
+        n_bytes = M * K + N * K + 4 * (M + N) + 2 * N + out_bytes + (2 * M * N if res else 0)
+        b_ms, b_by = bound_ms(n_bytes, 2 * M * N * K, H100_INT8_OPS)
+        w8t = w8.t()
+        try:  # the library's int8 product (no dequantisation), a yardstick only
+            library_ms = graph_timed(lambda: torch._int_mm(x8, w8t))
+        except RuntimeError as e:
+            print(f"   torch._int_mm at M={M} K={K} N={N} not timed: {e}", flush=True)
+            library_ms = None
+        result = {
+            "check": name, "kind": "linear_q8",
+            "shape": {"M": M, "K": K, "N": N, "activation": act, "residual": res},
+            "max_abs_err": max_abs, "max_rel_err": rel, "tol": tol, "ok": bool(ok),
+            "ms": graph_timed(run), "plain_ms": graph_timed(plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "eager_ms": timed(run),
+        }
+        print("   " + json.dumps(result), flush=True)
+        return result
+
+    results.append(q8_case("linear_q8 QKV E=1024", 1024, 3072))
+    results.append(q8_case("linear_q8 FFN1 gelu f32 E=1024", 1024, 2048, act="gelu"))
+    results.append(q8_case("linear_q8 FFN2 +residual E=1024", 2048, 1024, res=True))
+    results.append(q8_case("linear_q8 QKV E=512", 512, 1536))
+
+    # --- attention, f32 output (the W8A8 self-attention block) --------------
+    for D in (128, 64):
+        q, k, v = (rnd(8, 8, 299, D) for _ in range(3))
+        out = torch.empty(8, 8, 299, D, device=dev)
+        kern = lambda: attn_mod.attention_into(q, k, v, out, None, None, True)  # noqa: E731
+        results.append(compare(
+            f"attention f32 out D={D}", kern,
+            lambda: ops.fused_attention_plain(q, k, v, None, None, True,
+                                              out_dtype=torch.float32),
+            2e-2, 2 * 3 * 8 * 8 * 299 * D + 4 * 8 * 8 * 299 * D, 4 * 8 * 8 * 299 * 299 * D,
+            kind="attention", B=8, H=8, Tq=299, Tk=299, D=D, zero_attn=True, out="f32"))
+
+    # --- the three q8 entry points -------------------------------------------
+    def q8w(p, *names):
+        return [t for n in names for t in (*ops.quantize_weight(p["w" + n]), p["b" + n])]
+
+    def eq_ops(B, T, E, F_=None):
+        """int8 GEMM ops counted at half a bf16 op (the int8 peak is twice
+        the bf16 one), plus the bf16 attention ops."""
+        if F_:
+            return 2 * B * T * E * F_
+        return B * T * E * 4 * E + 4 * B * T * T * E
+
+    def sa_q8(B, T, E, H, residual, kpm_tail=False):
+        x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
+        p = block_params(E)
+        kpm = None
+        if kpm_tail:
+            kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
+            kpm[:, T - T // 4:] = True
+        args = (x, sc, sh, *q8w(p, "_qkv", "_o"), kpm)
+        kw = dict(n_heads=H, residual=residual)
+        n_bytes = 2 * 2 * B * T * E + 2 * 2 * B * E + 4 * E * E + 4 * 4 * E + 2 * 4 * E
+        return compare(f"fused_sa_block_q8 E={E} T={T} residual={residual}",
+                       lambda: ops.fused_sa_block_q8(*args, **kw),
+                       lambda: ops.fused_sa_block_q8_plain(*args, **kw), 3e-2, n_bytes,
+                       eq_ops(B, T, E), kind="fused_sa_block_q8", B=B, T=T, E=E, H=H,
+                       residual=residual, key_padding=kpm_tail)
+
+    def ca_q8(B, T, E, H, residual):
+        x, xf = rnd(B, T, E), rnd(B, T, E)
+        mods = [rnd(B, E, std=0.2) for _ in range(4)]
+        p = block_params(E)
+        args = (x, xf, *mods, *q8w(p, "_qkv", "_o"), None)
+        kw = dict(n_heads=H, residual=residual)
+        n_bytes = 2 * 3 * B * T * E + 2 * 4 * B * E + 4 * E * E + 4 * 4 * E + 2 * 4 * E
+        return compare(f"fused_ca_block_q8 E={E} T={T} residual={residual}",
+                       lambda: ops.fused_ca_block_q8(*args, **kw),
+                       lambda: ops.fused_ca_block_q8_plain(*args, **kw), 3e-2, n_bytes,
+                       eq_ops(B, T, E), kind="fused_ca_block_q8", B=B, T=T, E=E, H=H,
+                       residual=residual)
+
+    def ffn_q8(B, T, E, F_, residual):
+        x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
+        p = block_params(E, F_)
+        args = (x, sc, sh, *q8w(p, "1", "2"))
+        n_bytes = 2 * 2 * B * T * E + 2 * 2 * B * E + 2 * E * F_ + 6 * (F_ + E)
+        return compare(f"fused_ffn_block_q8 E={E} F={F_} residual={residual}",
+                       lambda: ops.fused_ffn_block_q8(*args, residual=residual),
+                       lambda: ops.fused_ffn_block_q8_plain(*args, residual=residual), 3e-2,
+                       n_bytes, eq_ops(B, T, E, F_), kind="fused_ffn_block_q8",
+                       B=B, T=T, E=E, F=F_, residual=residual)
+
+    results.append(sa_q8(8, 299, 1024, 8, True))
+    results.append(sa_q8(8, 299, 1024, 8, False, kpm_tail=True))
+    results.append(sa_q8(8, 299, 512, 8, True))
+    results.append(ca_q8(8, 299, 1024, 8, True))
+    results.append(ca_q8(8, 299, 512, 8, True))
+    results.append(ffn_q8(8, 299, 1024, 2048, True))
+    results.append(ffn_q8(8, 299, 512, 1024, True))
     return results
 
 
@@ -343,19 +515,33 @@ def _agree(name, a, b, tol, metric, what="kernels vs plain"):
     return rel_fro
 
 
+@contextlib.contextmanager
+def _quant(system, on: bool):
+    """Sample ``system`` on its W8A8 path (on) or its bf16 path (off); the
+    weights and the int8 buffers stay as they are."""
+    prev, system.quant_frozen = system.quant_frozen, on
+    try:
+        yield
+    finally:
+        system.quant_frozen = prev
+
+
 def sample_phase(seed):
     import torch
 
     from mixermdm_tpu_torch import ops
     from mixermdm_tpu_torch.cli.infer_mixermdm import build_system
+    from mixermdm_tpu_torch.models import layers
 
     t0 = time.time()
-    system = build_system(None, device="cuda", quant_frozen=False, seed=seed,
-                          zero_init_std=0.02)
+    system = build_system(None, device="cuda", seed=seed, zero_init_std=0.02)
     torch.cuda.synchronize()
     print(f"   built full-width system in {time.time() - t0:.1f} s: "
           f"{sum(p.numel() for p in system.parameters()) / 1e6:.1f} M parameters, "
-          f"compute dtype {system.compute_dtype}", flush=True)
+          f"compute dtype {system.compute_dtype}, QUANT_FROZEN {system.quant_frozen}",
+          flush=True)
+    if not system.quant_frozen:
+        raise SmokeFailure("the shipped config should sample with QUANT_FROZEN on")
     batch = {
         "text_interaction": [p[0] for p in PROMPTS],
         "text_individual1": [p[1] for p in PROMPTS],
@@ -370,7 +556,8 @@ def sample_phase(seed):
         return k, p
 
     # The text conds, both denoisers at the step's (CFG x person) batch, and
-    # one CFG mixer step, on the kernels and on the plain versions.
+    # one CFG mixer step, on the kernels and on the plain versions; the
+    # networks and the step in bf16 and under W8A8.
     cond, cond_p = both(lambda: system.generate_cond(batch))
     _agree("text conds (3 towers + post-encoders)", cond, cond_p, NET_TOL, "max")
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -384,49 +571,100 @@ def sample_phase(seed):
         c2 = torch.randn(2 * B, 3 * system.text_dim, generator=gen, device="cuda").to(bf)
         d1 = system.model1.denoisers["individual"]
         d2 = system.model2.denoisers["interaction"]
-        _agree("individual denoiser (8 x 1024-d)", *both(lambda: d1(x1, t4, None, c1)),
-               NET_TOL, "max")
-        _agree("interaction denoiser (8 x 1024-d)",
-               *both(lambda: d2(torch.cat([x, x]).to(bf), t4[:2 * B], None, c2)), NET_TOL, "max")
+        nets = {}
+        for label, scope in (("bf16", contextlib.nullcontext), ("W8A8", layers.w8a8_scope)):
+            with scope():
+                _agree(f"individual denoiser (8 x 1024-d), {label}",
+                       *both(lambda: d1(x1, t4, None, c1)), NET_TOL, "max")
+                out_k, out_p = both(lambda: d2(torch.cat([x, x]).to(bf), t4[:2 * B], None, c2))
+                _agree(f"interaction denoiser (8 x 1024-d), {label}", out_k, out_p, NET_TOL,
+                       "max")
+                nets[label] = out_k
+    # A reading beside the W8A8 kernels-vs-plain gap above: with random
+    # weights int8 moves a denoiser about as far as the int8 rounding flips
+    # between kernels and plain versions do, so it is no gate; the step
+    # check and the launch counts below are.
+    _agree("interaction denoiser", nets["W8A8"], nets["bf16"], None, "fro",
+           "W8A8 vs bf16 kernels")
     step = lambda: system.cfg_mixer_step(x, x, t, cond)  # noqa: E731
-    step_k, step_p = both(step)
-    _agree("one CFG mixer step", step_k, step_p, STEP_TOL, "fro")
-    twin = copy.deepcopy(system).cast_(None)
+    twin = copy.deepcopy(system).cast_(None)  # f32 networks never run int8
     with ops.plain_versions():
         step_f = twin.cfg_mixer_step(x, x, t, cond)
     del twin
     torch.cuda.empty_cache()
-    gap_p = _agree("one CFG mixer step", step_p, step_f, None, "fro", "plain bf16 vs f32")
-    _agree("one CFG mixer step", step_k, step_f, WITNESS_RATIO * gap_p, "fro",
-           f"kernels vs f32 (at most {WITNESS_RATIO} x plain bf16 vs f32)")
+    steps = {}
+    for label, on in (("bf16", False), ("W8A8", True)):
+        with _quant(system, on):
+            step_k, step_p = both(step)
+        name = f"one CFG mixer step, {label}"
+        gap = _agree(name, step_k, step_p, STEP_TOL, "fro")
+        gap_p = _agree(name, step_p, step_f, None, "fro", f"plain {label} vs f32")
+        _agree(name, step_k, step_f, WITNESS_RATIO * gap_p, "fro",
+               f"kernels vs f32 (at most {WITNESS_RATIO} x plain {label} vs f32)")
+        steps[label] = (step_k, gap)
+
+    # Int8 engaged: the W8A8 step lies farther from the bf16 step of the same
+    # weights than the W8A8 kernels lie from their plain versions, and one
+    # step launches linear_q8 as often as the blocks, read off the modules,
+    # say: Q/K/V and O in a self-attention block, Q, K/V and O in a
+    # cross-attention block, the two products of an FFN.
+    _agree("one CFG mixer step", steps["W8A8"][0], steps["bf16"][0], None, "fro",
+           "W8A8 vs bf16 kernels")
+    q8_vs_bf16 = _gaps(steps["W8A8"][0], steps["bf16"][0])[2]
+    if not q8_vs_bf16 > steps["W8A8"][1]:
+        raise SmokeFailure(f"W8A8 step within {q8_vs_bf16:.4g} of the bf16 step: int8 did not run")
+    n = collections.Counter(type(m).__name__ for m in system.modules()
+                            if isinstance(m, layers.Int8Block))
+    sa, ca, ffn = n["VanillaSelfAttention"], n["VanillaCrossAttention"], n["FFN"]
+    expected = {"linear_q8": 2 * sa + 3 * ca + 2 * ffn, "quant_rows": 2 * sa + 3 * ca + 2 * ffn,
+                "fused_sa_block_q8": sa, "fused_ca_block_q8": ca, "fused_ffn_block_q8": ffn,
+                "fused_sa_block": 0, "fused_ca_block": 0, "fused_ffn_block": 0}
+    ops.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    got = {k: int(ops.launches.get(k, 0)) for k in expected}
+    print(f"   launches in one W8A8 step: {json.dumps(got)}; from the modules "
+          f"({sa} SA, {ca} CA, {ffn} FFN blocks): {json.dumps(expected)}", flush=True)
+    if got != expected:
+        raise SmokeFailure("W8A8 step launches differ from the count read off the modules")
 
     # Where one step's time goes: the eager device timeline against the same
     # step's kernels replayed as one CUDA graph (no host work in between).
-    eager = timed(step, reps=5, warmup=1)
-    replay = graph_timed(step, reps=1, replays=5)
-    print(f"   one CFG mixer step (B={B}, T={T}): eager {eager:.3f} ms, CUDA-graph replay "
-          f"{replay:.3f} ms; device idle in eager {1 - replay / eager:.3f}", flush=True)
+    for label, on in (("bf16", False), ("W8A8", True)):
+        with _quant(system, on):
+            eager = timed(step, reps=5, warmup=1)
+            replay = graph_timed(step, reps=1, replays=5)
+        print(f"   one CFG mixer step, {label} (B={B}, T={T}): eager {eager:.3f} ms, CUDA-graph "
+              f"replay {replay:.3f} ms; device idle in eager {1 - replay / eager:.3f}",
+              flush=True)
 
-    # The main path, counted: text encoding + the whole DDIM chain.
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    cond = system.generate_cond(batch)
-    torch.cuda.synchronize()
-    t1 = time.time()
-    out = system.sample(cond, T, generator=torch.Generator(device="cuda").manual_seed(seed))
-    torch.cuda.synchronize()
-    t2 = time.time()
-    counts = dict(ops.launches)
-    n_steps = system.sample_schedule.num_timesteps
-    print(f"   generate_cond {t1 - t0:.3f} s; sample: output {tuple(out.shape)} {out.dtype}, "
-          f"{t2 - t1:.3f} s for {n_steps} DDIM steps = {(t2 - t1) / n_steps:.4f} s/step "
-          f"(B={B}, T={T}); max |out| {out.abs().max().item():.4g}", flush=True)
-    print(f"   launches in the main path: {json.dumps(counts, sort_keys=True)}", flush=True)
-    if tuple(out.shape) != (B, T, 2 * system.nfeats):
-        raise SmokeFailure(f"sample shape {tuple(out.shape)}")
-    if not bool(torch.isfinite(out).all()):
-        raise SmokeFailure("sample output is not finite")
+    # The main paths, counted: text encoding + the whole DDIM chain, on the
+    # bf16 path and on the shipped W8A8 path.
+    counts = {}
+    for label, on in (("bf16", False), ("W8A8", True)):
+        with _quant(system, on):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            cond = system.generate_cond(batch)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            out = system.sample(cond, T,
+                                generator=torch.Generator(device="cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+            t2 = time.time()
+            counts[label] = dict(ops.launches)
+        n_steps = system.sample_schedule.num_timesteps
+        print(f"   {label} path: generate_cond {t1 - t0:.3f} s; sample: output "
+              f"{tuple(out.shape)} {out.dtype}, {t2 - t1:.3f} s for {n_steps} DDIM steps = "
+              f"{(t2 - t1) / n_steps:.4f} s/step (B={B}, T={T}); max |out| "
+              f"{out.abs().max().item():.4g}", flush=True)
+        print(f"   launches in the {label} path: {json.dumps(counts[label], sort_keys=True)}",
+              flush=True)
+        if tuple(out.shape) != (B, T, 2 * system.nfeats):
+            raise SmokeFailure(f"{label} sample shape {tuple(out.shape)}")
+        if not bool(torch.isfinite(out).all()):
+            raise SmokeFailure(f"{label} sample output is not finite")
     return counts
 
 
@@ -451,6 +689,29 @@ KERNELS = {
                        "mixermdm_tpu/ops/fused_block.py:346 (fused_ca_block -> pallas_call :406)"),
     "fused_ffn_block": ("mixermdm_tpu_torch/ops/fused_block.py",
                         "mixermdm_tpu/ops/fused_block.py:473 (fused_ffn_block -> pallas_call :522)"),
+    "quant_rows": ("mixermdm_tpu_torch/csrc/quant.cu",
+                   "mixermdm_tpu/ops/fused_block.py:58 (_quant_act of _sa_block_kernel_q8 :160, "
+                   "_ca_block_kernel_q8 :333, _ffn_kernel_q8 :467)"),
+    "linear_q8": ("mixermdm_tpu_torch/csrc/linear_q8.cu",
+                  "mixermdm_tpu/ops/fused_block.py:66 (_qdot8, _qdot :74: the int8 products of "
+                  "_sa_block_kernel_q8 :160, _ca_block_kernel_q8 :333, _ffn_kernel_q8 :467)"),
+    "fused_sa_block_q8": ("mixermdm_tpu_torch/ops/fused_block.py",
+                          "mixermdm_tpu/ops/fused_block.py:172 (fused_sa_block quant=True -> "
+                          "pallas_call :240, body _sa_block_kernel_q8 :160)"),
+    "fused_ca_block_q8": ("mixermdm_tpu_torch/ops/fused_block.py",
+                          "mixermdm_tpu/ops/fused_block.py:346 (fused_ca_block quant=True -> "
+                          "pallas_call :406, body _ca_block_kernel_q8 :333)"),
+    "fused_ffn_block_q8": ("mixermdm_tpu_torch/ops/fused_block.py",
+                           "mixermdm_tpu/ops/fused_block.py:473 (fused_ffn_block quant=True -> "
+                           "pallas_call :522, body _ffn_kernel_q8 :467)"),
+}
+# The kernels each main path must launch.  The shipped config samples on the
+# W8A8 path; the bf16 path (QUANT_FROZEN off) runs the bf16 block forms.
+PATH_KERNELS = {
+    "W8A8": ("adaln_modulate", "linear_epilogue", "attention", "fused_attention", "quant_rows",
+             "linear_q8", "fused_sa_block_q8", "fused_ca_block_q8", "fused_ffn_block_q8"),
+    "bf16": ("adaln_modulate", "linear_epilogue", "attention", "fused_attention",
+             "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
 }
 # The check whose numbers stand for each name in the kernels line: the
 # largest main-path shape.
@@ -462,17 +723,25 @@ REPRESENTATIVE = {
     "fused_sa_block": "fused_sa_block E=1024 T=299 residual=True",
     "fused_ca_block": "fused_ca_block E=1024 T=299 residual=True",
     "fused_ffn_block": "fused_ffn_block E=1024 F=2048 residual=True adaln=True",
+    "quant_rows": "quant_rows float32 M=2392 K=2048",
+    "linear_q8": "linear_q8 QKV E=1024",
+    "fused_sa_block_q8": "fused_sa_block_q8 E=1024 T=299 residual=True",
+    "fused_ca_block_q8": "fused_ca_block_q8 E=1024 T=299 residual=True",
+    "fused_ffn_block_q8": "fused_ffn_block_q8 E=1024 F=2048 residual=True",
 }
 
 
 def kernels_line(results, counts):
+    """One row per kernel and entry point; ``launches`` from the W8A8 main
+    path, or from the bf16 one for the bf16 block forms that only it runs."""
     by_name = {r["check"]: r for r in results}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = by_name[REPRESENTATIVE[name]]
+        path = "W8A8" if name in PATH_KERNELS["W8A8"] else "bf16"
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": int(counts.get(name, 0)),
+            "launches": int(counts[path].get(name, 0)), "path": path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
@@ -514,7 +783,7 @@ def main(argv=None):
     _lib.library()
     done(t0)
 
-    t0 = phase("3. kernels against their plain versions (bf16, on the card)")
+    t0 = phase("3. kernels against their plain versions (bf16 and W8A8, on the card)")
     torch.manual_seed(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = kernel_checks(gen)
@@ -529,7 +798,8 @@ def main(argv=None):
 
     t0 = phase("5. summary")
     line = kernels_line(results, counts)
-    missing = [r["name"] for r in line["kernels"] if not r["launches"]]
+    missing = [f"{name} ({path} path)" for path, names in PATH_KERNELS.items() for name in names
+               if not counts[path].get(name)]
     if missing:
         raise SmokeFailure("not launched in the main path: " + ", ".join(missing))
     done(t0)

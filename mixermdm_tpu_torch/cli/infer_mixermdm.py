@@ -6,12 +6,14 @@ smooths the output over frames and writes ``<name>_motion.npy`` and the two
 influence histories as ``.npy``.  Weights are random, made from ``--seed``
 (the repository holds no checkpoint).  Usage::
 
-    python -m mixermdm_tpu_torch infer-mixermdm --no-quant --name out \\
+    python -m mixermdm_tpu_torch infer-mixermdm --name out \\
         --text-interaction "two people hug" --text-individual1 "a person hugs" \\
         --text-individual2 "a person hugs" [--num-samples 10] [--window 299]
 
 ``--tiny`` runs a miniature configuration (16 frames), ``--device cpu`` the
-plain PyTorch path on the CPU.
+plain PyTorch path on the CPU (f32, so never int8).  On the card the shipped
+config samples with the W8A8 projections (``QUANT_FROZEN: true``);
+``--no-quant`` runs the same weights in bf16.
 """
 
 from __future__ import annotations
@@ -38,13 +40,15 @@ from ..weights import init_params_
 
 
 def tiny_configs():
-    """(mixer cfg, model cfg, clip cfg) of the miniature smoke system."""
-    c = tiny_config(latent=32, layers=1, heads=2, diffusion_steps=8)
+    """(mixer cfg, model cfg, clip cfg) of the miniature smoke system: one
+    layer of width 128 and head dim 64, the smallest shape whose blocks can
+    run as int8 (with the width gate lowered)."""
+    c = tiny_config(latent=128, layers=1, heads=2, diffusion_steps=8)
     mcfg = Config.wrap(dict(MIXERMDM_DEFAULT))
     mcfg["DIFFUSION_STEPS"] = 8
     mcfg["STRATEGY"] = "ddim4"
     mcfg["GENERATOR"] = Config.wrap({"NUM_LAYERS": 1, "NUM_HEADS": 2, "DROPOUT": 0.0,
-                                     "INPUT_DIM": 262, "LATENT_DIM": 32, "FF_SIZE": 64})
+                                     "INPUT_DIM": 262, "LATENT_DIM": 128, "FF_SIZE": 256})
     return mcfg, c, ClipTextConfig.tiny()
 
 
@@ -105,8 +109,8 @@ def main(argv=None):
     parser.add_argument("--no-smooth", action="store_true")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--no-quant", action="store_true",
-                        help="run the frozen denoisers in bf16 (QUANT_FROZEN false); the "
-                             "port has no W8A8 path yet and refuses QUANT_FROZEN otherwise")
+                        help="run every projection in bf16 (QUANT_FROZEN false) instead of "
+                             "the config's W8A8 int8 projections")
     args = parser.parse_args(argv)
 
     system = build_system(args.model, align=not args.no_align, tiny=args.tiny,

@@ -14,16 +14,6 @@ namespace {
 
 constexpr int kThreads = 256;  // 8 rows per block
 
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     adaln_modulate_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
                           const bf16* __restrict__ shift, bf16* __restrict__ y, int rows,
@@ -40,23 +30,23 @@ __global__ void __launch_bounds__(kThreads)
   float f[8];
   float sum = 0.f;
   for (int c = lane * 8; c < E; c += 256) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+    mm::unpack_bf16x8(*reinterpret_cast<const uint4*>(xr + c), f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) sum += f[i];
   }
   const float mean = mm::warp_sum(sum) / E;
   float sq = 0.f;
   for (int c = lane * 8; c < E; c += 256) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+    mm::unpack_bf16x8(*reinterpret_cast<const uint4*>(xr + c), f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) sq += (f[i] - mean) * (f[i] - mean);
   }
   const float rstd = rsqrtf(mm::warp_sum(sq) / E + eps);
   for (int c = lane * 8; c < E; c += 256) {
     float s[8], h[8];
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
-    unpack8(*reinterpret_cast<const uint4*>(sr + c), s);
-    unpack8(*reinterpret_cast<const uint4*>(hr + c), h);
+    mm::unpack_bf16x8(*reinterpret_cast<const uint4*>(xr + c), f);
+    mm::unpack_bf16x8(*reinterpret_cast<const uint4*>(sr + c), s);
+    mm::unpack_bf16x8(*reinterpret_cast<const uint4*>(hr + c), h);
     uint4 out;
     uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll

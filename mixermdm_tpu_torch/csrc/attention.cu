@@ -19,6 +19,11 @@
 //
 // Operands are strided (batch, head, row) views with unit stride along D, so
 // the fused blocks read Q/K/V straight out of the packed QKV projection.
+//
+// The output is bf16, or f32 for the W8A8 self-attention block: the JAX
+// package quantises that block's attention output from f32
+// (mixermdm_tpu/ops/fused_block.py:140-146, heads concatenated before any
+// cast), so the f32 instantiation hands the unrounded values to quant_rows.
 #include "common.cuh"
 
 using mm::bf16;
@@ -30,7 +35,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const bf16 *q, *k, *v;
-  bf16* o;
+  void* o;  // bf16, or f32 for the OF32 instantiation
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st;
   const float* kbias;  // (B, Tk) additive, or null
   const float* amask;  // (Tq, Tk) additive, or null
@@ -50,7 +55,7 @@ __device__ __forceinline__ void load_rows(bf16* s, const bf16* g, long long st, 
   }
 }
 
-template <int D>
+template <int D, bool OF32>
 __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
   constexpr int LD = D + 8;
   constexpr int NT = D / 8;  // n8 tiles of the output
@@ -64,7 +69,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
   const bf16* Q = p.q + b * p.q_sb + h * p.q_sh;
   const bf16* K = p.k + b * p.k_sb + h * p.k_sh;
   const bf16* V = p.v + b * p.v_sb + h * p.v_sh;
-  bf16* O = p.o + b * p.o_sb + h * p.o_sh;
+  const long long o_off = b * p.o_sb + h * p.o_sh;
 
   load_rows<D>(sQ, Q, p.q_st, q0, p.Tq, tid);
   mm::cp_async_commit();
@@ -199,39 +204,50 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int col = t * 8 + (lane & 3) * 2;
-      *reinterpret_cast<uint32_t*>(O + (size_t)row * p.o_st + col) =
-          mm::pack_bf16x2(o[t][2 * i] * l[i], o[t][2 * i + 1] * l[i]);
+      const long long off = o_off + (size_t)row * p.o_st + col;
+      if (OF32)
+        *reinterpret_cast<float2*>(static_cast<float*>(p.o) + off) =
+            make_float2(o[t][2 * i] * l[i], o[t][2 * i + 1] * l[i]);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.o) + off) =
+            mm::pack_bf16x2(o[t][2 * i] * l[i], o[t][2 * i + 1] * l[i]);
     }
   }
 }
 
-template <int D>
+template <int D, bool OF32>
 int launch(const Params& p, int B, int H, cudaStream_t s) {
   const int smem = 3 * 64 * (D + 8) * static_cast<int>(sizeof(bf16));
   static bool configured = false;
   if (!configured) {
-    cudaFuncSetAttribute(attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(attention_kernel<D, OF32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
     configured = true;
   }
   const dim3 grid((p.Tq + BQ - 1) / BQ, H, B);
-  attention_kernel<D><<<grid, kThreads, smem, s>>>(p);
+  attention_kernel<D, OF32><<<grid, kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const Params& p, int B, int H, int out_f32, cudaStream_t s) {
+  return out_f32 ? launch<D, true>(p, B, H, s) : launch<D, false>(p, B, H, s);
 }
 
 }  // namespace
 
 // strides: 12 int64 values, (batch, head, row) strides of q, k, v, o in
 // elements; the stride along D is 1.  kbias (B, Tk) and amask (Tq, Tk) are
-// f32 and may be null.  D in {64, 96, 128}.
+// f32 and may be null.  D in {64, 96, 128}.  o is bf16, or f32 when out_f32.
 extern "C" int mm_attention(const void* q, const void* k, const void* v, void* o,
                             const long long* strides, const void* kbias, const void* amask,
                             int B, int H, int Tq, int Tk, int D, int zero_attn, float scale,
-                            void* stream) {
+                            int out_f32, void* stream) {
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<bf16*>(o);
+  p.o = o;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_st = strides[2];
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_st = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_st = strides[8];
@@ -244,9 +260,9 @@ extern "C" int mm_attention(const void* q, const void* k, const void* v, void* o
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(p, B, H, s);
-    case 96: return launch<96>(p, B, H, s);
-    case 128: return launch<128>(p, B, H, s);
+    case 64: return launch<64>(p, B, H, out_f32, s);
+    case 96: return launch<96>(p, B, H, out_f32, s);
+    case 128: return launch<128>(p, B, H, out_f32, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

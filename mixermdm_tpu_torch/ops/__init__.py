@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Kernels (``csrc/``): ``adaln_modulate``, ``linear_epilogue``, ``attention``.
-Entry points, one per Pallas entry point of ``mixermdm_tpu/ops``:
-:func:`fused_attention`, :func:`fused_sa_block`, :func:`fused_ca_block`,
-:func:`fused_ffn_block`.  Each wrapper takes its plain version for a CPU
-tensor and launches its kernel (or raises) for a CUDA tensor; inside
-:func:`plain_versions` it takes its plain version on any device.  That is the
-only choice between kernel and plain version in the package: the modules
-call the entry points unconditionally.
+Kernels (``csrc/``): ``adaln_modulate``, ``linear_epilogue``, ``attention``,
+``quant_rows``, ``linear_q8``.  Entry points, one per Pallas entry point of
+``mixermdm_tpu/ops``: :func:`fused_attention`, :func:`fused_sa_block`,
+:func:`fused_ca_block`, :func:`fused_ffn_block`, and the W8A8 forms of the
+three blocks (``quant=True`` there) :func:`fused_sa_block_q8`,
+:func:`fused_ca_block_q8`, :func:`fused_ffn_block_q8`.  Each wrapper takes
+its plain version for a CPU tensor and launches its kernel (or raises) for a
+CUDA tensor; inside :func:`plain_versions` it takes its plain version on any
+device.  That is the only choice between kernel and plain version in the
+package: the modules call the entry points unconditionally.
 """
 
 from ._lib import launches, plain_versions, reset_launch_counts
@@ -16,12 +18,20 @@ from .attention import fused_attention, fused_attention_plain, reference_attenti
 from .fused_block import (
     fused_ca_block,
     fused_ca_block_plain,
+    fused_ca_block_q8,
+    fused_ca_block_q8_plain,
     fused_ffn_block,
     fused_ffn_block_plain,
+    fused_ffn_block_q8,
+    fused_ffn_block_q8_plain,
     fused_sa_block,
     fused_sa_block_plain,
+    fused_sa_block_q8,
+    fused_sa_block_q8_plain,
 )
 from .linear import linear, linear_plain
+from .linear_q8 import linear_q8, linear_q8_plain
+from .quant import quant_rows, quant_rows_plain, quantize_weight
 
 __all__ = [
     "launches", "plain_versions", "reset_launch_counts",
@@ -30,5 +40,10 @@ __all__ = [
     "fused_sa_block", "fused_sa_block_plain",
     "fused_ca_block", "fused_ca_block_plain",
     "fused_ffn_block", "fused_ffn_block_plain",
+    "fused_sa_block_q8", "fused_sa_block_q8_plain",
+    "fused_ca_block_q8", "fused_ca_block_q8_plain",
+    "fused_ffn_block_q8", "fused_ffn_block_q8_plain",
     "linear", "linear_plain",
+    "linear_q8", "linear_q8_plain",
+    "quant_rows", "quant_rows_plain", "quantize_weight",
 ]

@@ -31,7 +31,7 @@ import time
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("adaln.cu", "linear.cu", "attention.cu")
+SOURCES = ("adaln.cu", "linear.cu", "attention.cu", "quant.cu", "linear_q8.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libmixermdm_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -148,8 +148,12 @@ def library() -> ctypes.CDLL:
     lib.mm_adaln_modulate.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
     lib.mm_linear.argtypes = [vp, i64, vp, i64, vp, vp, i64, vp, i64, i32, i32, i32, i32, vp]
     lib.mm_attention.argtypes = [vp, vp, vp, vp, ctypes.POINTER(i64), vp, vp,
-                                 i32, i32, i32, i32, i32, i32, f32, vp]
-    for fn in (lib.mm_adaln_modulate, lib.mm_linear, lib.mm_attention):
+                                 i32, i32, i32, i32, i32, i32, f32, i32, vp]
+    lib.mm_quant_rows.argtypes = [vp, i32, vp, vp, i32, i32, vp]
+    lib.mm_linear_q8.argtypes = [vp, i64, vp, vp, i64, vp, vp, vp, i64, vp, i64,
+                                 i32, i32, i32, i32, vp]
+    for fn in (lib.mm_adaln_modulate, lib.mm_linear, lib.mm_attention, lib.mm_quant_rows,
+               lib.mm_linear_q8):
         fn.restype = ctypes.c_int
     return lib
 
@@ -171,15 +175,22 @@ def require_cuda_bf16(name: str, *tensors) -> None:
     """The kernels take bf16 tensors on one CUDA device, nothing else."""
     import torch
 
+    require_cuda(name, (torch.bfloat16,), *tensors)
+
+
+def require_cuda(name: str, dtypes: tuple, *tensors) -> None:
+    """Each tensor (None skipped) lies on one CUDA device and has one of
+    ``dtypes``."""
     dev = None
     for t in tensors:
         if t is None:
             continue
         if not t.is_cuda:
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype} (other dtypes "
-                            "run on the card only inside ops.plain_versions())")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: the kernel takes {' or '.join(map(str, dtypes))} here, "
+                            f"got {t.dtype} (other dtypes run on the card only inside "
+                            "ops.plain_versions())")
         if dev is None:
             dev = t.device
         elif t.device != dev:

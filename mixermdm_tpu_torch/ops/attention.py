@@ -15,7 +15,9 @@ On the card the work goes to the hand-written kernel ``attention``
 tiles streamed through shared memory with an online softmax.  Its bound on an
 H100 is the larger of the Q/K/V/O bytes over 3.35 TB/s and the 4·B·H·Tq·Tk·D
 tensor-core operations over 989 TFLOP/s; at T = 299 neither is reached and
-the grid is small, so its time is mostly latency.
+the grid is small, so its time is mostly latency.  A second instantiation
+writes f32, for the W8A8 self-attention block, which quantises the attention
+output from f32 (``mixermdm_tpu/ops/fused_block.py:140-146``).
 """
 
 from __future__ import annotations
@@ -41,9 +43,9 @@ def key_bias(key_padding_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]
 
 
 def fused_attention_plain(q, k, v, key_padding_mask=None, attn_mask=None,
-                          zero_attn: bool = True) -> torch.Tensor:
+                          zero_attn: bool = True, out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: f32 logits and softmax, the mask
-    as an additive bias, output rounded to q's dtype."""
+    as an additive bias, output rounded to ``out_dtype`` (default q's)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if key_padding_mask is not None:
@@ -55,7 +57,7 @@ def fused_attention_plain(q, k, v, key_padding_mask=None, attn_mask=None,
         p = torch.softmax(logits, dim=-1)[..., :-1]
     else:
         p = torch.softmax(logits, dim=-1)
-    return torch.matmul(p, v.float()).to(q.dtype)
+    return torch.matmul(p, v.float()).to(out_dtype or q.dtype)
 
 
 def reference_attention(q, k, v, key_padding_mask=None, attn_mask=None,
@@ -82,9 +84,11 @@ def attention_into(q, k, v, out, key_padding_mask=None, attn_mask=None,
 
     The views may be strided (the fused blocks pass slices of the packed QKV
     projection) but must have unit stride along D, strides that are multiples
-    of 8 elements and 16-byte aligned data.  Writes ``out`` and returns it.
+    of 8 elements and 16-byte aligned data.  ``out`` is bf16 or f32.  Writes
+    ``out`` and returns it.
     """
-    _lib.require_cuda_bf16("attention", q, k, v, out)
+    _lib.require_cuda_bf16("attention", q, k, v)
+    _lib.require_cuda("attention", (torch.bfloat16, torch.float32), out)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if D not in KERNEL_HEAD_DIMS:
@@ -116,7 +120,8 @@ def attention_into(q, k, v, out, key_padding_mask=None, attn_mask=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c_strides,
         None if kbias is None else kbias.data_ptr(),
         None if amask is None else amask.data_ptr(),
-        B, H, Tq, Tk, D, int(bool(zero_attn)), 1.0 / math.sqrt(D), _lib.stream_handle(q))
+        B, H, Tq, Tk, D, int(bool(zero_attn)), 1.0 / math.sqrt(D),
+        int(out.dtype == torch.float32), _lib.stream_handle(q))
     _lib.check_launch("attention", rc)
     return out
 

@@ -12,9 +12,16 @@ sampling call.  The diffusion arithmetic and the alignment stay f32.  The
 kernels take bf16 only: f32 networks on the card run inside
 ``ops.plain_versions()``, else the first kernel call raises.
 
+W8A8 (``QUANT_FROZEN``, on in the shipped config): at sampling time every
+network is frozen, so, as the JAX package's ``_sample_impl`` /
+``_sample_body`` do, :meth:`sample` and :meth:`cfg_mixer_step` run inside
+:func:`..models.layers.w8a8_scope`, where the SA, CA and FFN blocks of both
+denoisers and of the mixer core at width >= 512 run their projections as
+int8 (bf16 compute only).  The int8 weights are quantised from the bf16
+weights in :meth:`cast_`; text encoding stays bf16.
+
 Not ported yet: training (discriminators, losses), the DPM-Solver++
-sampler, trajectory control / warm start, and the W8A8 (``QUANT_FROZEN``)
-projections, which raise rather than fall back to bf16.
+sampler, trajectory control / warm start.
 """
 
 from __future__ import annotations
@@ -29,14 +36,11 @@ from ..diffusion.mixer_diffusion import ddim_sample_loop_x2
 from ..diffusion.schedule import named_schedule, resolve_sampler_strategy
 from ..models.cfg import cfg_model_x2
 from ..models.clip_text import ClipTextConfig
+from ..models.layers import Int8Block, w8a8_scope
 from ..models.mixer import MixerConfig, MixerCore, make_mixer_forward
 from ..utils.normalizer import Normalizer, hml3d_normalizer, interhuman_normalizer
 from .in2in import In2INSystem
 from .text import TextPipeline
-
-# Width from which the JAX package runs the fused-block projections as int8
-# under QUANT_FROZEN (mixermdm_tpu/models/layers.py: _W8A8_MIN_DIM).
-W8A8_MIN_DIM = 512
 
 
 def resolve_compute_dtype(compute_dtype, device: torch.device) -> Optional[torch.dtype]:
@@ -67,6 +71,7 @@ class MixerMDMSystem(nn.Module):
         self.nfeats = int(g.INPUT_DIM)
         self.align = align
         self.compute_dtype = resolve_compute_dtype(compute_dtype, device)
+        self.quant_frozen = bool(self.cfg.get("QUANT_FROZEN", False))
 
         sampler_type, strategy = resolve_sampler_strategy(self.cfg)
         if sampler_type != "ddim":
@@ -77,7 +82,6 @@ class MixerMDMSystem(nn.Module):
                            else In2INSystem(mode="individual", clip_cfg=clip_cfg))
             self.model2 = (model2 if model2 is not None
                            else In2INSystem(mode="interaction", clip_cfg=clip_cfg))
-            self._refuse_w8a8(int(g.LATENT_DIM))
             self.text_dim = (clip_cfg or self.model2.text.clip_cfg).width
             self.mixer_cfg = MixerConfig(
                 nfeats=self.nfeats, latent_dim=int(g.LATENT_DIM), ff_size=int(g.FF_SIZE),
@@ -107,28 +111,22 @@ class MixerMDMSystem(nn.Module):
     def cast_(self, compute_dtype) -> "MixerMDMSystem":
         """Run the networks in ``compute_dtype`` (None: f32) from now on,
         with the weights cast to it once.  Buffers (normalizer statistics,
-        positional tables) stay f32."""
+        positional tables) stay f32.  Under ``QUANT_FROZEN`` in bf16 the
+        blocks that will run as int8 quantise their weights here, from the
+        bf16 values, as the JAX package quantises its bf16-cast tree."""
         self.compute_dtype = compute_dtype
         for p in self.parameters():
             p.data = p.data.to(compute_dtype or torch.float32)
+        if self.quant_frozen and compute_dtype == torch.bfloat16:
+            with w8a8_scope():
+                for m in self.modules():
+                    if isinstance(m, Int8Block) and m.runs_int8(compute_dtype):
+                        m.int8_weights()
         self._mixer_forward = make_mixer_forward(
             self.mixer_cfg, self.model1.denoiser_apply("individual"),
             self.model2.denoiser_apply("interaction"), self.core,
             self.normalizer1, self.normalizer2, compute_dtype=compute_dtype)
         return self
-
-    def _refuse_w8a8(self, mixer_width: int) -> None:
-        """QUANT_FROZEN runs the fused-block projections as int8 in the JAX
-        package wherever it uses the fused blocks (bf16) at width >= 512.
-        The port has no int8 kernels yet: refuse rather than run bf16."""
-        widths = (self.model1.latent_dim, self.model2.latent_dim, mixer_width)
-        if (bool(self.cfg.get("QUANT_FROZEN", False)) and self.compute_dtype is not None
-                and max(widths) >= W8A8_MIN_DIM):
-            raise NotImplementedError(
-                "QUANT_FROZEN: true asks for the W8A8 projections of the fused blocks "
-                "(mixermdm_tpu/ops/fused_block.py: _sa_block_kernel_q8, _ca_block_kernel_q8, "
-                "_ffn_kernel_q8); the port's int8 kernels are the next slice. Set "
-                "QUANT_FROZEN: false (infer-mixermdm --no-quant) for the bf16 path.")
 
     @property
     def device(self) -> torch.device:
@@ -169,7 +167,8 @@ class MixerMDMSystem(nn.Module):
         """One CFG-guided mixer call of the chain: raw-space mixed x0 for
         latents ``x`` (model-1 space) and ``x2`` (model-2 space)."""
         fn = cfg_model_x2(self._mixer_eval(self.force_influence_val, False), self.cfg_weight)
-        return fn(x, x2, t_orig, mask, cond)
+        with w8a8_scope(self.quant_frozen):
+            return fn(x, x2, t_orig, mask, cond)
 
     @torch.inference_mode()
     def sample(self, cond: torch.Tensor, n_frames: int, *,
@@ -187,8 +186,9 @@ class MixerMDMSystem(nn.Module):
         cond = cond.to(self.device, torch.float32)
         model = cfg_model_x2(self._mixer_eval(fiv, collect_influence), self.cfg_weight,
                              with_influence=collect_influence)
-        return ddim_sample_loop_x2(
-            model, self.sample_schedule, (cond.shape[0], n_frames, self.nfeats * 2), cond,
-            normalizer1=self.normalizer1, normalizer2=self.normalizer2, align=self.align,
-            noise=noise, generator=generator, nfeats=self.nfeats,
-            collect_influence=collect_influence)
+        with w8a8_scope(self.quant_frozen):
+            return ddim_sample_loop_x2(
+                model, self.sample_schedule, (cond.shape[0], n_frames, self.nfeats * 2), cond,
+                normalizer1=self.normalizer1, normalizer2=self.normalizer2, align=self.align,
+                noise=noise, generator=generator, nfeats=self.nfeats,
+                collect_influence=collect_influence)

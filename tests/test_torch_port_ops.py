@@ -235,8 +235,13 @@ def test_wrappers_take_plain_versions_on_cpu_bf16():
     assert sum(ops.launches.values()) == 0
 
 
-def _meta(*shape):
-    return torch.empty(*shape, device="meta", dtype=torch.bfloat16)
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, device="meta", dtype=dtype)
+
+
+def _meta_q8(*shape):
+    """An int8 weight (shape) and its f32 scales (shape[:-1])."""
+    return _meta(*shape, dtype=torch.int8), _meta(*shape[:-1], dtype=torch.float32)
 
 
 # Each entry point on tensors that are not on the CPU.  A "meta" tensor
@@ -258,6 +263,17 @@ META_CALLS = {
     "fused_ffn_block": lambda: ops.fused_ffn_block(
         _meta(_B, _T, _E), _meta(_B, _E), _meta(_B, _E), _meta(2 * _E, _E), _meta(2 * _E),
         _meta(_E, 2 * _E), _meta(_E)),
+    "quant_rows": lambda: ops.quant_rows(_meta(_B, _T, _E))[0],
+    "linear_q8": lambda: ops.linear_q8(*_meta_q8(_B, _T, _E), *_meta_q8(_E, _E), _meta(_E)),
+    "fused_sa_block_q8": lambda: ops.fused_sa_block_q8(
+        _meta(_B, _T, _E), _meta(_B, _E), _meta(_B, _E), *_meta_q8(3 * _E, _E), _meta(3 * _E),
+        *_meta_q8(_E, _E), _meta(_E), n_heads=2),
+    "fused_ca_block_q8": lambda: ops.fused_ca_block_q8(
+        _meta(_B, _T, _E), _meta(_B, _T, _E), *[_meta(_B, _E) for _ in range(4)],
+        *_meta_q8(3 * _E, _E), _meta(3 * _E), *_meta_q8(_E, _E), _meta(_E), n_heads=2),
+    "fused_ffn_block_q8": lambda: ops.fused_ffn_block_q8(
+        _meta(_B, _T, _E), _meta(_B, _E), _meta(_B, _E), *_meta_q8(2 * _E, _E), _meta(2 * _E),
+        *_meta_q8(_E, 2 * _E), _meta(_E)),
 }
 
 
@@ -269,7 +285,8 @@ def test_entry_points_never_run_plain_versions_off_the_cpu(name):
         META_CALLS[name]()
     with ops.plain_versions():
         out = META_CALLS[name]()
-    assert out.device.type == "meta" and out.dtype == torch.bfloat16
+    want = torch.int8 if name == "quant_rows" else torch.bfloat16
+    assert out.device.type == "meta" and out.dtype == want
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         META_CALLS[name]()  # the switch is restored on leaving the block
 

@@ -153,23 +153,62 @@ def test_ddim_chain_matches_jax_and_reference(golden_chain):
     _close(got, fx["ref"], atol=2e-3, rtol=2e-3)
 
 
-def test_quant_frozen_is_refused_not_run_in_bf16():
-    """QUANT_FROZEN at the published widths asks for the W8A8 kernels, which
-    are not ported: the system raises instead of running bf16 silently.
-    (Built on the meta device: no memory, no compute.)"""
+def test_quant_frozen_routes_every_block_to_the_q8_entry_points(monkeypatch):
+    """QUANT_FROZEN at the published widths: cast_ builds the int8 buffers
+    of every SA, CA and FFN block (width 1024 and 512, above the 512 gate),
+    and inside the W8A8 scope both denoisers and the mixer core call only
+    the q8 entry points.  Built and run on the meta device (no memory, no
+    compute), through the plain versions, as the card's path would go."""
+    from mixermdm_tpu_torch import ops
     from mixermdm_tpu_torch.config import MIXERMDM_DEFAULT
+    from mixermdm_tpu_torch.models import layers
     from mixermdm_tpu_torch.systems.mixermdm import MixerMDMSystem
 
     assert MIXERMDM_DEFAULT["QUANT_FROZEN"] is True
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        MixerMDMSystem(MIXERMDM_DEFAULT, compute_dtype="bf16", device="meta")
+    system = MixerMDMSystem(MIXERMDM_DEFAULT, compute_dtype="bf16", device="meta")
+    blocks = [m for m in system.modules() if isinstance(m, layers.Int8Block)]
+    assert len(blocks) == 20 + 12 + 20
+    for m in blocks:
+        for name in m._int8_sources():
+            assert getattr(m, f"{name}_q8").dtype == torch.int8
+            assert getattr(m, f"{name}_scale").dtype == torch.float32
+    assert not any(k.endswith(("_q8", "_scale")) for k in system.state_dict())
+
+    calls = {}
+    for name in ("fused_sa_block", "fused_ca_block", "fused_ffn_block"):
+        for fname in (name, name + "_q8"):
+            def counted(*a, _fn=getattr(layers, fname), _name=fname, **k):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+
+            monkeypatch.setattr(layers, fname, counted)
+    bf, Tn, F = torch.bfloat16, 16, system.nfeats
+    meta = lambda *shape: torch.zeros(shape, dtype=bf, device="meta")  # noqa: E731
+    t = torch.zeros(2, dtype=torch.long, device="meta")
+    d1 = system.model1.denoisers["individual"]
+    d2 = system.model2.denoisers["interaction"]
+    runs = {
+        "individual": lambda: d1(meta(2, Tn, F), t, None, meta(2, d1.text_dim)),
+        "interaction": lambda: d2(meta(2, Tn, 2 * F), t, None, meta(2, 3 * d2.text_dim)),
+        "mixer core": lambda: system.core(*[meta(2, Tn, F)] * 4, t, *[meta(2, 768)] * 3),
+    }
+    want = {"individual": (8, 0, 8), "interaction": (8, 8, 8), "mixer core": (4, 4, 4)}
+    for net, run in runs.items():
+        calls.clear()
+        with ops.plain_versions(), layers.w8a8_scope():
+            run()
+        sa, ca, ffn = want[net]
+        assert calls == {k: v for k, v in (("fused_sa_block_q8", sa), ("fused_ca_block_q8", ca),
+                                           ("fused_ffn_block_q8", ffn)) if v}, net
 
 
 def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     """In a fresh interpreter where jax, flax, optax, orbax, yaml and
     mixermdm_tpu cannot be imported (the card machine has none of the first
-    five): import every module of the port and chip_smoke.py, then run the
-    CLI's tiny sample on the CPU end to end."""
+    five): import every module of the port and chip_smoke.py, run the CLI's
+    tiny sample on the CPU end to end, then the CLI's system with its
+    QUANT_FROZEN on in bf16 (the card's dtype) with the width gate at the
+    tiny width, so that its blocks take the W8A8 path."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "yaml",
@@ -185,6 +224,22 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
         infer_mixermdm.main(["--tiny", "--device", "cpu", "--name", "g", "--num-samples", "2",
                              "--out-dir", {str(tmp_path)!r}, "--text-interaction", "two hug",
                              "--text-individual1", "one hugs", "--text-individual2", "one hugs"])
+        import torch
+        from mixermdm_tpu_torch.models import layers
+        calls = []
+        for name in ("fused_sa_block_q8", "fused_ca_block_q8", "fused_ffn_block_q8"):
+            fn = getattr(layers, name)
+            setattr(layers, name, lambda *a, _fn=fn, _n=name, **k: calls.append(_n) or _fn(*a, **k))
+        layers.set_w8a8_min_dim(128)
+        system = infer_mixermdm.build_system(tiny=True, device="cpu", zero_init_std=0.02)
+        assert system.quant_frozen
+        system.cast_(torch.bfloat16)
+        cond = system.generate_cond({{"text_interaction": ["two hug"] * 2,
+                                     "text_individual1": ["one hugs"] * 2,
+                                     "text_individual2": ["one hugs"] * 2}})
+        out = system.sample(cond, 16, generator=torch.Generator().manual_seed(0))
+        assert out.shape == (2, 16, 524) and bool(torch.isfinite(out).all())
+        assert len(calls) == 4 * 8, calls  # 3 SA + 2 CA + 3 FFN per DDIM step, 4 steps
         bad = [k for k, v in sys.modules.items() if v is not None and
                k.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml", "mixermdm_tpu")]
         assert not bad, bad
