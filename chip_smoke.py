@@ -10,18 +10,27 @@ Phases, each printing its wall-clock seconds:
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the CUDA kernels from ``mixermdm_tpu_torch/csrc`` (plain nvcc);
 3. each kernel and each entry point against its plain PyTorch version on
-   the card, at the shapes of the sampling path, bf16 and W8A8: max abs/rel
-   error and tolerance, kernel / plain / library times and the card's bound
-   for the same work;
+   the card, at the shapes of the sampling and training paths (bf16, W8A8,
+   f32 attention, the attention backward): max abs/rel error and tolerance,
+   kernel / plain / library times and the card's bound for the same work;
 4. the sampling path at full published width (two 1024-d in2IN denoisers,
-   the 512-d mixer, the ViT-L/14 text tower; T = 299, DDIM-50, CFG 3.5,
-   mixing mode 4, random weights from a seed), on the shipped config's W8A8
-   path (``QUANT_FROZEN: true``) and on the bf16 path of the same weights:
-   both denoisers and one CFG mixer step on the kernels against the plain
-   versions (and against f32), the int8 launch count of one step, then for
-   each path the whole chain through ``MixerMDMSystem.generate_cond`` and
-   ``sample``, with the launch counts of that run;
-5. one JSON line per kernel and entry point, then the result line.
+   the 512-d mixer, the ViT-L/14 text tower with its f32 post-encoder heads;
+   T = 299, CFG 3.5, mixing mode 4, random weights from a seed), on the
+   shipped config's W8A8 path (``QUANT_FROZEN: true``) and on the bf16 path
+   of the same weights: the text conds, both denoisers and one CFG mixer step
+   on the kernels against the plain versions (and against f32), the int8
+   launch count of one step;
+5. for each sampling path the whole chain (DDIM-50) through
+   ``MixerMDMSystem.generate_cond`` and ``sample``, with the launch counts of
+   that run;
+6. adversarial training at full width (``configs/models/MixerMDM.yaml``,
+   ``configs/train/MixerMDM.yaml``, B = 8, T = 300): the gradients of one G
+   and one D step on the kernels against the plain versions (and against
+   f32), the training CLI (``cli/train_mixermdm``) for 4 fit steps on a
+   synthetic InterHuman fixture with the launch counts of that run, the
+   frozen networks bitwise unchanged, and seconds per fit step with the
+   differentiated attention on the kernels and on the plain versions;
+7. one JSON line per kernel and entry point, then the result line.
 
 Any failure exits nonzero and prints no result line.  The script imports
 nothing of JAX or of the JAX package.
@@ -297,6 +306,7 @@ def kernel_checks(gen):
     results.append(ffn_case(3, 131, 1024, 2048, True, modulate=False))
 
     results += q8_checks(gen, compare, block_params, rnd)
+    results += train_kernel_checks(gen, compare)
     _lib.reset_launch_counts()  # comparison launches do not count
     return results
 
@@ -467,6 +477,121 @@ def q8_checks(gen, compare, block_params, rnd):
     return results
 
 
+# f32 attention is held at ~1e-5 of max |plain|: f32 FMA on both sides, only
+# the order of the sums differs (no TF32 anywhere: set in main()).
+F32_TOL = 1e-5
+# attention_bwd in bf16 against its plain version (the same rounding points:
+# p and ds rounded to bf16, as the JAX kernel rounds them), max |diff| / max
+# |plain|: only the order of the f32 sums differs, which flips a rounding
+# now and then.  Readings on an H100: 0.0006-0.0014.  The witness holds the
+# kernel's distance from the f32 gradients (torch.autograd.grad through the
+# plain forward in f32) to at most 1.5 x the plain version's.
+BWD_BF16_TOL = 1e-2
+
+
+def train_kernel_checks(gen, compare):
+    """The kernels of the training path: the f32-input ``attention`` (the
+    text heads) and ``attention_bwd`` (G step: discriminators in bf16, the
+    mixer's head in f32), each against its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from mixermdm_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    results = []
+
+    def rnd(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    # --- attention, f32 inputs ----------------------------------------------
+    for name, (B, H, T, D, causal) in (("attention f32 post-encoder D=96", (2, 8, 77, 96, False)),
+                                        ("attention f32 clip tower D=64", (2, 12, 77, 64, True))):
+        q, k, v = rnd(B, H, T, D), rnd(B, H, T, D), rnd(B, H, T, D)
+        am = torch.triu(torch.full((T, T), float("-inf"), device=dev), 1) if causal else None
+        n_bytes = 4 * 4 * B * H * T * D + (4 * T * T if causal else 0)
+        results.append(compare(
+            name, lambda: ops.fused_attention(q, k, v, None, am, False),
+            lambda: ops.fused_attention_plain(q, k, v, None, am, False), F32_TOL, n_bytes,
+            4 * B * H * T * T * D,
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am),
+            kind="attention_f32", peak=H100_F32_FLOPS, B=B, H=H, Tq=T, Tk=T, D=D,
+            zero_attn=False, causal=causal))
+
+    # --- attention_bwd -------------------------------------------------------
+    def bwd_case(name, dt, B, H, T, D, zero_attn, kpm_tail):
+        q, k, v, g = (rnd(B, H, T, D, dt=dt) for _ in range(4))
+        kpm = None
+        if kpm_tail:
+            kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
+            kpm[:, T - T // 5:] = True
+        kern = lambda: ops.attention_bwd(q, k, v, kpm, g, zero_attn)  # noqa: E731
+        plain = lambda: ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn)  # noqa: E731
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        # The f32 truth: torch.autograd.grad through the plain forward on the
+        # inputs widened to f32 (no custom backward involved).
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        out = ops.fused_attention_plain(*leaves, kpm, None, zero_attn)
+        want_f = torch.autograd.grad(out, leaves, g.float())
+
+        def rel(a, b):
+            return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+        f32 = dt == torch.float32
+        errs = {n: {"vs_plain": rel(a, b), "vs_f32_autograd": rel(a, c),
+                    "plain_vs_f32_autograd": rel(b, c)}
+                for n, a, b, c in zip(("dq", "dk", "dv"), got, want, want_f)}
+        tol = F32_TOL if f32 else BWD_BF16_TOL
+        ok = all(e["vs_plain"] <= tol for e in errs.values())
+        if f32:
+            ok = ok and all(e["vs_f32_autograd"] <= tol for e in errs.values())
+        else:  # witness: no farther from the f32 gradients than the plain version
+            ok = ok and all(
+                e["vs_f32_autograd"] <= WITNESS_RATIO * max(e["plain_vs_f32_autograd"], 1e-6)
+                for e in errs.values())
+        ok = ok and all(bool(torch.isfinite(t.float()).all()) for t in got)
+        n_bytes = 7 * B * H * T * D * q.element_size() + (4 * B * T if kpm_tail else 0)
+        b_ms, b_by = bound_ms(n_bytes, 5 * 2 * B * H * T * T * D,
+                              H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
+        kz = torch.cat([k, k.new_zeros(B, H, 1, D)], 2) if zero_attn else k
+        vz = torch.cat([v, v.new_zeros(B, H, 1, D)], 2) if zero_attn else v
+        bias = torch.zeros(B, 1, T, kz.shape[2], device=dev, dtype=dt)
+        if kpm is not None:
+            bias[..., :T] += ops.attention.key_bias(kpm)[:, None, None, :].to(dt)
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, kz, vz))
+
+        def library():  # SDPA forward + backward with the zero key appended
+            out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias)
+            return torch.autograd.grad(out, (lq, lk, lv), g)
+
+        res = {
+            "check": name, "kind": "attention_bwd",
+            "shape": {"B": B, "H": H, "Tq": T, "Tk": T, "D": D, "dtype": str(dt)[6:],
+                      "zero_attn": zero_attn, "key_padding": kpm_tail},
+            "max_abs_err": max(((a.float() - b.float()).abs().max().item())
+                               for a, b in zip(got, want)),
+            "max_rel_err": max(e["vs_plain"] for e in errs.values()),
+            "errors": errs, "tol_rel": tol,
+            "witness": None if f32 else
+            f"vs_f32_autograd <= {WITNESS_RATIO} x plain_vs_f32_autograd",
+            "ok": bool(ok), "ms": graph_timed(kern), "plain_ms": graph_timed(plain),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": timed(library),
+            "library_timing": "eager (autograd)", "eager_ms": timed(kern),
+        }
+        print("   " + json.dumps(res), flush=True)
+        return res
+
+    # G step: the discriminators' attention (bf16, 4 heads of 64, T = 300,
+    # zero-attn, key padding) and the mixer head's (f32, 8 heads of 96).
+    results.append(bwd_case("attention_bwd bf16 discriminator", torch.bfloat16, 8, 4, 300, 64,
+                            True, True))
+    results.append(bwd_case("attention_bwd f32 post-encoder", torch.float32, 8, 8, 77, 96,
+                            False, False))
+    return results
+
+
 # --------------------------------------------------------------------------
 # Phase 4: the sampling path at full width
 # --------------------------------------------------------------------------
@@ -483,6 +608,13 @@ def q8_checks(gen, compare, block_params, rnd):
 # 0.036); the witness below tests the explanation on every run.
 NET_TOL = 5e-2
 STEP_TOL = 1e-1
+# The conds (bf16 CLIP towers, f32 post-encoder heads) on the kernels against
+# the plain versions, max |diff| / max |plain|.  With bf16 heads the limit was
+# 0.05 (reading 0.0178).  With the heads in f32 the readings on an H100 were
+# 0.0165-0.0174 (rel(fro) 0.0097), the towers' bf16 noise; the limit is set
+# at 1.7x that, and the witness below holds the kernel path to the plain
+# path's distance from an all-f32 encode (readings 0.0083 vs 0.0084).
+COND_TOL = 3e-2
 # Witness for STEP_TOL: the same step in f32 (same weights, plain versions).
 # The kernels and the plain versions round at the same points (bf16 operands,
 # f32 accumulation, one rounding per output), so if the step's gap above is
@@ -557,9 +689,17 @@ def sample_phase(seed):
 
     # The text conds, both denoisers at the step's (CFG x person) batch, and
     # one CFG mixer step, on the kernels and on the plain versions; the
-    # networks and the step in bf16 and under W8A8.
+    # networks and the step in bf16 and under W8A8.  The conds come from bf16
+    # towers and f32 heads; the f32 twin (every network f32, plain versions)
+    # is the witness for them and for the step.
+    twin = copy.deepcopy(system).cast_(None)  # f32 networks never run int8
     cond, cond_p = both(lambda: system.generate_cond(batch))
-    _agree("text conds (3 towers + post-encoders)", cond, cond_p, NET_TOL, "max")
+    with ops.plain_versions():
+        cond_f = twin.generate_cond(batch)
+    _agree("text conds (3 bf16 towers + f32 heads)", cond, cond_p, COND_TOL, "max")
+    gap_p = _agree("text conds", cond_p, cond_f, None, "max", "plain vs f32")
+    _agree("text conds", cond, cond_f, WITNESS_RATIO * gap_p, "fro",
+           f"kernels vs f32 (at most {WITNESS_RATIO} x plain vs f32)")
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     x = torch.randn(B, T, 2 * system.nfeats, generator=gen, device="cuda")
     t = torch.full((B,), 979, dtype=torch.long, device="cuda")
@@ -587,7 +727,6 @@ def sample_phase(seed):
     _agree("interaction denoiser", nets["W8A8"], nets["bf16"], None, "fro",
            "W8A8 vs bf16 kernels")
     step = lambda: system.cfg_mixer_step(x, x, t, cond)  # noqa: E731
-    twin = copy.deepcopy(system).cast_(None)  # f32 networks never run int8
     with ops.plain_versions():
         step_f = twin.cfg_mixer_step(x, x, t, cond)
     del twin
@@ -613,8 +752,8 @@ def sample_phase(seed):
     q8_vs_bf16 = _gaps(steps["W8A8"][0], steps["bf16"][0])[2]
     if not q8_vs_bf16 > steps["W8A8"][1]:
         raise SmokeFailure(f"W8A8 step within {q8_vs_bf16:.4g} of the bf16 step: int8 did not run")
-    n = collections.Counter(type(m).__name__ for m in system.modules()
-                            if isinstance(m, layers.Int8Block))
+    n = collections.Counter(type(m).__name__ for net in (system.model1, system.model2, system.core)
+                            for m in net.modules() if isinstance(m, layers.Int8Block))
     sa, ca, ffn = n["VanillaSelfAttention"], n["VanillaCrossAttention"], n["FFN"]
     expected = {"linear_q8": 2 * sa + 3 * ca + 2 * ffn, "quant_rows": 2 * sa + 3 * ca + 2 * ffn,
                 "fused_sa_block_q8": sa, "fused_ca_block_q8": ca, "fused_ffn_block_q8": ffn,
@@ -638,8 +777,17 @@ def sample_phase(seed):
               f"replay {replay:.3f} ms; device idle in eager {1 - replay / eager:.3f}",
               flush=True)
 
-    # The main paths, counted: text encoding + the whole DDIM chain, on the
-    # bf16 path and on the shipped W8A8 path.
+    return system, batch
+
+
+def sample_main_paths(system, batch, seed):
+    """The main paths, counted: text encoding + the whole DDIM chain, on the
+    bf16 path and on the shipped W8A8 path."""
+    import torch
+
+    from mixermdm_tpu_torch import ops
+
+    B, T = len(PROMPTS), 299
     counts = {}
     for label, on in (("bf16", False), ("W8A8", True)):
         with _quant(system, on):
@@ -669,6 +817,210 @@ def sample_phase(seed):
 
 
 # --------------------------------------------------------------------------
+# Phase 6: adversarial training at full width
+# --------------------------------------------------------------------------
+
+MODEL_CFG, TRAIN_CFG = "configs/models/MixerMDM.yaml", "configs/train/MixerMDM.yaml"
+TRAIN_B, TRAIN_T = 8, 300
+# Gradients of one G and one D step, kernels against plain versions, per
+# trained subtree, rel(fro).  Both run bf16 networks and round at the same
+# points; the step's chain (denoisers -> alignment -> mixer ->
+# discriminators) carries the bf16 noise of the sums into the gradients.
+# Readings on an H100, with data statistics in the normalizers (see
+# _fixture_normalizer): 0.017 (core), 0.0086 (text head), 0.010 / 0.011
+# (discriminators); the limit is 3x the largest.  The witness (kernels vs f32
+# at most 1.5 x plain vs f32) read 0.93-1.09x.
+GRAD_TOL = 5e-2
+
+
+def _fixture(root, seed):
+    """A synthetic InterHuman dataset: 8 clips (16 items with the mirrored
+    copies), two longer than 300 frames (cropped), the rest shorter, so that
+    the discriminators' attention sees key padding in every batch."""
+    from mixermdm_tpu_torch.data.synthetic import make_interhuman_fixture
+
+    make_interhuman_fixture(root, n_clips=8, n_frames=[340, 301, 280, 240, 200, 150, 100, 60],
+                            seed=seed)
+
+
+def _fixture_normalizer(dataset):
+    """Per-feature mean and std of the fixture's valid frames (both persons),
+    as the InterHuman statistics are made from the training set; std floored
+    at 1e-2.  With the identity normalizer a random model's raw 6d rotations
+    are near zero, and the Gram-Schmidt of ``center_person`` (1 / |a|) then
+    amplifies bf16 noise without bound; with data statistics they sit near
+    the unit vectors of real motion."""
+    import numpy as np
+    import torch
+
+    from mixermdm_tpu_torch.utils.normalizer import Normalizer
+
+    frames = np.concatenate([np.concatenate([it["motion1"][:it["motion_lens"]],
+                                             it["motion2"][:it["motion_lens"]]])
+                             for it in (dataset[i] for i in range(len(dataset)))])
+    mean = torch.from_numpy(frames.mean(0).astype(np.float32)).cuda()
+    std = torch.from_numpy(np.maximum(frames.std(0), 1e-2).astype(np.float32)).cuda()
+    return Normalizer(mean, std)
+
+
+def _device_batch(system, batch):
+    import torch
+
+    return {"motions": torch.from_numpy(batch["motions"]).float().to(system.device),
+            "motion_lens": torch.from_numpy(batch["motion_lens"]).long().to(system.device),
+            **system.tokenize_batch(batch)}
+
+
+def train_phase(seed):
+    """Gradient check of one G and one D step (kernels vs plain versions vs
+    f32), the training CLI on a synthetic fixture with its launch counts,
+    and seconds per fit step with the differentiated attention on the
+    kernels and on the plain versions."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli import train_mixermdm
+    from mixermdm_tpu_torch.cli.infer_mixermdm import build_system
+    from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
+    from mixermdm_tpu_torch.data.loader import collate
+    from mixermdm_tpu_torch.models import layers
+    from mixermdm_tpu_torch.systems.mixermdm import DISC_MODULES, GEN_MODULES
+    from mixermdm_tpu_torch.train.trainer import trainable_params
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        data = os.path.join(tmp, "data")
+        _fixture(data, seed)
+        dataset = InterHumanDataset(data, mode="train")
+        batch_np = collate([dataset[i] for i in range(TRAIN_B)])
+        print(f"   fixture: {len(dataset)} items, batch lengths "
+              f"{batch_np['motion_lens'].tolist()} of T = {batch_np['motions'].shape[1]}",
+              flush=True)
+
+        # --- gradient check ---------------------------------------------------
+        t0 = time.time()
+        system = build_system(MODEL_CFG, device="cuda", seed=seed, zero_init_std=0.02, train=True)
+        system.normalizer1 = system.normalizer2 = _fixture_normalizer(dataset)
+        system.cast_(system.compute_dtype, train=True)  # the forward takes the new statistics
+        twin = copy.deepcopy(system).cast_(None, train=True)
+        print(f"   built the training system and its f32 twin in {time.time() - t0:.1f} s",
+              flush=True)
+        batch = _device_batch(system, batch_np)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        t = torch.randint(0, int(system.cfg.DIFFUSION_STEPS), (TRAIN_B,), generator=gen,
+                          device="cuda")
+        noise = torch.randn(TRAIN_B, TRAIN_T, 2 * system.nfeats, generator=gen, device="cuda")
+        drop = torch.zeros(TRAIN_B, 1, dtype=torch.bool, device="cuda")
+        drop[-1] = True
+
+        def side(sys_, mode, plain):
+            keys = GEN_MODULES if mode == "generator" else DISC_MODULES
+            params = trainable_params(sys_, keys)
+            for p in params:
+                p.requires_grad_(True)
+            try:
+                with ops.plain_versions() if plain else contextlib.nullcontext():
+                    cond = sys_.encode_cond(batch["tokens_inter"], batch["tokens_i1"],
+                                            batch["tokens_i2"])
+                    losses = sys_.compute_loss(batch["motions"], batch["motion_lens"], cond,
+                                               mode=mode, t=t, noise=noise, drop=drop,
+                                               dropout=False)
+                    grads = torch.autograd.grad(losses["total"], params)
+            finally:
+                for p in params:
+                    p.requires_grad_(False)
+            out, i = {}, 0
+            for k in keys:
+                n = len(list(sys_.get_submodule(k).parameters()))
+                out[k] = torch.cat([g.float().flatten() for g in grads[i:i + n]])
+                i += n
+            return {k: float(v) for k, v in losses.items()}, out
+
+        for mode in ("generator", "discriminator"):
+            lk, gk = side(system, mode, False)
+            lp, gp = side(system, mode, True)
+            lf, gf = side(twin, mode, True)
+            print(f"   {mode} step losses, kernels / plain / f32: "
+                  + ", ".join(f"{k} {lk[k]:.6g} / {lp[k]:.6g} / {lf[k]:.6g}" for k in lk),
+                  flush=True)
+            if not all(math.isfinite(v) for v in list(lk.values()) + list(lp.values())):
+                raise SmokeFailure(f"{mode} step losses are not finite")
+            for k in gk:
+                name = f"{mode} step, gradient of {k}"
+                _agree(name, gk[k], gp[k], GRAD_TOL, "fro")
+                gap_p = _agree(name, gp[k], gf[k], None, "fro", "plain vs f32")
+                _agree(name, gk[k], gf[k], WITNESS_RATIO * gap_p, "fro",
+                       f"kernels vs f32 (at most {WITNESS_RATIO} x plain vs f32)")
+        del system, twin
+        torch.cuda.empty_cache()
+
+        # --- the training CLI, counted -----------------------------------------
+        out_dir = os.path.join(tmp, "out")
+        argv = ["--model", MODEL_CFG, "--train", TRAIN_CFG, "--data-root", data, "--out-dir",
+                out_dir, "--batch-size", str(TRAIN_B), "--max-steps", "4", "--seed", str(seed),
+                "--init-std", "0.02", "--log-jsonl", os.path.join(tmp, "steps.jsonl")]
+        layers.set_train_attention("kernel")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = train_mixermdm.run(argv)
+        torch.cuda.synchronize()
+        counts = dict(ops.launches)
+        print(f"   train-mixermdm {' '.join(argv)}: {time.time() - t0:.1f} s for "
+              f"{len(out['records'])} fit steps (system build included)", flush=True)
+        for r in out["records"]:
+            print("   " + json.dumps(r), flush=True)
+        print(f"   launches in the training run: {json.dumps(counts, sort_keys=True)}", flush=True)
+        if len(out["records"]) != 4 or not all(
+                math.isfinite(r["g_total"]) and math.isfinite(r["d_total"])
+                for r in out["records"]):
+            raise SmokeFailure("training losses missing or not finite")
+        trained = out["system"]
+        ref = build_system(MODEL_CFG, device="cuda", seed=seed, zero_init_std=0.02, train=True)
+        frozen = ("model1", "model2", "text.clip")
+        changed = ("core", "text.post.mixer", "disc_i", "disc_I")
+        for name in frozen + changed:
+            a = trained.get_submodule(name).state_dict()
+            b = ref.get_submodule(name).state_dict()
+            same = all(torch.equal(a[k], b[k]) for k in a)
+            print(f"   after training, {name}: {'bitwise unchanged' if same else 'changed'}",
+                  flush=True)
+            if same != (name in frozen):
+                raise SmokeFailure(f"{name} should {'not ' if name in frozen else ''}change")
+        del ref
+        torch.cuda.empty_cache()
+
+        # --- seconds per fit step, differentiated attention kernel vs plain ----
+        trainer = out["trainer"]
+        readings = {}
+        for bsz in (TRAIN_B, 64):
+            items = [dataset[i % len(dataset)] for i in range(bsz)]
+            big = _device_batch(trained, collate(items))
+            step_gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+            for impl in ("kernel", "plain", "kernel", "plain"):
+                layers.set_train_attention(impl)
+                trainer.fit_step(big, step_gen, 0)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.time()
+                for _ in range(2):
+                    trainer.fit_step(big, step_gen, 0)
+                torch.cuda.synchronize()
+                readings.setdefault(f"B={bsz} {impl}", []).append((time.time() - t0) / 2)
+        layers.set_train_attention("kernel")
+        print("   s per fit step (G + D step, eager, two turns each): "
+              + json.dumps({k: [round(v, 4) for v in vs] for k, vs in readings.items()}),
+              flush=True)
+        return counts
+    finally:
+        layers.set_train_attention("kernel")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -681,6 +1033,12 @@ KERNELS = {
     "attention": ("mixermdm_tpu_torch/csrc/attention.cu",
                   "mixermdm_tpu/ops/attention.py:47 (_attn_body; attention loop of "
                   "fused_block.py:80 and :259)"),
+    "attention_f32": ("mixermdm_tpu_torch/csrc/attention.cu",
+                      "mixermdm_tpu/ops/attention.py:47 (_attn_body, f32 softmax branch :60; "
+                      "pallas_call :273)"),
+    "attention_bwd": ("mixermdm_tpu_torch/csrc/attention_bwd.cu",
+                      "mixermdm_tpu/ops/attention.py:370 (_fused_attention_bwd_impl -> "
+                      "pallas_call :412, body _attn_bwd_kernel :323)"),
     "fused_attention": ("mixermdm_tpu_torch/ops/attention.py",
                         "mixermdm_tpu/ops/attention.py:103 (fused_attention -> pallas_call :273)"),
     "fused_sa_block": ("mixermdm_tpu_torch/ops/fused_block.py",
@@ -708,17 +1066,30 @@ KERNELS = {
 # The kernels each main path must launch.  The shipped config samples on the
 # W8A8 path; the bf16 path (QUANT_FROZEN off) runs the bf16 block forms.
 PATH_KERNELS = {
-    "W8A8": ("adaln_modulate", "linear_epilogue", "attention", "fused_attention", "quant_rows",
-             "linear_q8", "fused_sa_block_q8", "fused_ca_block_q8", "fused_ffn_block_q8"),
-    "bf16": ("adaln_modulate", "linear_epilogue", "attention", "fused_attention",
-             "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
+    "W8A8": ("adaln_modulate", "linear_epilogue", "attention", "attention_f32",
+             "fused_attention", "quant_rows", "linear_q8", "fused_sa_block_q8",
+             "fused_ca_block_q8", "fused_ffn_block_q8"),
+    "bf16": ("adaln_modulate", "linear_epilogue", "attention", "attention_f32",
+             "fused_attention", "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
+    # Adversarial training: the frozen denoisers on the bf16 blocks, the
+    # discriminators' attention forward and backward in bf16, the mixer
+    # head's in f32.
+    "train": ("adaln_modulate", "linear_epilogue", "attention", "attention_f32",
+              "attention_bwd", "fused_attention", "fused_sa_block", "fused_ca_block",
+              "fused_ffn_block"),
 }
+# The path whose counts stand in a kernel's row: the shipped sampling path,
+# the bf16 one for the bf16 block forms, the training path for the kernels
+# it brought.
+ROW_PATH = {"attention_f32": "train", "attention_bwd": "train"}
 # The check whose numbers stand for each name in the kernels line: the
 # largest main-path shape.
 REPRESENTATIVE = {
     "adaln_modulate": "adaln_modulate E=1024 T=299",
     "linear_epilogue": "linear QKV E=1024",
     "attention": "attention denoiser D=128",
+    "attention_f32": "attention f32 post-encoder D=96",
+    "attention_bwd": "attention_bwd bf16 discriminator",
     "fused_attention": "attention clip tower",
     "fused_sa_block": "fused_sa_block E=1024 T=299 residual=True",
     "fused_ca_block": "fused_ca_block E=1024 T=299 residual=True",
@@ -732,13 +1103,14 @@ REPRESENTATIVE = {
 
 
 def kernels_line(results, counts):
-    """One row per kernel and entry point; ``launches`` from the W8A8 main
-    path, or from the bf16 one for the bf16 block forms that only it runs."""
+    """One row per kernel and entry point; ``launches`` from the main path
+    of :data:`ROW_PATH` (else the W8A8 sampling path, or the bf16 one for the
+    bf16 block forms that only it runs)."""
     by_name = {r["check"]: r for r in results}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = by_name[REPRESENTATIVE[name]]
-        path = "W8A8" if name in PATH_KERNELS["W8A8"] else "bf16"
+        path = ROW_PATH.get(name, "W8A8" if name in PATH_KERNELS["W8A8"] else "bf16")
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": int(counts[path].get(name, 0)), "path": path,
@@ -783,7 +1155,9 @@ def main(argv=None):
     _lib.library()
     done(t0)
 
-    t0 = phase("3. kernels against their plain versions (bf16 and W8A8, on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references are full f32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = phase("3. kernels against their plain versions (bf16, W8A8, f32, backward)")
     torch.manual_seed(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = kernel_checks(gen)
@@ -792,11 +1166,21 @@ def main(argv=None):
     if bad:
         raise SmokeFailure("kernels disagree with their plain versions: " + ", ".join(bad))
 
-    t0 = phase("4. sampling path at full width")
-    counts = sample_phase(args.seed)
+    t0 = phase("4. sampling path at full width: networks and one step, kernels vs plain")
+    system, batch = sample_phase(args.seed)
     done(t0)
 
-    t0 = phase("5. summary")
+    t0 = phase("5. sampling main paths (text + DDIM-50, W8A8 and bf16), counted")
+    counts = sample_main_paths(system, batch, args.seed)
+    del system
+    torch.cuda.empty_cache()
+    done(t0)
+
+    t0 = phase("6. adversarial training at full width")
+    counts["train"] = train_phase(args.seed)
+    done(t0)
+
+    t0 = phase("7. summary")
     line = kernels_line(results, counts)
     missing = [f"{name} ({path} path)" for path, names in PATH_KERNELS.items() for name in names
                if not counts[path].get(name)]

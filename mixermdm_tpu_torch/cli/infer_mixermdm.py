@@ -54,10 +54,12 @@ def tiny_configs():
 
 def build_system(model_cfg_path: Optional[str] = None, *, align: bool = True,
                  tiny: bool = False, device="cuda", quant_frozen: Optional[bool] = None,
-                 seed: int = 0, zero_init_std: float = 0.0) -> MixerMDMSystem:
+                 seed: int = 0, zero_init_std: float = 0.0,
+                 train: bool = False) -> MixerMDMSystem:
     """The MixerMDM system of a config file (default: the shipped
     architecture), built on ``device`` with random weights from ``seed``.
-    ``quant_frozen`` overrides the config's QUANT_FROZEN."""
+    ``quant_frozen`` overrides the config's QUANT_FROZEN; ``train`` keeps
+    f32 master weights in the trained subtrees."""
     if tiny:
         cfg, cfg1, clip_cfg = tiny_configs()
         cfg2 = cfg1
@@ -73,7 +75,7 @@ def build_system(model_cfg_path: Optional[str] = None, *, align: bool = True,
         m1 = In2INSystem(cfg1, mode="individual", clip_cfg=clip_cfg)
         m2 = In2INSystem(cfg2, mode="interaction", clip_cfg=clip_cfg)
         system = MixerMDMSystem(cfg, model1=m1, model2=m2, clip_cfg=clip_cfg, align=align,
-                                device=device)
+                                device=device, train=train)
     return init_params_(system, seed, zero_init_std)
 
 

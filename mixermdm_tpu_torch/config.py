@@ -188,9 +188,21 @@ MIXERMDM_DEFAULT = Config.wrap(
         "MOTION_REP": "global", "T_BAR": 700, "STRATEGY": "ddim50",
         "CFG_WEIGHT": 3.5, "MIXING_MODE": 4, "FORCE_INFLUENCE_VAL": None,
         # W8A8 int8 projections for the frozen denoisers at sampling time, as
-        # in the JAX package's default.  The port does not have that path yet
-        # and refuses the setting where it would engage (systems/mixermdm.py).
+        # in the JAX package's default (systems/mixermdm.py).
         "QUANT_FROZEN": True,
+    }
+)
+
+# Adversarial training defaults mirroring configs/train/MixerMDM.yaml.
+MIXERMDM_TRAIN_DEFAULT = Config.wrap(
+    {
+        "GENERAL": {"EXP_NAME": "mixermdm-tpu", "CHECKPOINT": "./checkpoints", "LOG_DIR": "./log"},
+        "TRAIN": {
+            "LR": 1e-5, "WEIGHT_DECAY": 1e-4, "BATCH_SIZE": 64, "EPOCH": 300,
+            "LOG_STEPS": 25, "SAVE_EPOCH": 25, "NUM_WORKERS": 4,
+            "INDIVIDUAL_LOSS_FACTOR": 1, "INTERACTION_LOSS_FACTOR": 2,
+            "DISCRIMINATOR_STEPS": 1, "GRAD_ACC_STEPS": 2, "LOSS_L1": 0.1,
+        },
     }
 )
 

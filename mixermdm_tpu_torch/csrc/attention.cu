@@ -24,6 +24,16 @@
 // package quantises that block's attention output from f32
 // (mixermdm_tpu/ops/fused_block.py:140-146, heads concatenated before any
 // cast), so the f32 instantiation hands the unrounded values to quant_rows.
+//
+// f32 inputs (the f32 softmax branch of _attn_body, attention.py:60; on the
+// port's paths the CLIP post-encoders, (B, 8, 77, 96), no zero-attn, no
+// mask) take attention_f32_kernel: f32 in, f32 out, every product an f32 FMA
+// on the CUDA cores.  No tensor core: a TF32 product keeps ~10 bits and could
+// not meet the 1e-5 agreement the f32 path is held to.  One block owns a
+// (batch, head, 32-query tile) and streams 32-key tiles of K and V through
+// shared memory with the same online softmax and zero-attn initial state.
+// At T = 77 it is latency-bound (48 blocks at B = 2); its bound on the card
+// is the f32 FMA rate, 67 TFLOP/s.
 #include "common.cuh"
 
 using mm::bf16;
@@ -34,7 +44,7 @@ constexpr int BQ = 64, BKV = 64, kThreads = 128;  // 4 warps x 16 query rows
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  const bf16 *q, *k, *v;
+  const void *q, *k, *v;  // bf16, or f32 for attention_f32_kernel
   void* o;  // bf16, or f32 for the OF32 instantiation
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st;
   const float* kbias;  // (B, Tk) additive, or null
@@ -66,9 +76,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const Params p) {
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bf16* Q = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* K = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* V = p.v + b * p.v_sb + h * p.v_sh;
+  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* K = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* V = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const long long o_off = b * p.o_sb + h * p.o_sh;
 
   load_rows<D>(sQ, Q, p.q_st, q0, p.Tq, tid);
@@ -229,8 +239,129 @@ int launch(const Params& p, int B, int H, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// f32 inputs: scalar FMA.  256 threads; thread t owns query row r = t / 8 of
+// the tile and key / output columns c = t % 8 + 8 j, so a row's eight
+// threads are eight neighbouring lanes of one warp and reduce with shuffles.
+// Shared rows are padded to D + 1 floats, so the eight key rows a warp reads
+// at one d fall in eight different banks.
+// ---------------------------------------------------------------------------
+
+constexpr int FB = 32, kF32Threads = 256;
+
 template <int D>
-int launch(const Params& p, int B, int H, int out_f32, cudaStream_t s) {
+__device__ __forceinline__ void load_rows_f32(float* s, const float* g, long long st, int row0,
+                                              int rows_total, int tid) {
+  for (int i = tid; i < FB * D; i += kF32Threads) {
+    const int r = i / D, d = i % D;
+    s[r * (D + 1) + d] = row0 + r < rows_total ? g[(size_t)(row0 + r) * st + d] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(const Params p) {
+  constexpr int LD = D + 1, NC = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + FB * LD;
+  float* sV = sK + FB * LD;
+  float* sP = sV + FB * LD;  // FB x (FB + 1)
+
+  const int q0 = blockIdx.x * FB, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, r = tid >> 3, kc = tid & 7;
+  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int row = q0 + r;
+
+  load_rows_f32<D>(sQ, Q, p.q_st, q0, p.Tq, tid);
+  float m = p.zero_attn ? 0.f : -INFINITY;  // the zero key: logit 0, value 0
+  float l = p.zero_attn ? 1.f : 0.f;
+  float o[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) o[j] = 0.f;
+
+  for (int k0 = 0; k0 < p.Tk; k0 += FB) {
+    __syncthreads();  // the previous tile's K, V and P are no longer read
+    load_rows_f32<D>(sK, K, p.k_st, k0, p.Tk, tid);
+    load_rows_f32<D>(sV, V, p.v_st, k0, p.Tk, tid);
+    __syncthreads();
+
+    float s[FB / 8];
+#pragma unroll
+    for (int i = 0; i < FB / 8; ++i) s[i] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float qd = sQ[r * LD + d];
+#pragma unroll
+      for (int i = 0; i < FB / 8; ++i) s[i] = fmaf(qd, sK[(kc + 8 * i) * LD + d], s[i]);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < FB / 8; ++i) {
+      const int col = k0 + kc + 8 * i;
+      float v = s[i] * p.scale;
+      if (col >= p.Tk) {
+        v = -INFINITY;
+      } else {
+        if (p.kbias != nullptr) v += p.kbias[(size_t)b * p.Tk + col];
+        if (p.amask != nullptr && row < p.Tq) v += p.amask[(size_t)row * p.Tk + col];
+      }
+      s[i] = v;
+      mx = fmaxf(mx, v);
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 8; o_ <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+    const float mnew = fmaxf(m, mx);
+    const float mref = mnew == -INFINITY ? 0.f : mnew;  // no finite logit yet
+    const float alpha = expf(m - mref);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < FB / 8; ++i) {
+      const float pv = expf(s[i] - mref);
+      sum += pv;
+      sP[r * (FB + 1) + kc + 8 * i] = pv;
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 8; o_ <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o_);
+    m = mnew;
+    l = l * alpha + sum;
+    __syncwarp();  // a row's P is written and read by the same eight lanes
+#pragma unroll
+    for (int j = 0; j < NC; ++j) o[j] *= alpha;
+    const int nk = min(FB, p.Tk - k0);
+    for (int kk = 0; kk < nk; ++kk) {
+      const float pv = sP[r * (FB + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) o[j] = fmaf(pv, sV[kk * LD + kc + 8 * j], o[j]);
+    }
+  }
+  if (row >= p.Tq) return;
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+  float* O = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + (size_t)row * p.o_st;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) O[kc + 8 * j] = o[j] * inv;
+}
+
+template <int D>
+int launch_f32(const Params& p, int B, int H, cudaStream_t s) {
+  const int smem = (3 * FB * (D + 1) + FB * (FB + 1)) * static_cast<int>(sizeof(float));
+  static bool configured = false;
+  if (!configured) {
+    cudaFuncSetAttribute(attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    configured = true;
+  }
+  const dim3 grid((p.Tq + FB - 1) / FB, H, B);
+  attention_f32_kernel<D><<<grid, kF32Threads, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+template <int D>
+int launch(const Params& p, int B, int H, int in_f32, int out_f32, cudaStream_t s) {
+  if (in_f32) return launch_f32<D>(p, B, H, s);
   return out_f32 ? launch<D, true>(p, B, H, s) : launch<D, false>(p, B, H, s);
 }
 
@@ -238,15 +369,17 @@ int launch(const Params& p, int B, int H, int out_f32, cudaStream_t s) {
 
 // strides: 12 int64 values, (batch, head, row) strides of q, k, v, o in
 // elements; the stride along D is 1.  kbias (B, Tk) and amask (Tq, Tk) are
-// f32 and may be null.  D in {64, 96, 128}.  o is bf16, or f32 when out_f32.
+// f32 and may be null.  D in {64, 96, 128}.  q, k, v are bf16, or f32 when
+// in_f32 (then o is f32 too); with bf16 inputs o is bf16, or f32 when
+// out_f32.
 extern "C" int mm_attention(const void* q, const void* k, const void* v, void* o,
                             const long long* strides, const void* kbias, const void* amask,
                             int B, int H, int Tq, int Tk, int D, int zero_attn, float scale,
-                            int out_f32, void* stream) {
+                            int in_f32, int out_f32, void* stream) {
   Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
+  p.q = q;
+  p.k = k;
+  p.v = v;
   p.o = o;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_st = strides[2];
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_st = strides[5];
@@ -260,9 +393,9 @@ extern "C" int mm_attention(const void* q, const void* k, const void* v, void* o
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(p, B, H, out_f32, s);
-    case 96: return launch<96>(p, B, H, out_f32, s);
-    case 128: return launch<128>(p, B, H, out_f32, s);
+    case 64: return launch<64>(p, B, H, in_f32, out_f32, s);
+    case 96: return launch<96>(p, B, H, in_f32, out_f32, s);
+    case 128: return launch<128>(p, B, H, in_f32, out_f32, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -70,6 +70,8 @@ class DiffusionSchedule(NamedTuple):
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
     timestep_map: torch.Tensor  # int64
+    sqrt_alphas_cumprod: torch.Tensor           # q_sample (training)
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
 
     @property
     def num_timesteps(self) -> int:
@@ -104,6 +106,8 @@ def make_schedule(betas: np.ndarray, use_timesteps: Sequence[int] | None = None,
         sqrt_recip_alphas_cumprod=arr(np.sqrt(1.0 / alphas_cumprod)),
         sqrt_recipm1_alphas_cumprod=arr(np.sqrt(1.0 / alphas_cumprod - 1.0)),
         timestep_map=torch.tensor(timestep_map, dtype=torch.long, device=device),
+        sqrt_alphas_cumprod=arr(np.sqrt(alphas_cumprod)),
+        sqrt_one_minus_alphas_cumprod=arr(np.sqrt(1.0 - alphas_cumprod)),
     )
 
 

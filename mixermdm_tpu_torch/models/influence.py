@@ -17,10 +17,10 @@ from .layers import Linear
 
 class Influence(nn.Module):
     def __init__(self, input_shape: int, n_blocks: int = 4, n_heads: int = 8,
-                 ff_size: int = 1024, mode: int = 4):
+                 ff_size: int = 1024, mode: int = 4, dropout: float = 0.0):
         super().__init__()
         self.mode = mode
-        self.blocks = nn.ModuleList(InfluenceBlockCross(input_shape, n_heads, ff_size)
+        self.blocks = nn.ModuleList(InfluenceBlockCross(input_shape, n_heads, ff_size, dropout)
                                     for _ in range(n_blocks))
         self.out = Linear(input_shape, 1 if mode in (1, 2) else 23)
 

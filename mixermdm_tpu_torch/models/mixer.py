@@ -31,14 +31,14 @@ class MixerCore(nn.Module):
 
     def __init__(self, nfeats: int = 262, latent_dim: int = 512, ff_size: int = 1024,
                  n_blocks: int = 4, n_heads: int = 8, text_dim: int = 768,
-                 mixing_mode: int = 4):
+                 mixing_mode: int = 4, dropout: float = 0.0):
         super().__init__()
         self.mixing_mode = mixing_mode
         self.embed_timestep = TimestepEmbedder(latent_dim)
         self.text_embed = Linear(text_dim, latent_dim)
         self.motion_embed = Linear(nfeats, latent_dim)
         self.sequence_pos_encoder = PositionalEncoding(latent_dim)
-        self.influence = Influence(latent_dim, n_blocks, n_heads, ff_size, mixing_mode)
+        self.influence = Influence(latent_dim, n_blocks, n_heads, ff_size, mixing_mode, dropout)
 
     def forward(self, out1_1, out1_2, out2_1, out2_2, timesteps, cond_I, cond_i1, cond_i2,
                 mask=None):
@@ -97,6 +97,10 @@ def make_mixer_forward(cfg: MixerConfig, denoiser1: Callable, denoiser2: Callabl
     ``denoiser1(x, t, mask, cond)`` -> (B, T, 262), ``denoiser2`` -> (B, T,
     524), ``core`` a :class:`MixerCore`.  With ``compute_dtype`` the
     networks run in it; the diffusion arithmetic and the alignment stay f32.
+    The denoisers are frozen: they run under ``torch.no_grad()`` (the JAX
+    package's ``stop_gradient`` on their cond slices and
+    ``fused_scope(frozen)``), so no gradient reaches them and they take the
+    fused kernels in training too; the core's conds keep their gradient.
     """
     sl = cfg.cond_slices()
     F = cfg.nfeats
@@ -112,8 +116,9 @@ def make_mixer_forward(cfg: MixerConfig, denoiser1: Callable, denoiser2: Callabl
         cond1_both = torch.cat([cut(cond, "cond1_1"), cut(cond, "cond1_2")], 0).to(cd)
         t2 = torch.cat([t, t], 0)
         mask2 = None if mask is None else torch.cat([mask, mask], 0)
-        out1_both = denoiser1(x1_both, t2, mask2, cond1_both).float()
-        out2 = denoiser2(x2.to(cd), t, mask, cut(cond, "cond2").to(cd)).float()
+        with torch.no_grad():
+            out1_both = denoiser1(x1_both, t2, mask2, cond1_both).float()
+            out2 = denoiser2(x2.to(cd), t, mask, cut(cond, "cond2").to(cd)).float()
 
         out1_both = normalizer1.backward(out1_both)
         out2 = normalizer2.backward(out2.reshape(B, T, 2, -1)).reshape(B, T, -1)

@@ -31,7 +31,7 @@ import time
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("adaln.cu", "linear.cu", "attention.cu", "quant.cu", "linear_q8.cu")
+SOURCES = ("adaln.cu", "linear.cu", "attention.cu", "attention_bwd.cu", "quant.cu", "linear_q8.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libmixermdm_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -148,12 +148,14 @@ def library() -> ctypes.CDLL:
     lib.mm_adaln_modulate.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
     lib.mm_linear.argtypes = [vp, i64, vp, i64, vp, vp, i64, vp, i64, i32, i32, i32, i32, vp]
     lib.mm_attention.argtypes = [vp, vp, vp, vp, ctypes.POINTER(i64), vp, vp,
-                                 i32, i32, i32, i32, i32, i32, f32, i32, vp]
+                                 i32, i32, i32, i32, i32, i32, f32, i32, i32, vp]
+    lib.mm_attention_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                     i32, i32, i32, i32, i32, i32, f32, i32, vp]
     lib.mm_quant_rows.argtypes = [vp, i32, vp, vp, i32, i32, vp]
     lib.mm_linear_q8.argtypes = [vp, i64, vp, vp, i64, vp, vp, vp, i64, vp, i64,
                                  i32, i32, i32, i32, vp]
-    for fn in (lib.mm_adaln_modulate, lib.mm_linear, lib.mm_attention, lib.mm_quant_rows,
-               lib.mm_linear_q8):
+    for fn in (lib.mm_adaln_modulate, lib.mm_linear, lib.mm_attention, lib.mm_attention_bwd,
+               lib.mm_quant_rows, lib.mm_linear_q8):
         fn.restype = ctypes.c_int
     return lib
 

@@ -42,11 +42,17 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., K), weight (N, K) torch layout, bias (N,) -> (..., N).
 
-    A CPU tensor (any tensor inside ``ops.plain_versions()``) takes
-    :func:`linear_plain`; a CUDA tensor launches the
-    kernel or raises.
+    A CPU tensor (any tensor inside ``ops.plain_versions()``) and an f32
+    tensor take :func:`linear_plain`; a bf16 CUDA tensor launches the kernel,
+    anything else raises.
     """
-    if _lib.use_plain(x):
+    # f32 stays off the kernel, on the card too: the f32 dense layers (the
+    # CLIP post-encoders' projections and FFN) run on XLA in the JAX package,
+    # outside any Pallas kernel (mixermdm_tpu/models/layers.py:284), so they
+    # take the plain f32 product here, which is not counted as a launch.
+    # The kernel stays bf16, the dtype of every projection the Pallas blocks
+    # make.
+    if _lib.use_plain(x) or x.dtype == torch.float32:
         return linear_plain(x, weight, bias, activation=activation, residual=residual)
     if activation not in _EPILOGUE:
         raise ValueError(f"unknown activation {activation!r}")

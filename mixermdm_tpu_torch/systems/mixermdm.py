@@ -18,10 +18,21 @@ network is frozen, so, as the JAX package's ``_sample_impl`` /
 :func:`..models.layers.w8a8_scope`, where the SA, CA and FFN blocks of both
 denoisers and of the mixer core at width >= 512 run their projections as
 int8 (bf16 compute only).  The int8 weights are quantised from the bf16
-weights in :meth:`cast_`; text encoding stays bf16.
+weights in :meth:`cast_`; text encoding is never int8 (the towers run in
+bf16, the post-encoder heads in f32).
 
-Not ported yet: training (discriminators, losses), the DPM-Solver++
-sampler, trajectory control / warm start.
+Training (``compute_loss``, the JAX ``compute_loss`` / ``_loss_body``): the
+two discriminators, the adversarial losses of
+:func:`..diffusion.mixer_diffusion.mixer_training_losses`, the frozen
+denoisers under ``torch.no_grad()`` on their fused bf16 kernels (never int8:
+``QUANT_FROZEN`` gates sampling only, and ``QUANT_TRAIN`` is not ported).
+Every parameter starts frozen (``requires_grad`` off) and every module in
+eval mode; the trainer turns on the side it trains.  Built with
+``train=True``, the trainable subtrees (``core``, ``text.post.mixer``,
+``disc_i``, ``disc_I``) keep f32 master weights, cast to the compute dtype
+per forward as the JAX package casts their inputs.
+
+Not ported yet: the DPM-Solver++ sampler, trajectory control / warm start.
 """
 
 from __future__ import annotations
@@ -32,15 +43,27 @@ import torch
 from torch import nn
 
 from ..config import MIXERMDM_DEFAULT, Config
-from ..diffusion.mixer_diffusion import ddim_sample_loop_x2
+from ..diffusion.mixer_diffusion import ddim_sample_loop_x2, mixer_training_losses
+from ..diffusion.samplers import named_schedule_sampler
 from ..diffusion.schedule import named_schedule, resolve_sampler_strategy
 from ..models.cfg import cfg_model_x2
 from ..models.clip_text import ClipTextConfig
+from ..models.discriminator import DiscriminatorTransformer
 from ..models.layers import Int8Block, w8a8_scope
 from ..models.mixer import MixerConfig, MixerCore, make_mixer_forward
 from ..utils.normalizer import Normalizer, hml3d_normalizer, interhuman_normalizer
-from .in2in import In2INSystem
+from .in2in import In2INSystem, generate_src_mask
 from .text import TextPipeline
+
+# The subtrees each side of the adversarial training updates (the JAX
+# trainer's GEN_KEYS / DISC_KEYS: the mixer core and its own post-encoder
+# head; the two discriminators).  The CLIP towers and both denoisers never
+# train.
+GEN_MODULES = ("core", "text.post.mixer")
+DISC_MODULES = ("disc_i", "disc_I")
+# Probability that a training sample's conds are all zeroed (classifier-free
+# guidance training; the JAX trainer's cond_mask_prob).
+COND_MASK_PROB = 0.1
 
 
 def resolve_compute_dtype(compute_dtype, device: torch.device) -> Optional[torch.dtype]:
@@ -63,15 +86,17 @@ class MixerMDMSystem(nn.Module):
                  clip_cfg: Optional[ClipTextConfig] = None, align: bool = True,
                  data_root: str = "./data", normalizer1: Optional[Normalizer] = None,
                  normalizer2: Optional[Normalizer] = None, compute_dtype="auto",
-                 device="cuda"):
+                 device="cuda", train: bool = False):
         super().__init__()
         device = torch.device(device)
         self.cfg = cfg or MIXERMDM_DEFAULT
         g = self.cfg.GENERATOR if "GENERATOR" in self.cfg else self.cfg
+        d = self.cfg.DISCRIMINATOR if "DISCRIMINATOR" in self.cfg else self.cfg
         self.nfeats = int(g.INPUT_DIM)
         self.align = align
         self.compute_dtype = resolve_compute_dtype(compute_dtype, device)
         self.quant_frozen = bool(self.cfg.get("QUANT_FROZEN", False))
+        self.quant_train = bool(self.cfg.get("QUANT_TRAIN", False))
 
         sampler_type, strategy = resolve_sampler_strategy(self.cfg)
         if sampler_type != "ddim":
@@ -91,14 +116,24 @@ class MixerMDMSystem(nn.Module):
             c = self.mixer_cfg
             self.core = MixerCore(nfeats=c.nfeats, latent_dim=c.latent_dim, ff_size=c.ff_size,
                                   n_blocks=c.n_blocks, n_heads=c.n_heads, text_dim=c.text_dim,
-                                  mixing_mode=c.mixing_mode)
+                                  mixing_mode=c.mixing_mode,
+                                  dropout=float(g.get("DROPOUT", 0.0)))
+            disc = dict(latent_dim=int(d.LATENT_DIM), ff_size=int(d.FF_SIZE),
+                        num_layers=int(d.NUM_LAYERS), num_heads=int(d.NUM_HEADS),
+                        text_emb_dim=c.denoiser2_text_dim, dropout=float(d.get("DROPOUT", 0.0)))
+            self.disc_i = DiscriminatorTransformer(self.nfeats, **disc)
+            self.disc_I = DiscriminatorTransformer(2 * self.nfeats, **disc)
             # The mixer's own CLIP post-encoder for the influence conds.
             self.text = TextPipeline(clip_cfg or self.model2.text.clip_cfg, heads=("mixer",))
         self.to(device)
+        self.requires_grad_(False)
+        self.eval()
 
         steps = int(self.cfg.DIFFUSION_STEPS)
         self.sample_schedule = named_schedule(self.cfg.BETA_SCHEDULER, steps, strategy,
                                               device=device)
+        self.train_schedule = named_schedule(self.cfg.BETA_SCHEDULER, steps, device=device)
+        self._sample_t = named_schedule_sampler(self.cfg.get("SAMPLER", "uniform"), steps)
         self.normalizer1 = (normalizer1 if normalizer1 is not None
                             else hml3d_normalizer(data_root)).to(device)
         self.normalizer2 = (normalizer2 if normalizer2 is not None
@@ -106,18 +141,31 @@ class MixerMDMSystem(nn.Module):
         self.cfg_weight = float(self.cfg.CFG_WEIGHT)
         fiv = self.cfg.get("FORCE_INFLUENCE_VAL", None)
         self.force_influence_val = None if fiv in (None, "None", "") else float(fiv)
-        self.cast_(self.compute_dtype)
+        self.cast_(self.compute_dtype, train=train)
 
-    def cast_(self, compute_dtype) -> "MixerMDMSystem":
+    def text_pipelines(self) -> tuple:
+        """The three text pipelines: in2IN-individual's, in2IN-interaction's
+        and the mixer's own."""
+        return self.model1.text, self.model2.text, self.text
+
+    def cast_(self, compute_dtype, train: bool = False) -> "MixerMDMSystem":
         """Run the networks in ``compute_dtype`` (None: f32) from now on,
-        with the weights cast to it once.  Buffers (normalizer statistics,
-        positional tables) stay f32.  Under ``QUANT_FROZEN`` in bf16 the
-        blocks that will run as int8 quantise their weights here, from the
-        bf16 values, as the JAX package quantises its bf16-cast tree."""
+        with the weights cast to it once.  The text post-encoder heads of
+        all three pipelines stay f32, as the JAX package runs them on its
+        f32 parameters; with ``train`` the trainable subtrees
+        (:data:`GEN_MODULES`, :data:`DISC_MODULES`) keep f32 master weights
+        too.  Buffers (normalizer statistics, positional tables) stay f32.
+        Under ``QUANT_FROZEN`` in bf16 (not ``train``) the blocks that will
+        run as int8 quantise their weights here, from the bf16 values, as
+        the JAX package quantises its bf16-cast tree."""
         self.compute_dtype = compute_dtype
+        f32 = [tp.post for tp in self.text_pipelines()]
+        if train:
+            f32 += [self.get_submodule(n) for n in GEN_MODULES + DISC_MODULES]
+        keep = {id(p) for m in f32 for p in m.parameters()}
         for p in self.parameters():
-            p.data = p.data.to(compute_dtype or torch.float32)
-        if self.quant_frozen and compute_dtype == torch.bfloat16:
+            p.data = p.data.to(torch.float32 if id(p) in keep else compute_dtype or torch.float32)
+        if self.quant_frozen and compute_dtype == torch.bfloat16 and not train:
             with w8a8_scope():
                 for m in self.modules():
                     if isinstance(m, Int8Block) and m.runs_int8(compute_dtype):
@@ -139,21 +187,75 @@ class MixerMDMSystem(nn.Module):
                 "tokens_i1": self.text.tokenize(batch["text_individual1"]),
                 "tokens_i2": self.text.tokenize(batch["text_individual2"])}
 
-    @torch.inference_mode()
     def encode_cond(self, tokens_inter, tokens_i1, tokens_i2) -> torch.Tensor:
         """(B, 8 * 768) f32 cond, ordered [I, I_i1, I_i2, ind_i1, ind_i2,
-        mix_I, mix_i1, mix_i2] (reference mixermdm.py:315-356)."""
+        mix_I, mix_i1, mix_i2] (reference mixermdm.py:315-356).  The frozen
+        submodels' conds are computed under ``torch.no_grad()``; the mixer's
+        own head records a gradient when its parameters require one (the
+        generator step)."""
         enc2 = lambda tok: self.model2.encode_tokens(tok, "interaction")  # noqa: E731
         enc1 = lambda tok: self.model1.encode_tokens(tok, "individual")  # noqa: E731
         encm = lambda tok: self.text.encode(tok, "mixer")  # noqa: E731
-        return torch.cat([enc2(tokens_inter), enc2(tokens_i1), enc2(tokens_i2),
-                          enc1(tokens_i1), enc1(tokens_i2),
-                          encm(tokens_inter), encm(tokens_i1), encm(tokens_i2)], dim=1)
+        with torch.no_grad():
+            frozen = [enc2(tokens_inter), enc2(tokens_i1), enc2(tokens_i2),
+                      enc1(tokens_i1), enc1(tokens_i2)]
+        return torch.cat(frozen + [encm(tokens_inter), encm(tokens_i1), encm(tokens_i2)], dim=1)
 
+    @torch.inference_mode()
     def generate_cond(self, batch: dict) -> torch.Tensor:
         """Host tokenisation of the three text fields, then :meth:`encode_cond`."""
         toks = self.tokenize_batch(batch)
         return self.encode_cond(toks["tokens_inter"], toks["tokens_i1"], toks["tokens_i2"])
+
+    # ------------------------------------------------------------------- loss
+    def set_train_modes(self, mode: Optional[str]) -> None:
+        """Train / eval modes of one adversarial step, as the JAX loss passes
+        ``train=``: the mixer core drops out on the generator step, the
+        discriminators on the discriminator step; everything else (and
+        everything for ``mode=None``) is in eval mode."""
+        self.eval()
+        self.core.train(mode == "generator")
+        self.disc_i.train(mode == "discriminator")
+        self.disc_I.train(mode == "discriminator")
+
+    def compute_loss(self, motions, motion_lens, cond, *, mode: str,
+                     generator: Optional[torch.Generator] = None, i_loss_factor: float = 1.0,
+                     I_loss_factor: float = 2.0, l1: float = 0.1, t=None, noise=None,
+                     drop=None, dropout: bool = True) -> dict:
+        """Adversarial losses of one step (reference mixermdm.py:390-488; the
+        JAX ``compute_loss`` / ``_loss_body``).
+
+        ``motions`` (B, T, 524) raw, ``motion_lens`` (B,), ``cond`` from
+        :meth:`encode_cond`.  The cond-drop mask (a whole row of conds
+        zeroed with probability :data:`COND_MASK_PROB`), the timesteps and
+        the noise are drawn from ``generator`` unless given as ``drop``
+        (B, 1) bool, ``t`` (B,) and ``noise``.  ``dropout=False`` keeps every
+        module in eval mode (no dropout anywhere).  Returns the loss dict
+        with ``total``.
+        """
+        if self.quant_train:
+            raise NotImplementedError("QUANT_TRAIN (int8 frozen denoisers inside the loss) is "
+                                      "not ported; run with it off")
+        dev = self.device
+        motions = motions.to(dev, torch.float32)
+        B, T = motions.shape[:2]
+        if drop is None:
+            drop = torch.rand((B, 1), generator=generator, device=dev) < COND_MASK_PROB
+        cond = cond * (1.0 - drop.to(dev, torch.float32))
+        seq_mask = generate_src_mask(T, motion_lens, B, device=dev)
+        if t is None:
+            t = self._sample_t(generator, B, dev)
+        self.set_train_modes(mode if dropout else None)
+        try:
+            return mixer_training_losses(
+                self._mixer_forward, self.disc_i, self.disc_I, self.train_schedule, motions,
+                t.to(dev), cond, seq_mask, mode=mode, i_loss_factor=i_loss_factor,
+                I_loss_factor=I_loss_factor, l1=l1, align=self.align,
+                normalizer1=self.normalizer1, normalizer2=self.normalizer2,
+                cond_slices=self.mixer_cfg.cond_slices(), nfeats=self.nfeats, noise=noise,
+                generator=generator, compute_dtype=self.compute_dtype)
+        finally:
+            self.eval()
 
     # ----------------------------------------------------------------- sample
     def _mixer_eval(self, fiv, with_influence: bool):

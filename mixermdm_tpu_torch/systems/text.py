@@ -2,10 +2,14 @@
 counterpart of ``mixermdm_tpu/systems/text.py:TextPipeline`` (reference
 in2in.py:109-135, mixermdm.py:283-313).
 
-On the card both the tower and the post-encoders run in the compute dtype
-(bf16), so their attention goes through the ``attention`` kernel (causal
-D = 64 in the tower, D = 96 in the post-encoder).  The pooled condition is
-returned in f32.
+As in the JAX package (``clip_features``, ``encode``), the frozen tower runs
+in the compute dtype (bf16 on the card) under ``torch.no_grad()`` and its
+token features are turned to f32; the post-encoder heads run in f32 on f32
+parameters (``MixerMDMSystem.cast_`` never casts them), so on the card the
+tower's attention takes the bf16 ``attention`` kernel (causal, D = 64) and
+the heads' the f32 one (D = 96).  The pooled condition is f32.  The module
+starts in eval mode (no dropout), as the JAX package encodes with
+``train=False``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ class TextPipeline(nn.Module):
         self.post = nn.ModuleDict({h: ClipPostEncoder(d_model=self.clip_cfg.width)
                                    for h in self.heads})
         self.tokenizer = default_tokenizer()
+        self.eval()
 
     def tokenize(self, texts: List[str]) -> torch.Tensor:
         return torch.from_numpy(tokenize(texts, self.tokenizer))
@@ -36,5 +41,6 @@ class TextPipeline(nn.Module):
     def encode(self, tokens: torch.Tensor, head: str = "default") -> torch.Tensor:
         """Pre-tokenised text (B, 77) -> pooled (B, width) f32 condition."""
         tokens = tokens.to(self.clip.positional_embedding.device)
-        out = self.post[head](self.clip(tokens))
-        return eot_pool(out, tokens).float()
+        with torch.no_grad():
+            feats = self.clip(tokens).float()
+        return eot_pool(self.post[head](feats), tokens).float()

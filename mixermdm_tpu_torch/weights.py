@@ -6,7 +6,10 @@ The conversion is this package's own copy of the mapping in
 ``export_mixermdm_system`` and their helpers, lines 380-580): a tree of
 numpy arrays in the flax layout becomes a flat state dict with the reference
 PyTorch repository's key names, which :func:`load_mixermdm_params` renames
-onto this package's modules and loads strictly.
+onto this package's modules and loads strictly.  The way back,
+:func:`released_mixermdm_state_dict`, writes a system's trained parts in the
+released ``MixerMDM.ckpt`` layout (the keys ``export_mixermdm_system``
+writes), which the JAX package's ``convert_mixermdm_system`` reads.
 """
 
 from __future__ import annotations
@@ -274,18 +277,18 @@ def in2in_renames(mode: str) -> tuple:
 
 MIXER_RENAMES = _CLIP_RENAMES + (
     ("mixing.", "core."),
+    ("discriminator_i.", "disc_i."),
+    ("discriminator_I.", "disc_I."),
     ("clipTransEncoder.", "text.post.mixer.encoder."),
     ("clip_ln.", "text.post.mixer.ln."),
 )
 
 
-def rename(sd: StateDict, renames: tuple, drop: tuple = ()) -> StateDict:
-    """Map reference keys onto module paths by prefix; keys under a prefix
-    in ``drop`` are left out, any other unmatched key is an error."""
+def rename(sd: StateDict, renames: tuple) -> StateDict:
+    """Map reference keys onto module paths by prefix; an unmatched key is
+    an error."""
     out: StateDict = {}
     for key, value in sd.items():
-        if key.startswith(drop):
-            continue
         for old, new in renames:
             if key.startswith(old):
                 out[new + key[len(old):]] = value
@@ -297,14 +300,29 @@ def rename(sd: StateDict, renames: tuple, drop: tuple = ()) -> StateDict:
 
 def mixermdm_state_dict(params: Mapping) -> StateDict:
     """A whole JAX MixerMDMSystem param tree -> this package's
-    MixerMDMSystem state dict (discriminators are not part of sampling)."""
+    MixerMDMSystem state dict (both denoisers, the mixer core, both
+    discriminators, the three text pipelines)."""
     sd: StateDict = {}
     for name, mode in (("model1", "individual"), ("model2", "interaction")):
         part = rename(export_in2in_system(params[name], mode), in2in_renames(mode))
         sd.update({f"{name}.{k}": v for k, v in part.items()})
-    sd.update(rename(export_mixermdm_system(params), MIXER_RENAMES,
-                     drop=("discriminator_i.", "discriminator_I.")))
+    sd.update(rename(export_mixermdm_system(params), MIXER_RENAMES))
     return sd
+
+
+def released_mixermdm_state_dict(system: nn.Module) -> Dict[str, torch.Tensor]:
+    """A MixerMDMSystem's trained parts in the released ``MixerMDM.ckpt``
+    layout: mixer core (``mixing.``), discriminators, the mixer's
+    post-encoder head (``clipTransEncoder.`` / ``clip_ln.``) and its CLIP
+    tower, as f32 CPU tensors.  The frozen denoisers are left out, as the
+    released file leaves them out."""
+    out = {}
+    for key, value in system.state_dict().items():
+        for ref, port in MIXER_RENAMES:
+            if key.startswith(port):
+                out[ref + key[len(port):]] = value.detach().float().cpu()
+                break
+    return out
 
 
 def load_state_dict_np(module: nn.Module, sd: StateDict, strict: bool = True) -> nn.Module:

@@ -293,9 +293,10 @@ def test_entry_points_never_run_plain_versions_off_the_cpu(name):
 
 @pytest.mark.parametrize("module", ["self_attention", "cross_attention", "mha", "ffn"])
 def test_layers_route_only_through_the_entry_points(module):
-    """The modules have no route of their own around the kernels: a head dim
-    the attention kernel does not take (32 here) still goes to the entry
-    points off the CPU, which raise instead of running plain PyTorch."""
+    """Frozen modules (no parameter requires grad, as in a sampling system)
+    have no route of their own around the kernels: a head dim the attention
+    kernel does not take (32 here) still goes to the entry points off the
+    CPU, which raise instead of running plain PyTorch."""
     from mixermdm_tpu_torch.models import layers
 
     with torch.device("meta"):
@@ -303,6 +304,7 @@ def test_layers_route_only_through_the_entry_points(module):
              "cross_attention": lambda: layers.VanillaCrossAttention(_E, 2),
              "mha": lambda: layers.TorchMultiheadAttention(_E, 2),
              "ffn": lambda: layers.FFN(_E, 2 * _E)}[module]().to(torch.bfloat16)
+    m.requires_grad_(False)
     x, emb = _meta(_B, _T, _E), _meta(_B, _E)
     call = {"self_attention": lambda: m(x, emb), "cross_attention": lambda: m(x, x, emb),
             "mha": lambda: m(x), "ffn": lambda: m(x, emb)}[module]

@@ -166,12 +166,18 @@ def test_quant_frozen_routes_every_block_to_the_q8_entry_points(monkeypatch):
 
     assert MIXERMDM_DEFAULT["QUANT_FROZEN"] is True
     system = MixerMDMSystem(MIXERMDM_DEFAULT, compute_dtype="bf16", device="meta")
-    blocks = [m for m in system.modules() if isinstance(m, layers.Int8Block)]
+    nets = (system.model1, system.model2, system.core)  # the networks sampling runs
+    blocks = [m for net in nets for m in net.modules() if isinstance(m, layers.Int8Block)]
     assert len(blocks) == 20 + 12 + 20
     for m in blocks:
         for name in m._int8_sources():
             assert getattr(m, f"{name}_q8").dtype == torch.int8
             assert getattr(m, f"{name}_scale").dtype == torch.float32
+    # The 256-wide discriminators (training only) stay below the int8 gate.
+    for m in list(system.disc_i.modules()) + list(system.disc_I.modules()):
+        if isinstance(m, layers.Int8Block):
+            assert not m.runs_int8(torch.bfloat16)
+            assert not any(n.endswith(("_q8", "_scale")) for n, _ in m.named_buffers())
     assert not any(k.endswith(("_q8", "_scale")) for k in system.state_dict())
 
     calls = {}
@@ -208,7 +214,9 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     five): import every module of the port and chip_smoke.py, run the CLI's
     tiny sample on the CPU end to end, then the CLI's system with its
     QUANT_FROZEN on in bf16 (the card's dtype) with the width gate at the
-    tiny width, so that its blocks take the W8A8 path."""
+    tiny width, so that its blocks take the W8A8 path, then two steps of the
+    training CLI (``python -m mixermdm_tpu_torch train-mixermdm --tiny
+    --device cpu --max-steps 2``)."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "yaml",
@@ -240,6 +248,10 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
         out = system.sample(cond, 16, generator=torch.Generator().manual_seed(0))
         assert out.shape == (2, 16, 524) and bool(torch.isfinite(out).all())
         assert len(calls) == 4 * 8, calls  # 3 SA + 2 CA + 3 FFN per DDIM step, 4 steps
+        from mixermdm_tpu_torch.__main__ import main as cli
+        sys.argv = ["mixermdm_tpu_torch", "train-mixermdm", "--tiny", "--device", "cpu",
+                    "--max-steps", "2", "--out-dir", {str(tmp_path / "train")!r}]
+        assert cli() == 0
         bad = [k for k, v in sys.modules.items() if v is not None and
                k.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml", "mixermdm_tpu")]
         assert not bad, bad
@@ -253,6 +265,8 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     motion = np.load(tmp_path / "g_motion.npy")
     assert motion.shape == (2, 16, 2 * F) and np.isfinite(motion).all()
     assert np.load(tmp_path / "g_influence_i1.npy").shape == (4, 2, 16, F)
+    assert "training done: 2 steps" in res.stdout
+    assert (tmp_path / "train" / "MixerMDM.ckpt").is_file()
 
 
 @pytest.mark.parametrize("steps,respacing", [(1000, "ddim50"), (N_STEPS, "ddim5"),
