@@ -11,8 +11,11 @@ Phases, each printing its wall-clock seconds:
 2. build of the CUDA kernels from ``mixermdm_tpu_torch/csrc`` (plain nvcc);
 3. each kernel and each entry point against its plain PyTorch version on
    the card, at the shapes of the sampling and training paths (bf16, W8A8,
-   f32 attention, the attention backward): max abs/rel error and tolerance,
-   kernel / plain / library times and the card's bound for the same work;
+   f32 attention, the attention backward; the three routes of
+   ``linear_epilogue`` and ``linear_q8`` at every main-path shape): max
+   abs/rel error and tolerance, kernel / plain / library times (CUDA-graph
+   replays), the eager time and the host's microseconds per call, and the
+   card's bound for the same work;
 4. the sampling path at full published width (two 1024-d in2IN denoisers,
    the 512-d mixer, the ViT-L/14 text tower with its f32 post-encoder heads;
    T = 299, CFG 3.5, mixing mode 4, random weights from a seed), on the
@@ -22,7 +25,8 @@ Phases, each printing its wall-clock seconds:
    launch count of one step;
 5. for each sampling path the whole chain (DDIM-50) through
    ``MixerMDMSystem.generate_cond`` and ``sample``, with the launch counts of
-   that run;
+   that run and the GEMM launches by (route, M, K, N, epilogue), per request
+   for the text and per DDIM step for the chain;
 6. adversarial training at full width (``configs/models/MixerMDM.yaml``,
    ``configs/train/MixerMDM.yaml``, B = 8, T = 300): the gradients of one G
    and one D step on the kernels against the plain versions (and against
@@ -100,6 +104,24 @@ def timed(fn, reps=20, warmup=3):
     return _events_ms(fn, reps)
 
 
+def host_us(fn, reps=200, warmup=3):
+    """Host microseconds per eager call: ``reps`` calls timed on the host's
+    clock without a synchronisation in between (kernels queue on the card),
+    so at the shapes where a call's kernels are short this is the Python and
+    launch overhead each call adds to a host-bound eager loop."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
 def graph_timed(fn, reps=10, replays=5):
     """Mean device milliseconds per call: ``reps`` calls captured in one
     CUDA graph, replayed ``replays`` times between CUDA events, so no host
@@ -162,10 +184,16 @@ def kernel_checks(gen):
             "ms": graph_timed(kernel), "plain_ms": graph_timed(plain),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if library is None else graph_timed(library),
-            "eager_ms": timed(kernel),
+            "eager_ms": timed(kernel), "host_us": host_us(kernel),
         }
         print("   " + json.dumps(res), flush=True)
         return res
+
+    # The least time one launch takes in a graph replay, read beside the
+    # short kernels' times: a one-element add_.
+    tiny = torch.zeros(1, device=dev)
+    print(f"   graph-replay floor, one-element add_: {graph_timed(lambda: tiny.add_(1)):.5f} ms",
+          flush=True)
 
     # --- attention kernel, through the fused_attention entry point ---------
     def attn_case(name, B, H, Tq, Tk, D, zero_attn, causal=False, kpm_rows=(), tol=2e-2):
@@ -221,27 +249,47 @@ def kernel_checks(gen):
             2 * (2 * B * T * E + 2 * B * E), 8 * B * T * E, kind="adaln_modulate",
             peak=H100_F32_FLOPS, B=B, T=T, E=E))
 
-    # --- linear_epilogue ----------------------------------------------------
+    # --- linear_epilogue, each route at its main-path shapes ---------------
+    # The yardstick is one F.linear call (the product and the bias, not the
+    # GELU or the residual of the epilogue), timed here and never called by
+    # the port.
+    from mixermdm_tpu_torch.ops.linear import gemm_plan
+
     def lin_case(name, M, K, N, act=None, res=False, tol=2e-2):
         x, w, b = rnd(M, K), rnd(N, K, std=K ** -0.5), rnd(N, std=0.1)
         r = rnd(M, N) if res else None
         n_bytes = 2 * (M * K + N * K + N + M * N * (2 if res else 1))
-        lib = (lambda: F.linear(x, w, b)) if (act is None and not res) else None
+        plan = gemm_plan(M, N, K, tma_ok=K % 8 == 0)
+        route = {"tma": "linear_epilogue", "skinny": "linear_epilogue_skinny",
+                 "ragged": "linear_epilogue_ragged"}[plan.route]
         return compare(
             name, lambda: ops.linear(x, w, b, activation=act, residual=r),
             lambda: ops.linear_plain(x, w, b, activation=act, residual=r), tol,
-            n_bytes, 2 * M * N * K, library=lib, kind="linear_epilogue",
-            M=M, K=K, N=N, activation=act, residual=res)
+            n_bytes, 2 * M * N * K, library=lambda: F.linear(x, w, b), kind=route,
+            M=M, K=K, N=N, activation=act, residual=res, tile=plan.bn or None)
 
     M = 8 * 299
+    # The block products: denoisers (E = 1024, F = 2048) and mixer (E = 512,
+    # F = 1024), at 8 sequences of 299 frames.
     results.append(lin_case("linear QKV E=1024", M, 1024, 3072))
     results.append(lin_case("linear FFN1 gelu E=1024", M, 1024, 2048, act="gelu"))
     results.append(lin_case("linear FFN2 +residual E=1024", M, 2048, 1024, res=True))
+    results.append(lin_case("linear out-proj +residual E=1024", M, 1024, 1024, res=True))
     results.append(lin_case("linear QKV E=512", M, 512, 1536))
-    results.append(lin_case("linear motion_embed K=262", M, 262, 1024))
+    results.append(lin_case("linear out-proj +residual E=512", M, 512, 512, res=True))
+    results.append(lin_case("linear FFN1 gelu E=512", M, 512, 1024, act="gelu"))
+    results.append(lin_case("linear FFN2 +residual E=512", M, 1024, 512, res=True))
+    # Dense layers outside the blocks.
     results.append(lin_case("linear final N=262", M, 1024, 262))
     results.append(lin_case("linear influence head N=23", M, 512, 23))
     results.append(lin_case("linear clip c_fc", 2 * 77, 768, 3072))
+    # The skinny route: the M = 8 layers (AdaLN modulations ZeroLinear(E, 2E)
+    # on the (B, E) embedding, time and text embeddings).
+    results.append(lin_case("linear skinny M=8 K=1024 N=2048", 8, 1024, 2048))
+    results.append(lin_case("linear skinny M=8 K=512 N=1024", 8, 512, 1024))
+    results.append(lin_case("linear skinny M=8 K=1024 N=1024", 8, 1024, 1024))
+    # The ragged route: motion_embed, K = 262 (rows of 524 bytes).
+    results.append(lin_case("linear motion_embed K=262", M, 262, 1024))
 
     # --- the four entry points: fused blocks ---------------------------------
     def block_params(E, F_=None):
@@ -355,6 +403,7 @@ def q8_checks(gen, compare, block_params, rnd):
             "plain_ms": graph_timed(lambda: ops.quant_rows_plain(x)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "eager_ms": timed(lambda: ops.quant_rows(x)),
+            "host_us": host_us(lambda: ops.quant_rows(x)),
         }
         print("   " + json.dumps(res), flush=True)
         results.append(res)
@@ -394,7 +443,7 @@ def q8_checks(gen, compare, block_params, rnd):
             "max_abs_err": max_abs, "max_rel_err": rel, "tol": tol, "ok": bool(ok),
             "ms": graph_timed(run), "plain_ms": graph_timed(plain),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "eager_ms": timed(run),
+            "library_ms": library_ms, "eager_ms": timed(run), "host_us": host_us(run),
         }
         print("   " + json.dumps(result), flush=True)
         return result
@@ -402,7 +451,11 @@ def q8_checks(gen, compare, block_params, rnd):
     results.append(q8_case("linear_q8 QKV E=1024", 1024, 3072))
     results.append(q8_case("linear_q8 FFN1 gelu f32 E=1024", 1024, 2048, act="gelu"))
     results.append(q8_case("linear_q8 FFN2 +residual E=1024", 2048, 1024, res=True))
+    results.append(q8_case("linear_q8 out-proj +residual E=1024", 1024, 1024, res=True))
     results.append(q8_case("linear_q8 QKV E=512", 512, 1536))
+    results.append(q8_case("linear_q8 out-proj +residual E=512", 512, 512, res=True))
+    results.append(q8_case("linear_q8 FFN1 gelu f32 E=512", 512, 1024, act="gelu"))
+    results.append(q8_case("linear_q8 FFN2 +residual E=512", 1024, 512, res=True))
 
     # --- attention, f32 output (the W8A8 self-attention block) --------------
     for D in (128, 64):
@@ -577,8 +630,12 @@ def train_kernel_checks(gen, compare):
             "witness": None if f32 else
             f"vs_f32_autograd <= {WITNESS_RATIO} x plain_vs_f32_autograd",
             "ok": bool(ok), "ms": graph_timed(kern), "plain_ms": graph_timed(plain),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": timed(library),
-            "library_timing": "eager (autograd)", "eager_ms": timed(kern),
+            # The yardstick read as every other row's is (captured in a CUDA
+            # graph after a warm-up on a side stream, then replayed), and
+            # eager beside it.
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": graph_timed(library),
+            "library_timing": "CUDA-graph replay (autograd)", "library_eager_ms": timed(library),
+            "eager_ms": timed(kern),
         }
         print("   " + json.dumps(res), flush=True)
         return res
@@ -786,6 +843,7 @@ def sample_main_paths(system, batch, seed):
     import torch
 
     from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import _lib
 
     B, T = len(PROMPTS), 299
     counts = {}
@@ -797,12 +855,20 @@ def sample_main_paths(system, batch, seed):
             cond = system.generate_cond(batch)
             torch.cuda.synchronize()
             t1 = time.time()
+            text_shapes = collections.Counter(_lib.launch_shapes)
             out = system.sample(cond, T,
                                 generator=torch.Generator(device="cuda").manual_seed(seed))
             torch.cuda.synchronize()
             t2 = time.time()
             counts[label] = dict(ops.launches)
+            chain_shapes = collections.Counter(_lib.launch_shapes) - text_shapes
         n_steps = system.sample_schedule.num_timesteps
+        # The GEMM launches by (route, M, K, N, epilogue): per request for the
+        # text, per DDIM step for the chain.
+        hist = [{"route": k[0], "M": k[1], "K": k[2], "N": k[3], "epilogue": k[4],
+                 "text": text_shapes.get(k, 0), "per_ddim_step": chain_shapes.get(k, 0) / n_steps}
+                for k in sorted(set(text_shapes) | set(chain_shapes))]
+        print(f"   GEMM launches in the {label} path by shape: {json.dumps(hist)}", flush=True)
         print(f"   {label} path: generate_cond {t1 - t0:.3f} s; sample: output "
               f"{tuple(out.shape)} {out.dtype}, {t2 - t1:.3f} s for {n_steps} DDIM steps = "
               f"{(t2 - t1) / n_steps:.4f} s/step (B={B}, T={T}); max |out| "
@@ -1030,6 +1096,12 @@ KERNELS = {
     "linear_epilogue": ("mixermdm_tpu_torch/csrc/linear.cu",
                         "mixermdm_tpu/ops/fused_block.py:80 (projections of "
                         "_sa_block_kernel, _ca_block_kernel :259, _ffn_kernel :438)"),
+    "linear_epilogue_skinny": ("mixermdm_tpu_torch/csrc/linear.cu",
+                               "mixermdm_tpu/ops/fused_block.py:80 (the dense layers beside "
+                               "the blocks at M <= 64: AdaLN modulations, embeddings)"),
+    "linear_epilogue_ragged": ("mixermdm_tpu_torch/csrc/linear.cu",
+                               "mixermdm_tpu/ops/fused_block.py:80 (the dense layers beside "
+                               "the blocks that TMA cannot describe: motion_embed, K = 262)"),
     "attention": ("mixermdm_tpu_torch/csrc/attention.cu",
                   "mixermdm_tpu/ops/attention.py:47 (_attn_body; attention loop of "
                   "fused_block.py:80 and :259)"),
@@ -1065,16 +1137,17 @@ KERNELS = {
 }
 # The kernels each main path must launch.  The shipped config samples on the
 # W8A8 path; the bf16 path (QUANT_FROZEN off) runs the bf16 block forms.
+GEMM_ROUTES = ("linear_epilogue", "linear_epilogue_skinny", "linear_epilogue_ragged")
 PATH_KERNELS = {
-    "W8A8": ("adaln_modulate", "linear_epilogue", "attention", "attention_f32",
+    "W8A8": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
              "fused_attention", "quant_rows", "linear_q8", "fused_sa_block_q8",
              "fused_ca_block_q8", "fused_ffn_block_q8"),
-    "bf16": ("adaln_modulate", "linear_epilogue", "attention", "attention_f32",
+    "bf16": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
              "fused_attention", "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
     # Adversarial training: the frozen denoisers on the bf16 blocks, the
     # discriminators' attention forward and backward in bf16, the mixer
     # head's in f32.
-    "train": ("adaln_modulate", "linear_epilogue", "attention", "attention_f32",
+    "train": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
               "attention_bwd", "fused_attention", "fused_sa_block", "fused_ca_block",
               "fused_ffn_block"),
 }
@@ -1087,6 +1160,8 @@ ROW_PATH = {"attention_f32": "train", "attention_bwd": "train"}
 REPRESENTATIVE = {
     "adaln_modulate": "adaln_modulate E=1024 T=299",
     "linear_epilogue": "linear QKV E=1024",
+    "linear_epilogue_skinny": "linear skinny M=8 K=1024 N=2048",
+    "linear_epilogue_ragged": "linear motion_embed K=262",
     "attention": "attention denoiser D=128",
     "attention_f32": "attention f32 post-encoder D=96",
     "attention_bwd": "attention_bwd bf16 discriminator",

@@ -59,17 +59,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D += A(16x32, row) * B(32x8, col), int8 inputs, int32 accumulate.  The
-// fragments have the byte layout of mma_16816's (a row of 32 int8 is 16 b16
-// lanes), so ldmatrix loads them with the same addressing in bytes.
-__device__ __forceinline__ void mma_16832_s8(int* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // Eight bf16 (one 16-byte load) -> eight floats.
 __device__ __forceinline__ void unpack_bf16x8(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);

@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Kernels (``csrc/``): ``adaln_modulate``, ``linear_epilogue``, ``attention``
-(bf16 and f32 inputs), ``attention_bwd``, ``quant_rows``, ``linear_q8``.
+Kernels (``csrc/``): ``adaln_modulate``, ``linear_epilogue`` (three routes,
+counted apart: the Hopper TMA + ``wgmma`` main loop of ``gemm_sm90.cuh``,
+``linear_epilogue_skinny`` for M <= 64, ``linear_epilogue_ragged`` for what
+TMA cannot describe), ``attention`` (bf16 and f32 inputs), ``attention_bwd``,
+``quant_rows``, ``linear_q8`` (the same main loop on int8).
 Entry points, one per Pallas entry point of ``mixermdm_tpu/ops``:
 :func:`fused_attention` and its backward :func:`attention_bwd` (with the
 autograd function :class:`FusedAttention`), :func:`fused_sa_block`,

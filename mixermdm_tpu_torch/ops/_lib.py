@@ -32,7 +32,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("adaln.cu", "linear.cu", "attention.cu", "attention_bwd.cu", "quant.cu", "linear_q8.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "gemm_sm90.cuh", "wgmma.cuh")
 LIB_NAME = "libmixermdm_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -41,10 +41,14 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptx
 # launch on the card (never on the CPU path).  Read and reset by callers that
 # need to show a run went through the kernels.
 launches: collections.Counter = collections.Counter()
+# The same launches by (name, *shape) where the wrapper gives a shape (the
+# GEMM routes: M, K, N, epilogue), for a histogram of a run.
+launch_shapes: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     launches.clear()
+    launch_shapes.clear()
 
 
 # The one switch between the kernels and their plain versions.  The entry
@@ -139,32 +143,59 @@ def build() -> tuple[str, str]:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+_vp, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# The argument types of every ``extern "C"`` launcher in ``csrc/*.cu``: a
+# c_void_p for each pointer and the stream (ctypes would pass a bare Python
+# int as 32 bits), c_int64 for ``long long``.  tests/test_torch_port_gemm.py
+# holds this table against the sources.
+ARGTYPES = {
+    "mm_adaln_modulate": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _f32, _vp],
+    "mm_linear_tma": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _i32, _i32, _i32, _i32,
+                      _i32, _i32, _i32, _i32, _vp],
+    "mm_linear_skinny": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _i32, _i32, _i32, _i32,
+                         _vp],
+    "mm_linear_ragged": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _i32, _i32, _i32, _i32,
+                         _vp],
+    "mm_linear_init": [],
+    "mm_attention": [_vp, _vp, _vp, _vp, ctypes.POINTER(_i64), _vp, _vp,
+                     _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _vp],
+    "mm_attention_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                         _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _vp],
+    "mm_quant_rows": [_vp, _i32, _vp, _vp, _i32, _i32, _vp],
+    "mm_linear_q8": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp, _i64, _vp, _i64,
+                     _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
+    "mm_linear_q8_init": [],
+}
+# Run once when the library loads, before any launch a graph could capture
+# (the TMA routes' dynamic shared memory limit).
+INIT_FUNCTIONS = ("mm_linear_init", "mm_linear_q8_init")
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use, with argtypes set."""
+    """The loaded kernel library, built on first use, with argtypes set and
+    its init functions run."""
     path, _ = build()
     lib = ctypes.CDLL(path)
-    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.mm_adaln_modulate.argtypes = [vp, vp, vp, vp, i32, i32, i32, f32, vp]
-    lib.mm_linear.argtypes = [vp, i64, vp, i64, vp, vp, i64, vp, i64, i32, i32, i32, i32, vp]
-    lib.mm_attention.argtypes = [vp, vp, vp, vp, ctypes.POINTER(i64), vp, vp,
-                                 i32, i32, i32, i32, i32, i32, f32, i32, i32, vp]
-    lib.mm_attention_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                     i32, i32, i32, i32, i32, i32, f32, i32, vp]
-    lib.mm_quant_rows.argtypes = [vp, i32, vp, vp, i32, i32, vp]
-    lib.mm_linear_q8.argtypes = [vp, i64, vp, vp, i64, vp, vp, vp, i64, vp, i64,
-                                 i32, i32, i32, i32, vp]
-    for fn in (lib.mm_adaln_modulate, lib.mm_linear, lib.mm_attention, lib.mm_attention_bwd,
-               lib.mm_quant_rows, lib.mm_linear_q8):
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name in INIT_FUNCTIONS:
+        rc = getattr(lib, name)()
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
     return lib
 
 
-def check_launch(name: str, rc: int) -> None:
-    """Raise if the launcher reported a CUDA error; else count the launch."""
+def check_launch(name: str, rc: int, shape: tuple = ()) -> None:
+    """Raise if the launcher reported a CUDA error; else count the launch
+    (and, given a ``shape``, count it under ``(name, *shape)`` too)."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     launches[name] += 1
+    if shape:
+        launch_shapes[(name, *shape)] += 1
 
 
 def stream_handle(t) -> int:

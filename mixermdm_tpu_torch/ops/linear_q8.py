@@ -5,7 +5,9 @@ bf16 ``+ residual``.
 Kernel ``linear_q8`` (``csrc/linear_q8.cu``) replaces ``_qdot8`` / ``_qdot``
 (``mixermdm_tpu/ops/fused_block.py:66-77``), the int8 products of the q8
 Pallas block kernels.  At the denoiser shapes it is bound by int8
-tensor-core operations (1979 TOP/s dense on an H100 SXM at 700 W).
+tensor-core operations (1979 TOP/s dense on an H100 SXM at 700 W); it runs
+the Hopper main loop of ``csrc/gemm_sm90.cuh`` with the int8 ``wgmma``, its
+tile plan from :func:`~.linear.gemm_plan`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib
+from .linear import EPILOGUE_NAMES, gemm_plan, sm_count
 
 _BF16, _GELU_F32, _RESIDUAL = 0, 1, 2
 
@@ -102,9 +105,11 @@ def linear_q8(x8: torch.Tensor, x_scale: torch.Tensor, w8: torch.Tensor,
                              f"{tuple(y.shape)}")
         residual = residual.reshape(M, N).contiguous()
         res_ptr, ldr, epi = residual.data_ptr(), N, _RESIDUAL
+    plan = gemm_plan(M, N, K, True, False, sm_count(x8))  # _rows16: TMA describes both
     rc = _lib.library().mm_linear_q8(
         x2.data_ptr(), x2.stride(0), x_scale.data_ptr(), w8.data_ptr(), w8.stride(0),
         w_scale.data_ptr(), None if bias is None else bias.data_ptr(), res_ptr, ldr,
-        y.data_ptr(), N, M, N, K, epi, _lib.stream_handle(x8))
-    _lib.check_launch("linear_q8", rc)
+        y.data_ptr(), N, M, N, K, epi, plan.bn, plan.stages, plan.grid, plan.smem,
+        _lib.stream_handle(x8))
+    _lib.check_launch("linear_q8", rc, shape=(M, K, N, EPILOGUE_NAMES[epi]))
     return y
