@@ -14,8 +14,10 @@ Phases, each printing its wall-clock seconds:
    f32 attention, the attention backward; the three routes of
    ``linear_epilogue`` and ``linear_q8`` at every main-path shape): max
    abs/rel error and tolerance, kernel / plain / library times (CUDA-graph
-   replays), the eager time and the host's microseconds per call, and the
-   card's bound for the same work;
+   replays; for the backward, the forward that writes the row statistics
+   plus the backward, against SDPA forward + backward, with the backward
+   alone beside it), the eager time and the host's microseconds per call,
+   and the card's bound for the same work;
 4. the sampling path at full published width (two 1024-d in2IN denoisers,
    the 512-d mixer, the ViT-L/14 text tower with its f32 post-encoder heads;
    T = 299, CFG 3.5, mixing mode 4, random weights from a seed), on the
@@ -540,6 +542,10 @@ F32_TOL = 1e-5
 # kernel's distance from the f32 gradients (torch.autograd.grad through the
 # plain forward in f32) to at most 1.5 x the plain version's.
 BWD_BF16_TOL = 1e-2
+# The forward's row statistics (max, denominator) against their plain version
+# (f32 logits on both sides; the kernel's exp is ex2.approx, ~2^-22), max
+# |diff| / max |plain| of each.
+STATS_TOL = 1e-5
 
 
 def train_kernel_checks(gen, compare):
@@ -550,6 +556,7 @@ def train_kernel_checks(gen, compare):
     import torch.nn.functional as F
 
     from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import attention as attn_mod
 
     dev = torch.device("cuda")
     results = []
@@ -572,32 +579,58 @@ def train_kernel_checks(gen, compare):
             zero_attn=False, causal=causal))
 
     # --- attention_bwd -------------------------------------------------------
-    def bwd_case(name, dt, B, H, T, D, zero_attn, kpm_tail):
+    # What autograd runs (ops.FusedAttention): the forward that also writes
+    # the row statistics, then the backward from them and the forward's
+    # output.  The row's ms times that pair, against SDPA forward + backward;
+    # the backward alone stands beside it.
+    def bwd_case(name, dt, B, H, T, D, zero_attn, kpm_tail, masked_rows=(), time_it=True):
         q, k, v, g = (rnd(B, H, T, D, dt=dt) for _ in range(4))
         kpm = None
-        if kpm_tail:
+        if kpm_tail or masked_rows:
             kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
-            kpm[:, T - T // 5:] = True
-        kern = lambda: ops.attention_bwd(q, k, v, kpm, g, zero_attn)  # noqa: E731
-        plain = lambda: ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn)  # noqa: E731
+            if kpm_tail:
+                kpm[:, T - T // 5:] = True
+            for r in masked_rows:
+                kpm[r] = True                      # every key of one sequence masked
+        out, stats = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True)
+        kern = lambda: ops.attention_bwd(q, k, v, kpm, g, zero_attn, stats, out)  # noqa: E731
+        plain = lambda: ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn, stats,  # noqa: E731
+                                                out)
+
+        def pair():
+            o, st = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True)
+            return ops.attention_bwd(q, k, v, kpm, g, zero_attn, st, o)
+
+        def plain_pair():
+            o = ops.fused_attention_plain(q, k, v, kpm, None, zero_attn)
+            st = attn_mod.attention_stats_plain(q, k, kpm, None, zero_attn)
+            return ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn, st, o)
+
         got = kern()
         torch.cuda.synchronize()
         want = plain()
+        # The forward's statistics against their plain version (f32 logits).
+        stats_p = attn_mod.attention_stats_plain(q, k, kpm, None, zero_attn)
+        stats_err = max(((stats[i] - stats_p[i]).abs().max()
+                         / stats_p[i].abs().max().clamp_min(1e-30)).item() for i in range(2))
         # The f32 truth: torch.autograd.grad through the plain forward on the
         # inputs widened to f32 (no custom backward involved).
         leaves = [t.float().requires_grad_() for t in (q, k, v)]
-        out = ops.fused_attention_plain(*leaves, kpm, None, zero_attn)
-        want_f = torch.autograd.grad(out, leaves, g.float())
+        out_f = ops.fused_attention_plain(*leaves, kpm, None, zero_attn)
+        want_f = torch.autograd.grad(out_f, leaves, g.float())
+        # The JAX kernel's dsum = rowsum(dp * p) with p recomputed: a reading
+        # of what the identity rowsum(g * o) moves.
+        exact = ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn)
 
         def rel(a, b):
             return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
         f32 = dt == torch.float32
         errs = {n: {"vs_plain": rel(a, b), "vs_f32_autograd": rel(a, c),
-                    "plain_vs_f32_autograd": rel(b, c)}
-                for n, a, b, c in zip(("dq", "dk", "dv"), got, want, want_f)}
+                    "plain_vs_f32_autograd": rel(b, c), "vs_plain_recomputed": rel(a, x)}
+                for n, a, b, c, x in zip(("dq", "dk", "dv"), got, want, want_f, exact)}
         tol = F32_TOL if f32 else BWD_BF16_TOL
-        ok = all(e["vs_plain"] <= tol for e in errs.values())
+        ok = all(e["vs_plain"] <= tol for e in errs.values()) and stats_err <= STATS_TOL
         if f32:
             ok = ok and all(e["vs_f32_autograd"] <= tol for e in errs.values())
         else:  # witness: no farther from the f32 gradients than the plain version
@@ -605,38 +638,53 @@ def train_kernel_checks(gen, compare):
                 e["vs_f32_autograd"] <= WITNESS_RATIO * max(e["plain_vs_f32_autograd"], 1e-6)
                 for e in errs.values())
         ok = ok and all(bool(torch.isfinite(t.float()).all()) for t in got)
-        n_bytes = 7 * B * H * T * D * q.element_size() + (4 * B * T if kpm_tail else 0)
-        b_ms, b_by = bound_ms(n_bytes, 5 * 2 * B * H * T * T * D,
+        # The pair's bound: q, k, v read and o written by the forward (and
+        # the statistics); q, k, v, g, o read and dq, dk, dv written by the
+        # backward; 2 + 5 products of 2 * B*H*T*T*D operations.
+        e = q.element_size()
+        pair_bytes = 12 * B * H * T * D * e + 8 * B * H * T + (2 * B * T if kpm is not None else 0)
+        b_ms, b_by = bound_ms(pair_bytes, 7 * 2 * B * H * T * T * D,
                               H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
-        kz = torch.cat([k, k.new_zeros(B, H, 1, D)], 2) if zero_attn else k
-        vz = torch.cat([v, v.new_zeros(B, H, 1, D)], 2) if zero_attn else v
-        bias = torch.zeros(B, 1, T, kz.shape[2], device=dev, dtype=dt)
-        if kpm is not None:
-            bias[..., :T] += ops.attention.key_bias(kpm)[:, None, None, :].to(dt)
-        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, kz, vz))
-
-        def library():  # SDPA forward + backward with the zero key appended
-            out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias)
-            return torch.autograd.grad(out, (lq, lk, lv), g)
-
+        bwd_b_ms, _ = bound_ms(8 * B * H * T * D * e + 8 * B * H * T,
+                               5 * 2 * B * H * T * T * D,
+                               H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
         res = {
             "check": name, "kind": "attention_bwd",
             "shape": {"B": B, "H": H, "Tq": T, "Tk": T, "D": D, "dtype": str(dt)[6:],
-                      "zero_attn": zero_attn, "key_padding": kpm_tail},
+                      "zero_attn": zero_attn, "key_padding": kpm_tail,
+                      "masked_rows": list(masked_rows)},
             "max_abs_err": max(((a.float() - b.float()).abs().max().item())
                                for a, b in zip(got, want)),
             "max_rel_err": max(e["vs_plain"] for e in errs.values()),
-            "errors": errs, "tol_rel": tol,
+            "errors": errs, "tol_rel": tol, "stats_rel_err": stats_err, "stats_tol": STATS_TOL,
             "witness": None if f32 else
             f"vs_f32_autograd <= {WITNESS_RATIO} x plain_vs_f32_autograd",
-            "ok": bool(ok), "ms": graph_timed(kern), "plain_ms": graph_timed(plain),
-            # The yardstick read as every other row's is (captured in a CUDA
-            # graph after a warm-up on a side stream, then replayed), and
-            # eager beside it.
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": graph_timed(library),
-            "library_timing": "CUDA-graph replay (autograd)", "library_eager_ms": timed(library),
-            "eager_ms": timed(kern),
+            "ok": bool(ok),
         }
+        if time_it:
+            kz = torch.cat([k, k.new_zeros(B, H, 1, D)], 2) if zero_attn else k
+            vz = torch.cat([v, v.new_zeros(B, H, 1, D)], 2) if zero_attn else v
+            bias = torch.zeros(B, 1, T, kz.shape[2], device=dev, dtype=dt)
+            if kpm is not None:
+                bias[..., :T] += ops.attention.key_bias(kpm)[:, None, None, :].to(dt)
+            lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, kz, vz))
+
+            def library():  # SDPA forward + backward with the zero key appended
+                o = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias)
+                return torch.autograd.grad(o, (lq, lk, lv), g)
+
+            res.update({
+                "ms": graph_timed(pair), "timing": "forward with statistics + backward",
+                "bwd_ms": graph_timed(kern), "plain_ms": graph_timed(plain_pair),
+                "bound_ms": b_ms, "bound_by": b_by, "bwd_bound_ms": bwd_b_ms,
+                # The yardstick read as every other row's is (captured in a
+                # CUDA graph after a warm-up on a side stream, then
+                # replayed), and eager beside it.
+                "library_ms": graph_timed(library),
+                "library_timing": "CUDA-graph replay (autograd)",
+                "library_eager_ms": timed(library), "eager_ms": timed(pair),
+                "host_us": host_us(kern), "pair_host_us": host_us(pair),
+            })
         print("   " + json.dumps(res), flush=True)
         return res
 
@@ -646,6 +694,13 @@ def train_kernel_checks(gen, compare):
                             True, True))
     results.append(bwd_case("attention_bwd f32 post-encoder", torch.float32, 8, 8, 77, 96,
                             False, False))
+    # A sequence whose keys are all masked, with and without the zero key,
+    # in both dtypes (small: checks, not timed).
+    for dt, D in ((torch.bfloat16, 64), (torch.float32, 96)):
+        for zero_attn in (True, False):
+            results.append(bwd_case(
+                f"attention_bwd {str(dt)[6:]} fully masked row zero_attn={zero_attn}", dt,
+                3, 2, 45, D, zero_attn, True, masked_rows=(1,), time_it=False))
     return results
 
 

@@ -155,6 +155,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Box (c0, c1, c2, c3) of a 4-D tensor map, the same way.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // wgmma descriptor of a K-major tile written by TMA with the 128-byte swizzle:
 // rows of 128 bytes, 8-row atoms 1024 bytes apart (the stride byte offset);
 // the leading byte offset is unused in this layout.  The tile base is
@@ -163,6 +173,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   const uint64_t addr = (smem_u32(tile) >> 4) & 0x3FFF;
   return addr | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// wgmma descriptor of an MN-major tile (the B operand of a product whose N
+// dimension is contiguous, read transposed): rows along K of 128 bytes (64
+// N elements), written by TMA with the 128-byte swizzle, 8-row atoms 1024
+// bytes apart along K (the stride byte offset); ``mn_stride`` bytes from one
+// 64-element block of N to the next (the leading byte offset).  Stepping
+// along K by 16 rows adds 2048 bytes to the start address.
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile, uint32_t mn_stride) {
+  const uint64_t addr = (smem_u32(tile) >> 4) & 0x3FFF;
+  return addr | (uint64_t((mn_stride >> 4) & 0x3FFF) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -494,20 +516,24 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+constexpr int kMaxMapRank = 4;
+
 struct MapKey {
   const void* ptr;
-  cuuint64_t dims[3], strides[2];
-  cuuint32_t box[3];
+  cuuint64_t dims[kMaxMapRank], strides[kMaxMapRank - 1];
+  cuuint32_t box[kMaxMapRank];
   int rank, dtype;
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && rank == o.rank && dtype == o.dtype &&
-           dims[0] == o.dims[0] && dims[1] == o.dims[1] && dims[2] == o.dims[2] &&
-           strides[0] == o.strides[0] && strides[1] == o.strides[1] && box[0] == o.box[0] &&
-           box[1] == o.box[1] && box[2] == o.box[2];
+    if (ptr != o.ptr || rank != o.rank || dtype != o.dtype) return false;
+    for (int i = 0; i < kMaxMapRank; ++i)
+      if (dims[i] != o.dims[i] || box[i] != o.box[i] ||
+          (i < kMaxMapRank - 1 && strides[i] != o.strides[i]))
+        return false;
+    return true;
   }
 };
 
-// The tensor map of a rank-2 or rank-3 tensor (dims innermost first, byte
+// The tensor map of a rank-2 to rank-4 tensor (dims innermost first, byte
 // strides of dims 1.., boxes of ``box``), 128-byte swizzle, zero fill out of
 // bounds.  Encoding is host arithmetic; the last 64 maps are kept, keyed on
 // every field that enters the map (the caching allocator hands the same
@@ -519,9 +545,13 @@ inline bool tensor_map(CUtensorMap* out, CUtensorMapDataType dtype, const void* 
   static MapKey keys[kSlots];
   static CUtensorMap maps[kSlots];
   static int used = 0, next = 0;
-  MapKey key{ptr, {dims[0], dims[1], rank > 2 ? dims[2] : 1},
-             {strides[0], rank > 2 ? strides[1] : 0},
-             {box[0], box[1], rank > 2 ? box[2] : 1}, rank, static_cast<int>(dtype)};
+  if (rank < 2 || rank > kMaxMapRank) return false;
+  MapKey key{ptr, {}, {}, {}, rank, static_cast<int>(dtype)};
+  for (int i = 0; i < kMaxMapRank; ++i) {
+    key.dims[i] = i < rank ? dims[i] : 1;
+    key.box[i] = i < rank ? box[i] : 1;
+    if (i < kMaxMapRank - 1) key.strides[i] = i < rank - 1 ? strides[i] : 0;
+  }
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < used; ++i) {
     if (keys[i] == key) {
@@ -531,7 +561,7 @@ inline bool tensor_map(CUtensorMap* out, CUtensorMapDataType dtype, const void* 
   }
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const cuuint32_t elem_strides[kMaxMapRank] = {1, 1, 1, 1};
   if (encode(out, dtype, rank, const_cast<void*>(ptr), key.dims, key.strides, key.box,
              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)

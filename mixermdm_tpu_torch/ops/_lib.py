@@ -157,18 +157,21 @@ ARGTYPES = {
     "mm_linear_ragged": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _i32, _i32, _i32, _i32,
                          _vp],
     "mm_linear_init": [],
-    "mm_attention": [_vp, _vp, _vp, _vp, ctypes.POINTER(_i64), _vp, _vp,
-                     _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _vp],
-    "mm_attention_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                         _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _vp],
+    "mm_attention": [_vp, _vp, _vp, _vp, ctypes.POINTER(_i64), _vp, _vp, _vp,
+                     _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _i32, _i32, _vp],
+    "mm_attention_init": [],
+    "mm_attention_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                         _i32, _i32, _i32, _i32, _i32, _f32, _i32, _vp],
+    "mm_attention_bwd_init": [],
     "mm_quant_rows": [_vp, _i32, _vp, _vp, _i32, _i32, _vp],
     "mm_linear_q8": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp, _i64, _vp, _i64,
                      _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
     "mm_linear_q8_init": [],
 }
 # Run once when the library loads, before any launch a graph could capture
-# (the TMA routes' dynamic shared memory limit).
-INIT_FUNCTIONS = ("mm_linear_init", "mm_linear_q8_init")
+# (every kernel's dynamic shared memory limit).
+INIT_FUNCTIONS = ("mm_linear_init", "mm_linear_q8_init", "mm_attention_init",
+                  "mm_attention_bwd_init")
 
 
 @functools.lru_cache(maxsize=None)

@@ -74,18 +74,27 @@ BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("zero_attn", [True, False])
-@pytest.mark.parametrize("D,kpm_kind", [(64, "none"), (96, "tail")])
-def test_attention_bwd_plain_matches_pallas_backward(dtype, zero_attn, D, kpm_kind):
+@pytest.mark.parametrize("D,kpm_kind,saved", [
+    pytest.param(64, "none", False, id="64-none"), pytest.param(96, "tail", False, id="96-tail"),
+    pytest.param(64, "none", True, id="64-none-saved"),
+    pytest.param(96, "tail", True, id="96-tail-saved")])
+def test_attention_bwd_plain_matches_pallas_backward(dtype, zero_attn, D, kpm_kind, saved):
     """The plain version against the JAX Pallas backward kernel (interpret
-    mode), dq / dk / dv, in both input dtypes."""
+    mode), dq / dk / dv, in both input dtypes.  ``saved``: driven, as the
+    kernels are, from what the forward saved (the row statistics of
+    ``attention_stats_plain`` and the output, whose rowsum(g * out) stands
+    for dsum) instead of recomputing the softmax."""
     from mixermdm_tpu.ops.attention import _fused_attention_bwd_impl
-    from mixermdm_tpu_torch.ops import attention_bwd_plain
+    from mixermdm_tpu_torch.ops import attention_bwd_plain, fused_attention
 
     q, k, v, g, kpm = _attn_inputs(D, 13, 17, kpm_kind, seed=D + 2 * zero_attn)
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
-    got = attention_bwd_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
-                              None if kpm is None else torch.from_numpy(kpm),
-                              torch.from_numpy(g).to(tdt), zero_attn)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    t_kpm = None if kpm is None else torch.from_numpy(kpm)
+    out, stats = (fused_attention(tq, tk, tv, t_kpm, None, zero_attn, return_stats=True)
+                  if saved else (None, None))
+    got = attention_bwd_plain(tq, tk, tv, t_kpm, torch.from_numpy(g).to(tdt), zero_attn,
+                              stats, out)
     want = _fused_attention_bwd_impl(*(jnp.asarray(a, jdt) for a in (q, k, v)),
                                      None if kpm is None else jnp.asarray(kpm), None,
                                      jnp.asarray(g, jdt), zero_attn, True)
@@ -121,13 +130,19 @@ def test_attention_bwd_plain_matches_reference_vjp(zero_attn, kpm_kind):
 
 @pytest.mark.parametrize("kpm_kind", ["none", "tail"])
 @pytest.mark.parametrize("zero_attn", [True, False])
-def test_differentiable_attention_matches_jax_vjp(kpm_kind, zero_attn):
+def test_differentiable_attention_matches_jax_vjp(kpm_kind, zero_attn, monkeypatch):
     """Autograd through the port's attention on the CPU against ``jax.vjp``
     of the JAX package's ``fused_attention`` (its custom_vjp with the Pallas
-    backward, interpret mode)."""
+    backward, interpret mode).  The route is ``FusedAttention``'s: its
+    backward reads the statistics and the output its forward saved."""
     from mixermdm_tpu.ops.attention import fused_attention as j_fused
+    from mixermdm_tpu_torch.ops import attention as tattn
     from mixermdm_tpu_torch.ops import differentiable_attention
 
+    saved = []
+    plain_bwd = tattn.attention_bwd_plain
+    monkeypatch.setattr(tattn, "attention_bwd_plain", lambda *a: saved.append(
+        a[6] is not None and a[7] is not None) or plain_bwd(*a))
     q, k, v, g, kpm = _attn_inputs(64, 9, 9, kpm_kind, seed=11)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out = differentiable_attention(tq, tk, tv, None if kpm is None else torch.from_numpy(kpm),
@@ -139,6 +154,38 @@ def test_differentiable_attention_matches_jax_vjp(kpm_kind, zero_attn):
     assert _rel(out, want_out) <= 1e-5
     for name, a, b in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(g))):
         assert _rel(a, b) <= 1e-5, name
+    assert saved == [True]
+
+
+@pytest.mark.parametrize("kpm_kind", ["none", "tail", "masked_row"])
+@pytest.mark.parametrize("zero_attn", [True, False])
+def test_attention_stats_plain_match_float64(zero_attn, kpm_kind):
+    """The forward's row statistics (what the kernels write for the
+    backward) against float64 numpy: the row max with the zero key's 0 and
+    the denominator with its exp(-max).  A sequence whose keys are all
+    masked has max 0 and denominator 1 + Tk e^-1e30 = 1 with the zero key,
+    max -1e30 and denominator Tk without it."""
+    from mixermdm_tpu_torch.ops import attention as tattn
+
+    q, k, _, _, kpm = _attn_inputs(96, 11, 19, kpm_kind, seed=5)
+    got = tattn.attention_stats_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                      None if kpm is None else torch.from_numpy(kpm), None,
+                                      zero_attn).numpy()
+    logits = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k.astype(np.float64))
+    logits /= np.sqrt(96.0)
+    if kpm is not None:
+        logits += np.where(kpm, -1e30, 0.0)[:, None, None, :]
+    row_max = logits.max(-1)
+    if zero_attn:
+        row_max = np.maximum(row_max, 0.0)
+    denom = np.exp(logits - row_max[..., None]).sum(-1) + (np.exp(-row_max) if zero_attn else 0)
+    np.testing.assert_allclose(got[0], row_max, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[1], denom, rtol=1e-6)
+    if kpm_kind == "masked_row":
+        if zero_attn:
+            assert (got[0][1] == 0).all() and np.allclose(got[1][1], 1.0)
+        else:
+            assert np.allclose(got[0][1], -1e30) and np.allclose(got[1][1], 19)
 
 
 @pytest.mark.parametrize("setting", ["kernel", "plain"])
