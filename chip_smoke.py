@@ -16,15 +16,19 @@ Phases, each printing its wall-clock seconds:
    abs/rel error and tolerance, kernel / plain / library times (CUDA-graph
    replays; for the backward, the forward that writes the row statistics
    plus the backward, against SDPA forward + backward, with the backward
-   alone beside it), the eager time and the host's microseconds per call,
-   and the card's bound for the same work;
+   alone beside it; for ``adaln_modulate_q8``, the unfused
+   ``adaln_modulate`` + ``quant_rows`` pair beside it; it is held bitwise to
+   the plain quantisation of ``adaln_modulate``'s rows and, within one int8
+   step, to its plain composition), the eager time and
+   the host's microseconds per call, and the card's bound for the same work;
 4. the sampling path at full published width (two 1024-d in2IN denoisers,
    the 512-d mixer, the ViT-L/14 text tower with its f32 post-encoder heads;
    T = 299, CFG 3.5, mixing mode 4, random weights from a seed), on the
    shipped config's W8A8 path (``QUANT_FROZEN: true``) and on the bf16 path
    of the same weights: the text conds, both denoisers and one CFG mixer step
-   on the kernels against the plain versions (and against f32), the int8
-   launch count of one step;
+   on the kernels against the plain versions (and against f32), the launch
+   counts of one W8A8 and one bf16 step against the counts read off the
+   modules;
 5. for each sampling path the whole chain (DDIM-50) through
    ``MixerMDMSystem.generate_cond`` and ``sample``, with the launch counts of
    that run and the GEMM launches by (route, M, K, N, epilogue), per request
@@ -243,8 +247,11 @@ def kernel_checks(gen):
                              False, kpm_rows=(2,)))
 
     # --- adaln_modulate ---------------------------------------------------
+    # scale and shift as the blocks pass them: the two halves of the
+    # modulation's (B, 2E) output.
     for B, T, E in ((8, 299, 1024), (8, 299, 512), (3, 131, 1024)):
-        x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
+        x = rnd(B, T, E)
+        sc, sh = rnd(B, 2 * E, std=0.2).chunk(2, dim=-1)
         results.append(compare(
             f"adaln_modulate E={E} T={T}", lambda: ops.adaln_modulate(x, sc, sh),
             lambda: ops.adaln_modulate_plain(x, sc, sh), 2e-2,
@@ -255,20 +262,24 @@ def kernel_checks(gen):
     # The yardstick is one F.linear call (the product and the bias, not the
     # GELU or the residual of the epilogue), timed here and never called by
     # the port.
-    from mixermdm_tpu_torch.ops.linear import gemm_plan
+    from mixermdm_tpu_torch.ops.linear import gemm_plan, tma_describable
 
-    def lin_case(name, M, K, N, act=None, res=False, tol=2e-2):
-        x, w, b = rnd(M, K), rnd(N, K, std=K ** -0.5), rnd(N, std=0.1)
+    def lin_case(name, M, K, N, act=None, res=False, tol=2e-2, ldx=None):
+        # ldx: x is the view x[:, :K] of an (M, ldx) tensor.
+        x = rnd(M, ldx or K)[:, :K]
+        w, b = rnd(N, K, std=K ** -0.5), rnd(N, std=0.1)
         r = rnd(M, N) if res else None
         n_bytes = 2 * (M * K + N * K + N + M * N * (2 if res else 1))
-        plan = gemm_plan(M, N, K, tma_ok=K % 8 == 0)
+        plan = gemm_plan(M, N, K, tma_ok=tma_describable(2, (x.data_ptr(), x.stride(0)),
+                                                          (w.data_ptr(), w.stride(0))))
         route = {"tma": "linear_epilogue", "skinny": "linear_epilogue_skinny",
                  "ragged": "linear_epilogue_ragged"}[plan.route]
         return compare(
             name, lambda: ops.linear(x, w, b, activation=act, residual=r),
             lambda: ops.linear_plain(x, w, b, activation=act, residual=r), tol,
             n_bytes, 2 * M * N * K, library=lambda: F.linear(x, w, b), kind=route,
-            M=M, K=K, N=N, activation=act, residual=res, tile=plan.bn or None)
+            M=M, K=K, N=N, activation=act, residual=res, tile=plan.bn or None,
+            row_bytes=2 * x.stride(0))
 
     M = 8 * 299
     # The block products: denoisers (E = 1024, F = 2048) and mixer (E = 512,
@@ -290,8 +301,18 @@ def kernel_checks(gen):
     results.append(lin_case("linear skinny M=8 K=1024 N=2048", 8, 1024, 2048))
     results.append(lin_case("linear skinny M=8 K=512 N=1024", 8, 512, 1024))
     results.append(lin_case("linear skinny M=8 K=1024 N=1024", 8, 1024, 1024))
-    # The ragged route: motion_embed, K = 262 (rows of 524 bytes).
+    # The ragged route: motion_embed, K = 262, at every main-path shape: the
+    # interaction denoiser (a torch.cat of 262-wide rows, 524 bytes apart),
+    # the individual denoiser (the view x[..., :262] of 524-wide rows, 1048
+    # bytes apart), the mixer (N = 512), the discriminators (N = 256, T =
+    # 300); an M that is no multiple of the tile (3 x 131); and rows only
+    # 2-byte aligned (K = 263), which the route copies element by element.
     results.append(lin_case("linear motion_embed K=262", M, 262, 1024))
+    results.append(lin_case("linear motion_embed K=262 strided x", M, 262, 1024, ldx=524))
+    results.append(lin_case("linear motion_embed K=262 N=512", M, 262, 512))
+    results.append(lin_case("linear motion_embed K=262 N=256", 8 * 300, 262, 256))
+    results.append(lin_case("linear motion_embed K=262 M=393", 3 * 131, 262, 1024))
+    results.append(lin_case("linear ragged K=263 (2-byte rows)", M, 263, 1024))
 
     # --- the four entry points: fused blocks ---------------------------------
     def block_params(E, F_=None):
@@ -372,6 +393,16 @@ def _bf16_ulps(got, want):
     return ((got.float() - want).abs() / ulp).max().item()
 
 
+# adaln_modulate_q8 against its plain composition: the rounding of a
+# modulated value may fall to the other bf16 neighbour where the kernel's
+# f32 statistics differ from torch's reductions in the last ulp, moving its
+# int8 value by one; a scale moves only if the row's amax does, by at most
+# one bf16 step (2^-7 relative).
+Q8_INT8_ERR = 1
+Q8_DIFFER_SHARE = 1e-4
+Q8_SCALE_REL = 2.0 ** -7
+
+
 def q8_checks(gen, compare, block_params, rnd):
     """The W8A8 kernels and entry points against their plain versions, at
     the shapes of the QUANT_FROZEN sampling path (8 sequences of 299 frames,
@@ -406,6 +437,49 @@ def q8_checks(gen, compare, block_params, rnd):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "eager_ms": timed(lambda: ops.quant_rows(x)),
             "host_us": host_us(lambda: ops.quant_rows(x)),
+        }
+        print("   " + json.dumps(res), flush=True)
+        results.append(res)
+
+    # --- adaln_modulate_q8, held twice on the same inputs: bitwise against
+    # quant_rows_plain of adaln_modulate's rows (the quantisation is exact),
+    # and against the plain composition adaln_modulate_q8_plain, which
+    # rounds rows the kernel's statistics may put one f32 ulp apart to the
+    # other bf16 neighbour: at most Q8_INT8_ERR off per int8 value, at most
+    # Q8_DIFFER_SHARE of them off, scales within Q8_SCALE_REL.  The row's
+    # max_abs_err is the distance to the plain composition.  Timed beside
+    # the unfused pair of kernels it replaces, adaln_modulate then quant_rows
+    for B, T, E in ((8, 299, 1024), (8, 299, 512), (3, 131, 1024)):
+        x = rnd(B, T, E)
+        sc, sh = rnd(B, 2 * E, std=0.2).chunk(2, dim=-1)
+        x8, xs = ops.adaln_modulate_q8(x, sc, sh)
+        torch.cuda.synchronize()
+        k8, ks = ops.quant_rows_plain(ops.adaln_modulate(x, sc, sh))
+        c8, cs_ = ops.adaln_modulate_q8_plain(x, sc, sh)
+        rows_err8 = (x8.int() - k8.int()).abs().max().item()
+        rows_errs = (xs - ks).abs().max().item()
+        err8 = (x8.int() - c8.int()).abs().max().item()
+        differ = (x8 != c8).float().mean().item()
+        scale_rel = ((xs - cs_).abs() / cs_).max().item()
+        ok = (rows_err8 == 0 and rows_errs == 0 and err8 <= Q8_INT8_ERR
+              and differ <= Q8_DIFFER_SHARE and scale_rel <= Q8_SCALE_REL)
+        n_bytes = 2 * B * T * E + 2 * 2 * B * E + B * T * E + 4 * B * T
+        b_ms, b_by = bound_ms(n_bytes, 12 * B * T * E, H100_F32_FLOPS)
+        kern = lambda: ops.adaln_modulate_q8(x, sc, sh)  # noqa: E731
+        res = {
+            "check": f"adaln_modulate_q8 E={E} T={T}", "kind": "adaln_modulate_q8",
+            "shape": {"B": B, "T": T, "E": E}, "max_abs_err": float(err8),
+            "int8_differ": differ, "max_scale_rel_err": scale_rel,
+            "tol": {"max_int8_err": Q8_INT8_ERR, "int8_differ": Q8_DIFFER_SHARE,
+                    "max_scale_rel_err": Q8_SCALE_REL},
+            "vs_kernel_rows": {"max_int8_err": rows_err8, "max_scale_err": rows_errs,
+                               "tol": "bitwise"},
+            "ok": ok,
+            "ms": graph_timed(kern),
+            "plain_ms": graph_timed(lambda: ops.adaln_modulate_q8_plain(x, sc, sh)),
+            "pair_ms": graph_timed(lambda: ops.quant_rows(ops.adaln_modulate(x, sc, sh))),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "eager_ms": timed(kern), "host_us": host_us(kern),
         }
         print("   " + json.dumps(res), flush=True)
         results.append(res)
@@ -856,9 +930,8 @@ def sample_phase(seed):
 
     # Int8 engaged: the W8A8 step lies farther from the bf16 step of the same
     # weights than the W8A8 kernels lie from their plain versions, and one
-    # step launches linear_q8 as often as the blocks, read off the modules,
-    # say: Q/K/V and O in a self-attention block, Q, K/V and O in a
-    # cross-attention block, the two products of an FFN.
+    # step launches each kernel as often as the blocks, read off the
+    # modules, say (below).
     _agree("one CFG mixer step", steps["W8A8"][0], steps["bf16"][0], None, "fro",
            "W8A8 vs bf16 kernels")
     q8_vs_bf16 = _gaps(steps["W8A8"][0], steps["bf16"][0])[2]
@@ -867,17 +940,33 @@ def sample_phase(seed):
     n = collections.Counter(type(m).__name__ for net in (system.model1, system.model2, system.core)
                             for m in net.modules() if isinstance(m, layers.Int8Block))
     sa, ca, ffn = n["VanillaSelfAttention"], n["VanillaCrossAttention"], n["FFN"]
-    expected = {"linear_q8": 2 * sa + 3 * ca + 2 * ffn, "quant_rows": 2 * sa + 3 * ca + 2 * ffn,
-                "fused_sa_block_q8": sa, "fused_ca_block_q8": ca, "fused_ffn_block_q8": ffn,
-                "fused_sa_block": 0, "fused_ca_block": 0, "fused_ffn_block": 0}
-    ops.reset_launch_counts()
-    step()
-    torch.cuda.synchronize()
-    got = {k: int(ops.launches.get(k, 0)) for k in expected}
-    print(f"   launches in one W8A8 step: {json.dumps(got)}; from the modules "
-          f"({sa} SA, {ca} CA, {ffn} FFN blocks): {json.dumps(expected)}", flush=True)
-    if got != expected:
-        raise SmokeFailure("W8A8 step launches differ from the count read off the modules")
+    ffn_mod = sum(1 for net in (system.model1, system.model2, system.core) for m in net.modules()
+                  if isinstance(m, layers.FFN) and m.norm is not None)
+    # Per W8A8 step: the int8 products of each block; quant_rows for the
+    # attention output of each SA and CA block and the hidden of each FFN;
+    # the quantising prologue for the input of each SA block, both inputs of
+    # each CA block and each modulated FFN input.  The bf16 step runs the
+    # same blocks on the bf16 kernels.
+    expected = {
+        "W8A8": {"linear_q8": 2 * sa + 3 * ca + 2 * ffn, "quant_rows": sa + ca + ffn,
+                 "adaln_modulate_q8": sa + 2 * ca + ffn_mod, "adaln_modulate": 0,
+                 "fused_sa_block_q8": sa, "fused_ca_block_q8": ca, "fused_ffn_block_q8": ffn,
+                 "fused_sa_block": 0, "fused_ca_block": 0, "fused_ffn_block": 0},
+        "bf16": {"linear_q8": 0, "quant_rows": 0, "adaln_modulate_q8": 0,
+                 "adaln_modulate": sa + 2 * ca + ffn_mod,
+                 "fused_sa_block_q8": 0, "fused_ca_block_q8": 0, "fused_ffn_block_q8": 0,
+                 "fused_sa_block": sa, "fused_ca_block": ca, "fused_ffn_block": ffn}}
+    for label, on in (("W8A8", True), ("bf16", False)):
+        with _quant(system, on):
+            ops.reset_launch_counts()
+            step()
+            torch.cuda.synchronize()
+        got = {k: int(ops.launches.get(k, 0)) for k in expected[label]}
+        print(f"   launches in one {label} step: {json.dumps(got)}; from the modules "
+              f"({sa} SA, {ca} CA, {ffn} FFN blocks, {ffn_mod} of them modulated): "
+              f"{json.dumps(expected[label])}", flush=True)
+        if got != expected[label]:
+            raise SmokeFailure(f"{label} step launches differ from the count read off the modules")
 
     # Where one step's time goes: the eager device timeline against the same
     # step's kernels replayed as one CUDA graph (no host work in between).
@@ -1148,6 +1237,11 @@ KERNELS = {
     "adaln_modulate": ("mixermdm_tpu_torch/csrc/adaln.cu",
                        "mixermdm_tpu/ops/fused_block.py:80 (LN + modulation prologue of "
                        "_sa_block_kernel, _ca_block_kernel :259, _ffn_kernel :438)"),
+    "adaln_modulate_q8": ("mixermdm_tpu_torch/csrc/adaln.cu",
+                          "mixermdm_tpu/ops/fused_block.py:94-105 (_ln, modulation and "
+                          "_quant_act :58 of _sa_block_kernel_q8 :160; of x and xf in "
+                          "_ca_block_kernel_q8 :333, :276-284; of _ffn_kernel_q8 :467, "
+                          ":444 via _qdot :76)"),
     "linear_epilogue": ("mixermdm_tpu_torch/csrc/linear.cu",
                         "mixermdm_tpu/ops/fused_block.py:80 (projections of "
                         "_sa_block_kernel, _ca_block_kernel :259, _ffn_kernel :438)"),
@@ -1194,7 +1288,7 @@ KERNELS = {
 # W8A8 path; the bf16 path (QUANT_FROZEN off) runs the bf16 block forms.
 GEMM_ROUTES = ("linear_epilogue", "linear_epilogue_skinny", "linear_epilogue_ragged")
 PATH_KERNELS = {
-    "W8A8": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
+    "W8A8": ("adaln_modulate_q8", *GEMM_ROUTES, "attention", "attention_f32",
              "fused_attention", "quant_rows", "linear_q8", "fused_sa_block_q8",
              "fused_ca_block_q8", "fused_ffn_block_q8"),
     "bf16": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
@@ -1214,6 +1308,7 @@ ROW_PATH = {"attention_f32": "train", "attention_bwd": "train"}
 # largest main-path shape.
 REPRESENTATIVE = {
     "adaln_modulate": "adaln_modulate E=1024 T=299",
+    "adaln_modulate_q8": "adaln_modulate_q8 E=1024 T=299",
     "linear_epilogue": "linear QKV E=1024",
     "linear_epilogue_skinny": "linear skinny M=8 K=1024 N=2048",
     "linear_epilogue_ragged": "linear motion_embed K=262",

@@ -32,6 +32,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// cp.async.wait_group with a count known only at run time (0-7; a larger
+// count waits for all but 7).
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>();
+  }
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -80,6 +95,15 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// One value of a row quantised with scale s (quant_rows, adaln_modulate_q8):
+// rint(v / s) clamped to +-127, as the low byte.  v / s is an IEEE division
+// (the build has no --use_fast_math) and rintf rounds half to even, as
+// jnp.round does.
+__device__ __forceinline__ uint32_t q8(float v, float s) {
+  const float r = fminf(fmaxf(rintf(v / s), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(r)) & 0xffu;
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }

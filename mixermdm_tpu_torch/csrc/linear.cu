@@ -24,9 +24,10 @@
 //   for M <= 16); mma.sync.m16n8k16 with x as the 16-row operand, its rows
 //   past M zero-filled by TMA.
 // - linear_epilogue_ragged (mm_linear_ragged): what TMA cannot describe; on
-//   the main path only K = 262 (motion_embed, rows of 524 bytes, 4 launches
-//   per DDIM step).  A tiled mma.sync kernel with element-wise loads, 128 x
-//   128 x 32 tiles: the port's first linear_epilogue, kept for this shape.
+//   the main path only K = 262 (motion_embed, rows of 524 or 1048 bytes, 4
+//   launches per DDIM step).  cp.async copies as wide as the rows allow,
+//   issued by every thread, into the wgmma layout of the TMA route, whose
+//   plan and epilogue it shares (see "ragged route" below).
 //
 // Every route sums K in k16 steps from k = 0 up, each added to the f32 sums
 // of the last.  No route splits K, so results are the same from run to run.
@@ -40,9 +41,10 @@ using mm::sm90::kGelu;
 using mm::sm90::kPlain;
 using mm::sm90::kResidual;
 
-// Element-wise steps after the f32 sum, shared by the skinny and ragged
-// routes (the TMA route has them in gemm_sm90.cuh): bias in f32, exact GELU,
-// round to bf16, then the residual added in f32 and rounded again.
+// Element-wise steps after the f32 sum of the skinny route (the TMA route
+// has them in gemm_sm90.cuh, the ragged route in its staged epilogue): bias
+// in f32, exact GELU, round to bf16, then the residual added in f32 and
+// rounded again.
 __device__ __forceinline__ bf16 finish(float v, const bf16* bias, int col, int epi,
                                        const bf16* res) {
   if (bias != nullptr) v += __bfloat162float(bias[col]);
@@ -168,102 +170,190 @@ __global__ void __launch_bounds__(32)
 
 // ---- ragged route -------------------------------------------------------------
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int LDS = BK + 8;  // shared row stride in bf16: 80 B, ldmatrix conflict-free
-constexpr int kThreads = 256;
+// Operands TMA cannot describe (rows whose stride or base is not 16-byte
+// aligned): on the main path motion_embed, K = 262, whose x rows are 524
+// bytes apart (a torch.cat of 262-wide rows) or 1048 (the view x[..., :262]
+// of 524-wide rows) and whose W rows are 524 bytes apart.  At M = 2392 the
+// product is 1.3 GFLOP on 6.7 MB (0.002 ms at 3.35 TB/s): what costs is
+// latency and the issue of the copies.  The design:
+// - every thread copies: the block's 8 warps share the cp.async copies of
+//   each stage, at the widest granularity each operand's base and row
+//   stride allow (16, 8 or 4 bytes: 4 for 524-byte rows, 8 for the
+//   1048-byte view; rows only 2-byte aligned, at an odd K or stride, take
+//   element loads), straight into the 128-byte-swizzled layout that TMA
+//   writes and wgmma reads;
+// - the whole ring is filled before the first product: 5-6 stages of 64 K
+//   elements hold all of K = 262 at the plan's tile widths up to 192, so
+//   every copy of a tile is in flight at once; a deeper K refills a slot
+//   once its products are done;
+// - K past its end is zero-filled (src-size < cp-size) up to the next k16
+//   step and nothing past that is copied: the last stage runs only the k
+//   steps that hold data.  Rows past M or N are not copied: they only feed
+//   rows and columns of the tile that the epilogue does not store;
+// - each 64-row half of the 128 x BN tile is one warpgroup's m64nBNk16
+//   wgmma (gemm_sm90.cuh), after cp.async.wait_group, a proxy fence (wgmma
+//   reads shared memory through the async proxy) and a block barrier;
+// - the TMA route's tile plan (ops/linear.py: gemm_plan: 114 blocks at
+//   N = 1024, 76 at 512 and 256 for M = 2392, one wave) and its staged
+//   epilogue (coalesced 16-byte stores, the residual read the same way).
+// The K sum runs in k16 steps from k = 0 up, as in every other route.
+constexpr int kRaggedThreads = 256;  // two warpgroups, 64 rows of the tile each
 
-// Load a 128 x 32 tile of a K-contiguous matrix (rows row0.., cols k0..) into
-// shared memory element by element, zero-filling rows >= rows_total and
-// cols >= K (any K, any stride, any alignment).
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld, int rows_total,
-                                          int row0, int k0, int K, int tid) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * kThreads;  // 512 chunks of 8 elements
-    const int r = c >> 2;
-    const int kc = (c & 3) * 8;
-    const int gr = row0 + r, gk = k0 + kc;
-    bf16* dst = s + r * LDS + kc;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bool ok = gr < rows_total && gk + j < K;
-      dst[j] = ok ? g[(size_t)gr * ld + gk + j] : __float2bfloat16(0.f);
-    }
+template <int V>
+__device__ __forceinline__ void cp_async_v(uint8_t* dst, const void* src, int src_bytes) {
+  if constexpr (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(mm::smem_u32(dst)),
+                 "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(mm::smem_u32(dst)),
+                 "l"(src), "n"(V), "r"(src_bytes));
+}
+
+// Rows row0 .. row0 + ROWS - 1 (those below rows_total) and K elements
+// k0 .. k0 + 63 (those below kr, K rounded up to 16) of a K-contiguous bf16
+// matrix with row stride ld elements, into a tile of 128-byte rows with the
+// 128-byte swizzle, V bytes per copy.  Consecutive threads take consecutive
+// pieces of a row, so a warp's copies are coalesced; each thread keeps one
+// column piece and steps down the rows with one pointer.
+template <int ROWS, int V>
+__device__ __forceinline__ void copy_rows(uint8_t* dst, const bf16* g, long long ld,
+                                          int rows_total, int row0, int k0, int K, int kr,
+                                          int tid) {
+  constexpr int kPerRow = 128 / V;
+  constexpr int kStep = kRaggedThreads / kPerRow;  // rows per round
+  const int r0 = tid / kPerRow, b = (tid % kPerRow) * V;
+  const int k = k0 + b / 2;
+  if (k >= kr) return;
+  int n = 2 * (K - k);
+  n = n < 0 ? 0 : (n > V ? V : n);  // bytes of this piece inside the row
+  const int last = rows_total - row0 < ROWS ? rows_total - row0 : ROWS;
+  const bf16* src = g + (size_t)(row0 + r0) * ld + k;
+  for (int r = r0; r < last; r += kStep) {
+    uint8_t* d = dst + r * 128 + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15));
+    if constexpr (V == 2)
+      *reinterpret_cast<bf16*>(d) = n > 0 ? *src : __float2bfloat16(0.f);
+    else
+      cp_async_v<V>(d, n > 0 ? src : g, n);
+    src += kStep * ld;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    linear_ragged_kernel(const bf16* __restrict__ X, long long ldx, const bf16* __restrict__ W,
-                         long long ldw, const bf16* __restrict__ bias, const bf16* __restrict__ R,
-                         long long ldr, bf16* __restrict__ Y, long long ldy, int M, int N, int K,
-                         int epi) {
-  __shared__ __align__(16) bf16 sA[BM * LDS];
-  __shared__ __align__(16) bf16 sB[BN * LDS];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2;  // 2 warps along M, 64 rows each
-  const int wn = warp & 3;   // 4 warps along N, 32 cols each
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile(sA, X, ldx, M, m0, k0, K, tid);
-    load_tile(sB, W, ldw, N, n0, k0, K, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm * 64 + mi * 16 + (lane & 15);
-        const int c = kk + (lane >> 4) * 8;
-        mm::ldmatrix_x4(af[mi], sA + r * LDS + c);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-        const int r = wn * 32 + nj * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int c = kk + ((lane >> 3) & 1) * 8;
-        uint32_t t[4];
-        mm::ldmatrix_x4(t, sB + r * LDS + c);
-        bfr[2 * nj][0] = t[0];
-        bfr[2 * nj][1] = t[1];
-        bfr[2 * nj + 1][0] = t[2];
-        bfr[2 * nj + 1][1] = t[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mm::mma_16816(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    __syncthreads();
+template <int ROWS>
+__device__ __forceinline__ void copy_operand(uint8_t* dst, const bf16* g, long long ld, int v,
+                                             int rows_total, int row0, int k0, int K, int kr,
+                                             int tid) {
+  switch (v) {
+    case 16: copy_rows<ROWS, 16>(dst, g, ld, rows_total, row0, k0, K, kr, tid); break;
+    case 8: copy_rows<ROWS, 8>(dst, g, ld, rows_total, row0, k0, K, kr, tid); break;
+    case 4: copy_rows<ROWS, 4>(dst, g, ld, rows_total, row0, k0, K, kr, tid); break;
+    default: copy_rows<ROWS, 2>(dst, g, ld, rows_total, row0, k0, K, kr, tid);
   }
+}
 
+struct RaggedOperands {
+  const bf16* x;
+  long long ldx;
+  const bf16* w;
+  long long ldw;
+  int vx, vw;  // copy widths in bytes
+};
+
+template <int BN, bool kGelu>
+__global__ void __launch_bounds__(kRaggedThreads, 1)
+    linear_ragged_kernel(const RaggedOperands o, const mm::sm90::GemmArgs a) {
+  using namespace mm::sm90;
+  constexpr int kStage = stage_bytes(BN);
+  extern __shared__ uint8_t rg_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(rg_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  const int S = a.stages;
+  const int tid = threadIdx.x, cw = tid >> 7;
+  uint8_t* stg = smem + S * kStage + cw * kEpiWgBytes;
+  const int KT = (a.K + 63) / 64, kr = (a.K + 15) & ~15;
+  const int tiles = a.tiles_m * a.tiles_n;
+
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t % a.tiles_m) * BM, n0 = (t / a.tiles_m) * BN;
+    auto load = [&](int kt) {
+      uint8_t* st = smem + (kt % S) * kStage;
+      copy_operand<BM>(st, o.x, o.ldx, o.vx, a.M, m0, kt * 64, a.K, kr, tid);
+      copy_operand<BN>(st + BM * kRowBytes, o.w, o.ldw, o.vw, a.N, n0, kt * 64, a.K, kr, tid);
+    };
+    __syncthreads();  // the last tile's products are done with the ring
+    // Every slot filled before the first product; one commit group per
+    // stage, empty past K, so that group kt is stage kt.
+    for (int s = 0; s < S; ++s) {
+      if (s < KT) load(s);
+      mm::cp_async_commit();
+    }
+    TileVectors<BN, false> tv;
+    tv.load(a, m0 + cw * 64, n0, tid & 127);
+    float acc[BN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt) {
+      // This thread's copies of stage kt have landed (groups kt + 1 ..
+      // kt + S - 1 may not): fence them to the async proxy, then wait for
+      // every thread's.
+      mm::cp_async_wait_dyn(S - 1);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      const uint8_t* st = smem + (kt % S) * kStage;
+      const uint64_t da = sw128_desc(st + cw * 64 * kRowBytes);
+      const uint64_t db = sw128_desc(st + BM * kRowBytes);
+      const int steps = (a.K - kt * 64 + 15) / 16;  // k16 steps of this stage with data
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+      for (int i = 0; i < BN / 2; ++i) reg_fence(acc[i]);
+      wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + h * 8;
-        const int col = n0 + wn * 32 + ni * 8 + (lane & 3) * 2;
-        if (row >= M) continue;
+      for (int k = 0; k < 4; ++k)
+        if (k < steps) mma<BN>(acc, da + 2 * k, db + 2 * k, (kt | k) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cc = col + e;
-          if (cc >= N) continue;
-          Y[(size_t)row * ldy + cc] =
-              finish(acc[mi][ni][h * 2 + e], bias, cc, epi,
-                     epi == kResidual ? R + (size_t)row * ldr + cc : nullptr);
-        }
+      for (int i = 0; i < BN / 2; ++i) reg_fence(acc[i]);
+      if (kt + S < KT) {  // refill this slot once both warpgroups are done with it
+        __syncthreads();
+        load(kt + S);
       }
+      mm::cp_async_commit();
+    }
+    epilogue<BN, kGelu>(acc, a, m0 + cw * 64, n0, stg, tv, tid & 127, 1 + cw);
+  }
+}
+
+template <int BN>
+int launch_ragged(const RaggedOperands& o, const mm::sm90::GemmArgs& a, int grid, int smem,
+                  cudaStream_t stream) {
+  using namespace mm::sm90;
+  if (a.stages < 2 || a.stages > 8 || smem < smem_bytes(BN, a.stages) || smem > kSmemLimit ||
+      grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.epi == kGelu)
+    linear_ragged_kernel<BN, true><<<grid, kRaggedThreads, smem, stream>>>(o, a);
+  else
+    linear_ragged_kernel<BN, false><<<grid, kRaggedThreads, smem, stream>>>(o, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+cudaError_t set_ragged_smem_limit() {
+  using mm::sm90::kSmemLimit;
+  cudaError_t e = cudaFuncSetAttribute(linear_ragged_kernel<BN, false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  return e != cudaSuccess ? e
+                          : cudaFuncSetAttribute(linear_ragged_kernel<BN, true>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kSmemLimit);
+}
+
+// The widest copy (16, 8 or 4 bytes, else 2) to which every row start of a
+// bf16 matrix at p with row stride ld elements is aligned: 4 for rows of
+// 524 bytes, 8 for 1048, 2 for an odd row stride or a 2-byte base.
+int copy_width(const void* p, long long ld) {
+  for (int v = 16; v > 2; v /= 2)
+    if (reinterpret_cast<uintptr_t>(p) % v == 0 && (ld * 2) % v == 0) return v;
+  return 2;
 }
 
 bool valid_epilogue(int epi) { return epi == kPlain || epi == kGelu || epi == kResidual; }
@@ -336,25 +426,52 @@ extern "C" int mm_linear_skinny(const void* x, long long ldx, const void* w, lon
   return static_cast<int>(cudaGetLastError());
 }
 
-// Ragged route: any shape, stride and alignment.
+// Ragged route: any shape, stride and alignment.  bn, stages, grid and smem
+// from the host planner (ops/linear.py: gemm_plan, as for the TMA route); x
+// and w are each copied as wide as their rows allow (copy_width).
 extern "C" int mm_linear_ragged(const void* x, long long ldx, const void* w, long long ldw,
                                 const void* bias, const void* res, long long ldr, void* y,
-                                long long ldy, int M, int N, int K, int epilogue, void* stream) {
-  if (!valid_epilogue(epilogue)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  linear_ragged_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(w), ldw,
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(res), ldr, static_cast<bf16*>(y),
-      ldy, M, N, K, epilogue);
-  return static_cast<int>(cudaGetLastError());
+                                long long ldy, int M, int N, int K, int epilogue, int bn,
+                                int stages, int grid, int smem, void* stream) {
+  if (!valid_epilogue(epilogue) || M < 1 || N < 1 || K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RaggedOperands o{static_cast<const bf16*>(x), ldx, static_cast<const bf16*>(w), ldw,
+                         copy_width(x, ldx), copy_width(w, ldw)};
+  mm::sm90::GemmArgs a{};
+  a.bias = static_cast<const bf16*>(bias);
+  a.res = static_cast<const bf16*>(res);
+  a.ldr = ldr;
+  a.y = y;
+  a.ldy = ldy;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.epi = epilogue;
+  a.vec_y = mm::sm90::rows_aligned16(y, ldy, 2);
+  a.vec_r = epilogue == kResidual ? mm::sm90::rows_aligned16(res, ldr, 2) : 0;
+  a.tiles_m = (M + mm::sm90::BM - 1) / mm::sm90::BM;
+  a.tiles_n = (N + bn - 1) / bn;
+  a.stages = stages;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 64: return launch_ragged<64>(o, a, grid, smem, s);
+    case 128: return launch_ragged<128>(o, a, grid, smem, s);
+    case 192: return launch_ragged<192>(o, a, grid, smem, s);
+    case 256: return launch_ragged<256>(o, a, grid, smem, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// Once, when the library loads: the shared memory limits of the TMA route
-// and of the skinny route's rings.
+// Once, when the library loads: the shared memory limits of the TMA route,
+// of the skinny route's rings and of the ragged route's.
 extern "C" int mm_linear_init() {
   cudaError_t e = cudaFuncSetAttribute(linear_skinny_kernel<1>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        skinny_smem_bytes(1));
+  if (e == cudaSuccess) e = set_ragged_smem_limit<64>();
+  if (e == cudaSuccess) e = set_ragged_smem_limit<128>();
+  if (e == cudaSuccess) e = set_ragged_smem_limit<192>();
+  if (e == cudaSuccess) e = set_ragged_smem_limit<256>();
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(linear_skinny_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              skinny_smem_bytes(2));

@@ -37,11 +37,6 @@ __device__ __forceinline__ void load16(const void* row, int c, float* f) {
   }
 }
 
-__device__ __forceinline__ uint32_t q8(float v, float s) {
-  const float r = fminf(fmaxf(rintf(v / s), -127.f), 127.f);
-  return static_cast<uint32_t>(static_cast<int>(r)) & 0xffu;
-}
-
 template <bool F32>
 __global__ void __launch_bounds__(kThreads)
     quant_rows_kernel(const void* __restrict__ x, int8_t* __restrict__ x8,
@@ -67,8 +62,8 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t w[V / 4];
 #pragma unroll
     for (int j = 0; j < V / 4; ++j)
-      w[j] = q8(f[4 * j], s) | (q8(f[4 * j + 1], s) << 8) | (q8(f[4 * j + 2], s) << 16) |
-             (q8(f[4 * j + 3], s) << 24);
+      w[j] = mm::q8(f[4 * j], s) | (mm::q8(f[4 * j + 1], s) << 8) |
+             (mm::q8(f[4 * j + 2], s) << 16) | (mm::q8(f[4 * j + 3], s) << 24);
     if (F32)
       *reinterpret_cast<uint32_t*>(yr + c) = w[0];
     else

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Kernels (``csrc/``): ``adaln_modulate``, ``linear_epilogue`` (three routes,
+Kernels (``csrc/``): ``adaln_modulate`` (and its quantising form
+``adaln_modulate_q8``), ``linear_epilogue`` (three routes,
 counted apart: the Hopper TMA + ``wgmma`` main loop of ``gemm_sm90.cuh``,
 ``linear_epilogue_skinny`` for M <= 64, ``linear_epilogue_ragged`` for what
 TMA cannot describe), ``attention`` (bf16 and f32 inputs), ``attention_bwd``,
@@ -20,7 +21,12 @@ gradient is recorded, and the differentiable route through
 """
 
 from ._lib import launches, plain_versions, reset_launch_counts
-from .adaln import adaln_modulate, adaln_modulate_plain
+from .adaln import (
+    adaln_modulate,
+    adaln_modulate_plain,
+    adaln_modulate_q8,
+    adaln_modulate_q8_plain,
+)
 from .attention import (
     FusedAttention,
     attention_bwd,
@@ -50,7 +56,7 @@ from .quant import quant_rows, quant_rows_plain, quantize_weight
 
 __all__ = [
     "launches", "plain_versions", "reset_launch_counts",
-    "adaln_modulate", "adaln_modulate_plain",
+    "adaln_modulate", "adaln_modulate_plain", "adaln_modulate_q8", "adaln_modulate_q8_plain",
     "fused_attention", "fused_attention_plain", "reference_attention",
     "attention_bwd", "attention_bwd_plain", "FusedAttention", "differentiable_attention",
     "fused_sa_block", "fused_sa_block_plain",

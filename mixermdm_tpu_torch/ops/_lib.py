@@ -149,13 +149,14 @@ _vp, _i32, _i64, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_
 # int as 32 bits), c_int64 for ``long long``.  tests/test_torch_port_gemm.py
 # holds this table against the sources.
 ARGTYPES = {
-    "mm_adaln_modulate": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _f32, _vp],
+    "mm_adaln_modulate": [_vp, _vp, _i64, _vp, _i64, _vp, _i32, _i32, _i32, _f32, _vp],
+    "mm_adaln_modulate_q8": [_vp, _vp, _i64, _vp, _i64, _vp, _vp, _i32, _i32, _i32, _f32, _vp],
     "mm_linear_tma": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _i32, _i32, _i32, _i32,
                       _i32, _i32, _i32, _i32, _vp],
     "mm_linear_skinny": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _i32, _i32, _i32, _i32,
                          _vp],
     "mm_linear_ragged": [_vp, _i64, _vp, _i64, _vp, _vp, _i64, _vp, _i64, _i32, _i32, _i32, _i32,
-                         _vp],
+                         _i32, _i32, _i32, _i32, _vp],
     "mm_linear_init": [],
     "mm_attention": [_vp, _vp, _vp, _vp, ctypes.POINTER(_i64), _vp, _vp, _vp,
                      _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _i32, _i32, _vp],

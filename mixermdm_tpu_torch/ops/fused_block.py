@@ -23,13 +23,15 @@ W8A8 forms (``quant=True`` in the JAX package: ``_sa_block_kernel_q8``,
 ``_ca_block_kernel_q8``, ``_ffn_kernel_q8``): :func:`fused_sa_block_q8`,
 :func:`fused_ca_block_q8` and :func:`fused_ffn_block_q8` take weights
 quantised once by :func:`..quant.quantize_weight` (int8 plus one f32 scale
-per output row) and run every projection as ``quant_rows`` ->
-``linear_q8``.  They quantise what the JAX kernels quantise, in the same
-precision: the modulated input once for Q, K and V (self-attention); the
-modulated ``xf`` once for K and V and the modulated ``x`` for Q
-(cross-attention); the self-attention output in f32, the cross-attention
-output in the compute dtype; the FFN hidden in f32 after ``+ b1`` and the
-GELU.
+per output row) and run every projection on ``linear_q8``.  They quantise
+what the JAX kernels quantise, in the same precision: the modulated input
+once for Q, K and V (self-attention); the modulated ``xf`` once for K and V
+and the modulated ``x`` for Q (cross-attention), each in the prologue
+itself, ``adaln_modulate_q8`` (LN, modulation, bf16 rounding and
+quantisation in one pass, as the TPU kernel does them in one program); with
+``quant_rows`` the self-attention output in f32, the cross-attention output
+in the compute dtype, the FFN hidden in f32 after ``+ b1`` and the GELU, and
+an FFN input that is not modulated.
 """
 
 from __future__ import annotations
@@ -39,7 +41,12 @@ from typing import Optional
 import torch
 
 from . import _lib
-from .adaln import adaln_modulate, adaln_modulate_plain
+from .adaln import (
+    adaln_modulate,
+    adaln_modulate_plain,
+    adaln_modulate_q8,
+    adaln_modulate_q8_plain,
+)
 from .attention import attention_into, fused_attention_plain
 from .linear import linear, linear_plain
 from .linear_q8 import linear_q8, linear_q8_plain
@@ -185,7 +192,7 @@ def fused_sa_block_q8_plain(x, scale, shift, w8_qkv, s_qkv, b_qkv, w8_o, s_o, b_
                             key_padding_mask=None, *, n_heads: int, zero_attn: bool = True,
                             eps: float = 1e-6, residual: bool = False) -> torch.Tensor:
     E = x.shape[-1]
-    x8, xs = quant_rows_plain(adaln_modulate_plain(x, scale, shift, eps))
+    x8, xs = adaln_modulate_q8_plain(x, scale, shift, eps)
     q, k, v = linear_q8_plain(x8, xs, w8_qkv, s_qkv, b_qkv, dtype=x.dtype).split(E, dim=-1)
     a = fused_attention_plain(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
                               key_padding_mask, None, zero_attn, out_dtype=torch.float32)
@@ -211,7 +218,7 @@ def fused_sa_block_q8(x, scale, shift, w8_qkv, s_qkv, b_qkv, w8_o, s_o, b_o,
                                        eps=eps, residual=residual)
     B, T, E = x.shape
     _check("fused_sa_block_q8", x, n_heads, E)
-    x8, xs = quant_rows(adaln_modulate(x, scale, shift, eps))
+    x8, xs = adaln_modulate_q8(x, scale, shift, eps)
     q, k, v = linear_q8(x8, xs, w8_qkv, s_qkv, b_qkv).split(E, dim=-1)
     out = torch.empty((B, T, E), dtype=torch.float32, device=x.device)
     attention_into(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
@@ -229,8 +236,8 @@ def fused_ca_block_q8_plain(x, xf, scale, shift, xf_scale, xf_shift, w8_qkv, s_q
                             zero_attn: bool = True, eps: float = 1e-6,
                             residual: bool = False) -> torch.Tensor:
     E = x.shape[-1]
-    x8, xs = quant_rows_plain(adaln_modulate_plain(x, scale, shift, eps))
-    f8, fs = quant_rows_plain(adaln_modulate_plain(xf, xf_scale, xf_shift, eps))
+    x8, xs = adaln_modulate_q8_plain(x, scale, shift, eps)
+    f8, fs = adaln_modulate_q8_plain(xf, xf_scale, xf_shift, eps)
     q = linear_q8_plain(x8, xs, w8_qkv[:E], s_qkv[:E], b_qkv[:E], dtype=x.dtype)
     k, v = linear_q8_plain(f8, fs, w8_qkv[E:], s_qkv[E:], b_qkv[E:],
                            dtype=x.dtype).split(E, dim=-1)
@@ -260,8 +267,8 @@ def fused_ca_block_q8(x, xf, scale, shift, xf_scale, xf_shift, w8_qkv, s_qkv, b_
     B, T, E = x.shape
     _check("fused_ca_block_q8", x, n_heads, E)
     _check("fused_ca_block_q8", xf, n_heads, E)
-    x8, xs = quant_rows(adaln_modulate(x, scale, shift, eps))
-    f8, fs = quant_rows(adaln_modulate(xf, xf_scale, xf_shift, eps))
+    x8, xs = adaln_modulate_q8(x, scale, shift, eps)
+    f8, fs = adaln_modulate_q8(xf, xf_scale, xf_shift, eps)
     q = linear_q8(x8, xs, w8_qkv[:E], s_qkv[:E], b_qkv[:E])              # (B, T, E)
     k, v = linear_q8(f8, fs, w8_qkv[E:], s_qkv[E:], b_qkv[E:]).split(E, dim=-1)
     out = torch.empty((B, T, E), dtype=x.dtype, device=x.device)
@@ -278,8 +285,10 @@ def fused_ca_block_q8(x, xf, scale, shift, xf_scale, xf_shift, w8_qkv, s_qkv, b_
 def fused_ffn_block_q8_plain(x, scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
                              w8_1, s_1, b1, w8_2, s_2, b2, *, eps: float = 1e-6,
                              residual: bool = False) -> torch.Tensor:
-    xn = x if scale is None else adaln_modulate_plain(x, scale, shift, eps)
-    x8, xs = quant_rows_plain(xn)
+    if scale is None:
+        x8, xs = quant_rows_plain(x)
+    else:
+        x8, xs = adaln_modulate_q8_plain(x, scale, shift, eps)
     h8, hs = quant_rows_plain(linear_q8_plain(x8, xs, w8_1, s_1, b1, activation="gelu"))
     return linear_q8_plain(h8, hs, w8_2, s_2, b2, dtype=x.dtype,
                            residual=x if residual else None)
@@ -299,8 +308,7 @@ def fused_ffn_block_q8(x, scale: Optional[torch.Tensor], shift: Optional[torch.T
     if _lib.use_plain(x):
         return fused_ffn_block_q8_plain(x, scale, shift, w8_1, s_1, b1, w8_2, s_2, b2,
                                         eps=eps, residual=residual)
-    xn = x if scale is None else adaln_modulate(x, scale, shift, eps)
-    x8, xs = quant_rows(xn)
+    x8, xs = quant_rows(x) if scale is None else adaln_modulate_q8(x, scale, shift, eps)
     h8, hs = quant_rows(linear_q8(x8, xs, w8_1, s_1, b1, activation="gelu"))
     y = linear_q8(h8, hs, w8_2, s_2, b2, residual=x if residual else None)
     _lib.launches["fused_ffn_block_q8"] += 1

@@ -14,7 +14,10 @@ counted each under its own name:
 - ``linear_epilogue_skinny``: M <= 64 (the M = 8 modulations and embeddings),
   bound by the read of W (3.35 TB/s).
 - ``linear_epilogue_ragged``: what TMA cannot describe (on the main path
-  only K = 262, rows of 524 bytes).
+  only K = 262, rows of 524 or 1048 bytes): ``wgmma`` on the same shared
+  memory layout, tile plan and epilogue, fed by ``cp.async`` copies from
+  every thread, as wide as the rows allow (16, 8, 4 or 2 bytes, picked in
+  ``csrc/linear.cu:copy_width``).
 
 The route depends on the shape and the alignment alone, never on whether a
 launch succeeded.
@@ -65,10 +68,10 @@ def smem_bytes(bn: int, stages: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     route: str        # "tma", "skinny" or "ragged"
-    bn: int = 0       # tma: tile width
-    stages: int = 0   # tma: depth of the ring
+    bn: int = 0       # tma, ragged: tile width
+    stages: int = 0   # tma, ragged: depth of the ring
     grid: int = 0     # blocks launched
-    smem: int = 0     # tma: dynamic shared memory, bytes
+    smem: int = 0     # tma, ragged: dynamic shared memory, bytes
 
 
 def tma_describable(elem_bytes: int, *mats: tuple[int, int]) -> bool:
@@ -87,17 +90,18 @@ def gemm_plan(M: int, N: int, K: int, tma_ok: bool = True, skinny: bool = True,
     (the wrappers ask at every launch).
 
     ``tma_ok``: the operands pass :func:`tma_describable`; without it the
-    product takes the ragged route.  With ``skinny`` (bf16), M <= 64 and K a
-    multiple of 64 take the skinny route.  Otherwise the TMA route, with the
-    tile width that finishes soonest on ``sms`` SMs: the persistent grid runs
-    ``ceil(tiles / sms)`` rounds of one tile each, a tile costing its width
-    plus a fixed overhead; ties go to the wider tile.  The ring is as deep as
-    227 KB allows, at most 6 stages (a stage is 128 bytes deep for either
-    operand type).
+    product takes the ragged route, which fills the TMA route's shared
+    memory layout with ``cp.async`` copies and takes the same plan.  With
+    ``skinny`` (bf16), M <= 64 and K a multiple of 64 take the skinny route
+    (TMA operands only).  Otherwise the tile width that finishes soonest on
+    ``sms`` SMs:
+    the persistent grid runs ``ceil(tiles / sms)`` rounds of one tile each,
+    a tile costing its width plus a fixed overhead; ties go to the wider
+    tile.  The ring is as deep as 227 KB allows, at most 6 stages (a stage
+    is 128 bytes deep for either operand type).  At K = 262 (5 stages of 64
+    elements) all of K fits in the ring at every width but 256.
     """
-    if not tma_ok:
-        return GemmPlan("ragged", grid=-(-N // 128) * -(-M // 128))
-    if skinny and M <= SKINNY_MAX_M and K % SKINNY_K_CHUNK == 0:
+    if tma_ok and skinny and M <= SKINNY_MAX_M and K % SKINNY_K_CHUNK == 0:
         return GemmPlan("skinny", grid=-(-N // SKINNY_COLS))
     tiles_m = -(-M // BM)
     best = None
@@ -108,7 +112,8 @@ def gemm_plan(M: int, N: int, K: int, tma_ok: bool = True, skinny: bool = True,
             best = (cost, bn, tiles)
     _, bn, tiles = best
     stages = min(MAX_STAGES, (SMEM_LIMIT - SMEM_ALIGN - EPI_BYTES) // (stage_bytes(bn) + 16))
-    return GemmPlan("tma", bn, stages, min(tiles, sms), smem_bytes(bn, stages))
+    return GemmPlan("tma" if tma_ok else "ragged", bn, stages, min(tiles, sms),
+                    smem_bytes(bn, stages))
 
 
 _sms: dict = {}
@@ -199,7 +204,8 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
         rc = lib.mm_linear_skinny(*args, _lib.stream_handle(x))
         name = "linear_epilogue_skinny"
     else:
-        rc = lib.mm_linear_ragged(*args, _lib.stream_handle(x))
+        rc = lib.mm_linear_ragged(*args, plan.bn, plan.stages, plan.grid, plan.smem,
+                                  _lib.stream_handle(x))
         name = "linear_epilogue_ragged"
     _lib.check_launch(name, rc, shape=(M, K, N, EPILOGUE_NAMES[epi]))
     return y

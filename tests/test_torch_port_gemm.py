@@ -4,7 +4,9 @@ shape, the plan's agreement with the constants of ``csrc/gemm_sm90.cuh``,
 and the ``ctypes`` argument types of every ``extern "C"`` launcher in
 ``csrc/*.cu``.
 
-Nothing here needs a card or a compiler: a plan that the card would refuse
+Nothing here needs a card or ``nvcc`` (the ragged route's copy-width rule
+is compiled alone from ``csrc/linear.cu`` by the host C++ compiler): a plan
+that the card would refuse
 (too many blocks, too much shared memory, a box TMA cannot describe) and an
 argument cut to 32 bits would otherwise show only on the card, where
 ``chip_smoke.py`` runs the kernels at these shapes.
@@ -15,6 +17,8 @@ import glob
 import importlib
 import os
 import re
+import shutil
+import subprocess
 
 import pytest
 
@@ -45,8 +49,8 @@ MAIN_PATH_SHAPES = [
     # the skinny layers
     (8, 1024, 2048, 2, "skinny"), (8, 512, 1024, 2, "skinny"), (8, 1024, 1024, 2, "skinny"),
     (8, 768, 1024, 2, "skinny"), (64, 1024, 3072, 2, "skinny"),
-    # motion_embed: rows of 524 bytes
-    (M, 262, 1024, 2, "ragged"),
+    # motion_embed: rows of 524 bytes; denoisers, mixer, discriminators (T = 300)
+    (M, 262, 1024, 2, "ragged"), (M, 262, 512, 2, "ragged"), (8 * 300, 262, 256, 2, "ragged"),
     # the W8A8 block products
     (M, 1024, 3072, 1, "tma"), (M, 1024, 2048, 1, "tma"), (M, 2048, 1024, 1, "tma"),
     (M, 1024, 1024, 1, "tma"), (M, 512, 1536, 1, "tma"), (M, 512, 512, 1, "tma"),
@@ -69,8 +73,6 @@ def test_main_path_shape_plan(m, k, n, elem, route):
     assert plan.route == route
     if route == "skinny":
         assert plan.grid == -(-n // lin.SKINNY_COLS)
-        return
-    if route == "ragged":
         return
     tiles = -(-m // lin.BM) * -(-n // plan.bn)
     # A persistent grid of at most one block per SM, no block without a tile.
@@ -115,6 +117,56 @@ def test_unaligned_operands_take_the_ragged_route():
     assert lin.gemm_plan(8, 1024, 262, tma_ok=True).route == "tma"
     assert lin.gemm_plan(8, 1024, 520, tma_ok=True).route == "tma"
     assert lin.gemm_plan(8, 1024, 512, tma_ok=True).route == "skinny"
+
+
+@pytest.fixture(scope="module")
+def copy_width(tmp_path_factory):
+    """``copy_width`` of ``csrc/linear.cu`` (host code: the ragged route's
+    copy width in bytes for a bf16 matrix at ``ptr`` with row stride ``ld``
+    elements), compiled alone by the host C++ compiler."""
+    with open(os.path.join(CSRC, "linear.cu")) as f:
+        m = re.search(r"^int copy_width\(const void\* p, long long ld\) \{\n.*?^\}\n", f.read(),
+                      re.M | re.S)
+    assert m, "copy_width not found in csrc/linear.cu"
+    d = tmp_path_factory.mktemp("copy_width")
+    (d / "copy_width.cpp").write_text('#include <cstdint>\nextern "C" ' + m.group(0))
+    subprocess.run([shutil.which("c++") or "c++", "-shared", "-fPIC", "-o",
+                    str(d / "copy_width.so"), str(d / "copy_width.cpp")], check=True)
+    fn = ctypes.CDLL(str(d / "copy_width.so")).copy_width
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int64], ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("n", [1024, 512, 256])
+@pytest.mark.parametrize("ldx", [262, 524])
+def test_ragged_plan_fills_the_card_in_one_wave(n, ldx, copy_width):
+    """motion_embed, x rows of 524 bytes (a torch.cat of 262-wide rows) or
+    1048 (the view x[..., :262] of 524-wide rows): the ragged route, one
+    wave of persistent blocks at M = 2392 and 2400, every stage of K = 262
+    in the ring at once, x copied 4 or 8 bytes at a time, w 4."""
+    for m in (8 * 299, 8 * 300):
+        plan = lin.gemm_plan(m, n, 262, tma_ok=lin.tma_describable(2, (0, ldx), (0, 262)),
+                             sms=H100_SMS)
+        tiles = -(-m // lin.BM) * -(-n // plan.bn)
+        assert plan.route == "ragged"
+        assert plan.grid == tiles <= H100_SMS
+        assert plan.stages >= -(-262 // 64)
+        assert plan.smem == lin.smem_bytes(plan.bn, plan.stages) <= SMEM_227K
+    assert copy_width(0, ldx) == (4 if ldx == 262 else 8)
+    assert copy_width(1 << 20, 262) == 4
+
+
+@pytest.mark.parametrize("ptr,ld,width", [
+    (0, 1024, 16), (8, 1024, 8), (0, 262, 4), (4, 524, 4), (0, 524, 8), (0, 263, 2),
+    (2, 262, 2), (6, 1024, 2)])
+def test_ragged_copy_width(ptr, ld, width, copy_width):
+    """The widest copy every row start allows; 2-byte-aligned rows (an odd K
+    or stride, or an odd 2-byte base) take element copies in the same kernel
+    and still take the ragged route."""
+    assert copy_width(ptr, ld) == width
+    if width < 16:
+        assert lin.gemm_plan(M, 1024, 263, tma_ok=lin.tma_describable(2, (ptr, ld))).route == \
+            "ragged"
 
 
 def _constexpr(text, name):

@@ -264,6 +264,8 @@ META_CALLS = {
         _meta(_B, _T, _E), _meta(_B, _E), _meta(_B, _E), _meta(2 * _E, _E), _meta(2 * _E),
         _meta(_E, 2 * _E), _meta(_E)),
     "quant_rows": lambda: ops.quant_rows(_meta(_B, _T, _E))[0],
+    "adaln_modulate_q8": lambda: ops.adaln_modulate_q8(_meta(_B, _T, _E), _meta(_B, _E),
+                                                       _meta(_B, _E))[0],
     "linear_q8": lambda: ops.linear_q8(*_meta_q8(_B, _T, _E), *_meta_q8(_E, _E), _meta(_E)),
     "fused_sa_block_q8": lambda: ops.fused_sa_block_q8(
         _meta(_B, _T, _E), _meta(_B, _E), _meta(_B, _E), *_meta_q8(3 * _E, _E), _meta(3 * _E),
@@ -285,7 +287,7 @@ def test_entry_points_never_run_plain_versions_off_the_cpu(name):
         META_CALLS[name]()
     with ops.plain_versions():
         out = META_CALLS[name]()
-    want = torch.int8 if name == "quant_rows" else torch.bfloat16
+    want = torch.int8 if name in ("quant_rows", "adaln_modulate_q8") else torch.bfloat16
     assert out.device.type == "meta" and out.dtype == want
     with pytest.raises(ValueError, match="expected CUDA tensors"):
         META_CALLS[name]()  # the switch is restored on leaving the block

@@ -104,6 +104,25 @@ def test_quant_rows_is_bitwise_the_jax_one():
         np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j).reshape(-1))
 
 
+@pytest.mark.parametrize("E", [128, 1024])
+def test_adaln_modulate_q8_plain_is_bitwise_the_jax_one(E):
+    """The quantising prologue: the port's composition, and JAX's
+    ``_quant_act`` applied to the same bf16 modulated rows (what the q8
+    kernels quantise before their first product), bitwise."""
+    rng = np.random.default_rng(E + 1)
+    bf = torch.bfloat16
+    x = _t(0.5 * rng.standard_normal((2, 7, E)), bf)
+    scale, shift = (_t(0.2 * rng.standard_normal((2, E)), bf) for _ in range(2))
+    x8, s = ops.adaln_modulate_q8_plain(x, scale, shift)
+    xn = ops.adaln_modulate_plain(x, scale, shift)
+    w8, ws = ops.quant_rows_plain(xn)
+    assert x8.dtype == torch.int8 and s.shape == (2, 7) and s.dtype == torch.float32
+    assert torch.equal(x8, w8) and torch.equal(s, ws)
+    x8_j, s_j = jblock._quant_act(_j(xn.float()).astype(jnp.bfloat16))
+    np.testing.assert_array_equal(x8.numpy(), np.asarray(x8_j))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_j).reshape(2, 7))
+
+
 # ------------------------------------------------- (d) the exact int8 product
 
 def test_linear_q8_plain_integer_product_is_exact():
