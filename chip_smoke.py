@@ -19,7 +19,10 @@ Phases, each printing its wall-clock seconds:
    alone beside it; for ``adaln_modulate_q8``, the unfused
    ``adaln_modulate`` + ``quant_rows`` pair beside it; it is held bitwise to
    the plain quantisation of ``adaln_modulate``'s rows and, within one int8
-   step, to its plain composition), the eager time and
+   step, to its plain composition; ``attention_q8`` and the quantising GELU
+   product ``linear_q8_gelu_q8`` likewise, bitwise to ``quant_rows`` of the
+   unfused kernel's output, beside the unfused pair and with every
+   warpgroup count of their plans), the eager time and
    the host's microseconds per call, and the card's bound for the same work;
 4. the sampling path at full published width (two 1024-d in2IN denoisers,
    the 512-d mixer, the ViT-L/14 text tower with its f32 post-encoder heads;
@@ -52,6 +55,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import dataclasses
 import faulthandler
 import json
 import math
@@ -532,6 +536,7 @@ def q8_checks(gen, compare, block_params, rnd):
     results.append(q8_case("linear_q8 out-proj +residual E=512", 512, 512, res=True))
     results.append(q8_case("linear_q8 FFN1 gelu f32 E=512", 512, 1024, act="gelu"))
     results.append(q8_case("linear_q8 FFN2 +residual E=512", 1024, 512, res=True))
+    results += fused_q8_checks(gen, rnd)
 
     # --- attention, f32 output (the W8A8 self-attention block) --------------
     for D in (128, 64):
@@ -603,6 +608,159 @@ def q8_checks(gen, compare, block_params, rnd):
     results.append(ca_q8(8, 299, 512, 8, True))
     results.append(ffn_q8(8, 299, 1024, 2048, True))
     results.append(ffn_q8(8, 299, 512, 1024, True))
+    return results
+
+
+# The fused quantising epilogues against their plain compositions, on the
+# dequantised values x8 * s, max |diff| / max |plain|: the unfused kernel's
+# own limit against its plain version (attention 2e-2, the int8 GELU
+# product 1e-5) plus one int8 step (1 / 127 of a row's amax), by which a
+# value on a rounding boundary may move.
+FUSED_Q8_TOL = {"attention_q8": 2e-2 + 1 / 127, "linear_q8_gelu_q8": 1e-5 + 1 / 127}
+
+
+def fused_q8_checks(gen, rnd):
+    """``attention_q8`` and the quantising GELU product (``linear_q8_gelu_q8``)
+    at the six shapes where the W8A8 step quantised with ``quant_rows``
+    before: int8 values and scales bitwise ``quant_rows`` of the unfused
+    kernel's output on the same inputs, and the dequantised values against
+    the plain composition (:data:`FUSED_Q8_TOL`); timed beside the unfused
+    pair they replace (the producer kernel, then ``quant_rows``), with every
+    warpgroup count of the plan forced beside the one it picks (rows per
+    block: the plan's choice rests on these readings), and a ragged case of
+    each (not timed)."""
+    import importlib
+
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import attention as attn_mod
+
+    lq = importlib.import_module("mixermdm_tpu_torch.ops.linear_q8")
+    dev = torch.device("cuda")
+    results = []
+
+    def forced(module, plan_name, knob, values, plan_args, kern, pair):
+        """The kernel's ms with each value of one knob of its plan forced,
+        on the same inputs, and whether its output is still the unfused
+        kernel's bits."""
+        orig = getattr(module, plan_name)
+        r8, rs = pair()
+        out = {}
+        try:
+            for value in values:
+                setattr(module, plan_name, lambda *a, _v=value: orig(*a, **{knob: _v}))
+                o8, os_ = kern()
+                torch.cuda.synchronize()
+                out[value] = {"ms": graph_timed(kern),
+                              "plan": dataclasses.asdict(getattr(module, plan_name)(*plan_args)),
+                              "bitwise_vs_unfused_kernel": bool(torch.equal(o8, r8)
+                                                                and torch.equal(os_, rs))}
+        finally:
+            setattr(module, plan_name, orig)
+        return out
+
+    def held(name, kind, got, pair, plain, n_bytes, ops_, peak, timing, **shape):
+        (k8, ks), (r8, rs), (p8, ps) = got, pair, plain
+        torch.cuda.synchronize()
+        bit8 = (k8.int() - r8.int()).abs().max().item()
+        bits = (ks - rs).abs().max().item()
+        deq_k, deq_p = k8.float() * ks[..., None], p8.float() * ps[..., None]
+        deq = ((deq_k - deq_p).abs().max() / deq_p.abs().max().clamp_min(1e-30)).item()
+        ok = bit8 == 0 and bits == 0 and deq <= FUSED_Q8_TOL[kind] and bool(
+            torch.isfinite(ks).all())
+        b_ms, b_by = bound_ms(n_bytes, ops_, peak)
+        res = {
+            "check": name, "kind": kind, "shape": shape,
+            "max_abs_err": float((k8.int() - p8.int()).abs().max().item()),
+            "int8_differ": (k8 != p8).float().mean().item(), "dequant_rel_err": deq,
+            "tol": {"vs_unfused_kernel": "bitwise", "dequant_rel_err": FUSED_Q8_TOL[kind]},
+            "vs_unfused_kernel": {"max_int8_err": bit8, "max_scale_err": bits}, "ok": ok,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        }
+        if timing:
+            kern, pair_fn, plain_fn = timing
+            res.update({"ms": graph_timed(kern), "pair_ms": graph_timed(pair_fn),
+                        "plain_ms": graph_timed(plain_fn), "eager_ms": timed(kern),
+                        "host_us": host_us(kern)})
+        print("   " + json.dumps(res), flush=True)
+        return res
+
+    # --- attention_q8: Q, K, V as the blocks pass them (slices of a packed
+    # projection); the SA form quantises the f32 output, the CA form its bf16
+    # rounding.
+    def attn_q8(name, B, T, H, D, out_dtype, kpm_rows=(), time_it=True):
+        E = H * D
+        qkv = rnd(B, T, 3 * E)
+        q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in qkv.split(E, dim=-1))
+        kpm = None
+        if kpm_rows:
+            kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
+            kpm[:, T - T // 4:] = True
+            for r in kpm_rows:
+                kpm[r] = True
+        unfused = torch.empty(B, T, E, dtype=out_dtype, device=dev)
+
+        def pair():
+            attn_mod.attention_into(q, k, v, unfused.view(B, T, H, D).transpose(1, 2), kpm,
+                                    None, True)
+            return ops.quant_rows(unfused)
+
+        kern = lambda: ops.attention_q8(q, k, v, kpm, True, out_dtype=out_dtype)  # noqa: E731
+        plain = lambda: ops.attention_q8_plain(q, k, v, kpm, True,  # noqa: E731
+                                               out_dtype=out_dtype)
+        plan = attn_mod.attention_q8_plan(B, H, T, T, D)
+        clusters = attn_mod.attention_q8_clusters(D, H, plan.nwg, plan.stages)
+        n_bytes = 2 * 3 * B * T * E + B * T * E + 4 * B * T + (B * T if kpm is not None else 0)
+        res = held(name, "attention_q8", kern(), pair(), plain(), n_bytes, 4 * B * T * T * E,
+                   H100_BF16_FLOPS, (kern, pair, plain) if time_it else None, B=B, H=H, Tq=T,
+                   Tk=T, D=D, out=str(out_dtype)[6:], masked_rows=list(kpm_rows),
+                   plan={"nwg": plan.nwg, "stages": plan.stages, "ctas": plan.grid[0] * H * B,
+                         "clusters_at_once": clusters})
+        if time_it:
+            res["by_nwg"] = forced(attn_mod, "attention_q8_plan", "nwg",
+                                   range(1, attn_mod.MAX_WARPGROUPS + 1), (B, H, T, T, D),
+                                   kern, pair)
+            res["ok"] = res["ok"] and all(r["bitwise_vs_unfused_kernel"]
+                                          for r in res["by_nwg"].values())
+            print("   " + json.dumps({"check": name, "by_nwg": res["by_nwg"]}), flush=True)
+        return res
+
+    M = 8 * 299
+    results.append(attn_q8("attention_q8 SA f32 D=128", 8, 299, 8, 128, torch.float32))
+    results.append(attn_q8("attention_q8 SA f32 D=64", 8, 299, 8, 64, torch.float32))
+    results.append(attn_q8("attention_q8 CA bf16 D=128", 8, 299, 8, 128, torch.bfloat16))
+    results.append(attn_q8("attention_q8 CA bf16 D=64", 8, 299, 8, 64, torch.bfloat16))
+    results.append(attn_q8("attention_q8 T=131 key padding + masked row", 3, 131, 8, 128,
+                           torch.bfloat16, kpm_rows=(1,), time_it=False))
+
+    # --- the quantising GELU product (FFN1 of the W8A8 FFN blocks) ----------
+    def gelu_q8(name, M_, K, N, time_it=True):
+        x8, xs = ops.quant_rows(torch.randn(M_, K, generator=gen, device=dev).to(torch.bfloat16))
+        w8, ws = ops.quantize_weight(rnd(N, K, std=K ** -0.5))
+        b = rnd(N, std=0.1)
+        kern = lambda: ops.linear_q8(x8, xs, w8, ws, b, activation="gelu",  # noqa: E731
+                                     quant_out=True)
+        pair = lambda: ops.quant_rows(ops.linear_q8(x8, xs, w8, ws, b,  # noqa: E731
+                                                    activation="gelu"))
+        plain = lambda: ops.linear_q8_gelu_q8_plain(x8, xs, w8, ws, b)  # noqa: E731
+        plan = lq.gelu_q8_plan(M_, N, K)
+        n_bytes = M_ * K + N * K + 4 * (M_ + N) + 2 * N + M_ * N + 4 * M_
+        res = held(name, "linear_q8_gelu_q8", kern(), pair(), plain(), n_bytes, 2 * M_ * N * K,
+                   H100_INT8_OPS, (kern, pair, plain) if time_it else None, M=M_, K=K, N=N,
+                   plan=dataclasses.asdict(plan))
+        if time_it:
+            res["by_nc"] = forced(lq, "gelu_q8_plan", "nc", lq.GELU_Q8_WARPGROUPS,
+                                  (M_, N, K), kern, pair)
+            res["ok"] = res["ok"] and all(r["bitwise_vs_unfused_kernel"]
+                                          for r in res["by_nc"].values())
+            print("   " + json.dumps({"check": name, "by_nc": res["by_nc"]}), flush=True)
+        return res
+
+    results.append(gelu_q8("linear_q8_gelu_q8 FFN1 E=1024", M, 1024, 2048))
+    results.append(gelu_q8("linear_q8_gelu_q8 FFN1 E=512", M, 512, 1024))
+    results.append(gelu_q8("linear_q8_gelu_q8 M=393 N=1040 (ragged)", 393, 1024, 1040,
+                           time_it=False))
     return results
 
 
@@ -942,18 +1100,21 @@ def sample_phase(seed):
     sa, ca, ffn = n["VanillaSelfAttention"], n["VanillaCrossAttention"], n["FFN"]
     ffn_mod = sum(1 for net in (system.model1, system.model2, system.core) for m in net.modules()
                   if isinstance(m, layers.FFN) and m.norm is not None)
-    # Per W8A8 step: the int8 products of each block; quant_rows for the
-    # attention output of each SA and CA block and the hidden of each FFN;
+    # Per W8A8 step: the int8 products of each block, the FFN's first one
+    # with the quantising GELU epilogue (linear_q8_gelu_q8); the attention
+    # of each SA and CA block with its quantising epilogue (attention_q8);
     # the quantising prologue for the input of each SA block, both inputs of
-    # each CA block and each modulated FFN input.  The bf16 step runs the
-    # same blocks on the bf16 kernels.
+    # each CA block and each modulated FFN input; quant_rows only for an FFN
+    # input that is not modulated.  The bf16 step runs the same blocks on the
+    # bf16 kernels.
     expected = {
-        "W8A8": {"linear_q8": 2 * sa + 3 * ca + 2 * ffn, "quant_rows": sa + ca + ffn,
+        "W8A8": {"linear_q8": 2 * sa + 3 * ca + ffn, "linear_q8_gelu_q8": ffn,
+                 "attention_q8": sa + ca, "quant_rows": ffn - ffn_mod,
                  "adaln_modulate_q8": sa + 2 * ca + ffn_mod, "adaln_modulate": 0,
                  "fused_sa_block_q8": sa, "fused_ca_block_q8": ca, "fused_ffn_block_q8": ffn,
                  "fused_sa_block": 0, "fused_ca_block": 0, "fused_ffn_block": 0},
-        "bf16": {"linear_q8": 0, "quant_rows": 0, "adaln_modulate_q8": 0,
-                 "adaln_modulate": sa + 2 * ca + ffn_mod,
+        "bf16": {"linear_q8": 0, "linear_q8_gelu_q8": 0, "attention_q8": 0, "quant_rows": 0,
+                 "adaln_modulate_q8": 0, "adaln_modulate": sa + 2 * ca + ffn_mod,
                  "fused_sa_block_q8": 0, "fused_ca_block_q8": 0, "fused_ffn_block_q8": 0,
                  "fused_sa_block": sa, "fused_ca_block": ca, "fused_ffn_block": ffn}}
     for label, on in (("W8A8", True), ("bf16", False)):
@@ -1270,7 +1431,15 @@ KERNELS = {
                         "mixermdm_tpu/ops/fused_block.py:473 (fused_ffn_block -> pallas_call :522)"),
     "quant_rows": ("mixermdm_tpu_torch/csrc/quant.cu",
                    "mixermdm_tpu/ops/fused_block.py:58 (_quant_act of _sa_block_kernel_q8 :160, "
-                   "_ca_block_kernel_q8 :333, _ffn_kernel_q8 :467)"),
+                   "_ca_block_kernel_q8 :333, _ffn_kernel_q8 :467; on the W8A8 path only for "
+                   "an FFN input that is not modulated)"),
+    "attention_q8": ("mixermdm_tpu_torch/csrc/attention.cu",
+                     "mixermdm_tpu/ops/fused_block.py:58 (_quant_act of the attention output "
+                     "in _sa_block_kernel_q8 :160 via _qdot :74, and _ca_block_kernel_q8 :333; "
+                     "attention loop of :80 and :259)"),
+    "linear_q8_gelu_q8": ("mixermdm_tpu_torch/csrc/linear_q8.cu",
+                          "mixermdm_tpu/ops/fused_block.py:58 (_quant_act of the GELU hidden "
+                          "in _ffn_kernel_q8 :467 via _qdot :74; the product _qdot :74)"),
     "linear_q8": ("mixermdm_tpu_torch/csrc/linear_q8.cu",
                   "mixermdm_tpu/ops/fused_block.py:66 (_qdot8, _qdot :74: the int8 products of "
                   "_sa_block_kernel_q8 :160, _ca_block_kernel_q8 :333, _ffn_kernel_q8 :467)"),
@@ -1289,8 +1458,8 @@ KERNELS = {
 GEMM_ROUTES = ("linear_epilogue", "linear_epilogue_skinny", "linear_epilogue_ragged")
 PATH_KERNELS = {
     "W8A8": ("adaln_modulate_q8", *GEMM_ROUTES, "attention", "attention_f32",
-             "fused_attention", "quant_rows", "linear_q8", "fused_sa_block_q8",
-             "fused_ca_block_q8", "fused_ffn_block_q8"),
+             "attention_q8", "fused_attention", "linear_q8", "linear_q8_gelu_q8",
+             "fused_sa_block_q8", "fused_ca_block_q8", "fused_ffn_block_q8"),
     "bf16": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
              "fused_attention", "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
     # Adversarial training: the frozen denoisers on the bf16 blocks, the
@@ -1302,8 +1471,9 @@ PATH_KERNELS = {
 }
 # The path whose counts stand in a kernel's row: the shipped sampling path,
 # the bf16 one for the bf16 block forms, the training path for the kernels
-# it brought.
-ROW_PATH = {"attention_f32": "train", "attention_bwd": "train"}
+# it brought; quant_rows stands on the W8A8 path it left to its producers
+# (0 launches there unless an FFN input is not modulated).
+ROW_PATH = {"attention_f32": "train", "attention_bwd": "train", "quant_rows": "W8A8"}
 # The check whose numbers stand for each name in the kernels line: the
 # largest main-path shape.
 REPRESENTATIVE = {
@@ -1320,6 +1490,8 @@ REPRESENTATIVE = {
     "fused_ca_block": "fused_ca_block E=1024 T=299 residual=True",
     "fused_ffn_block": "fused_ffn_block E=1024 F=2048 residual=True adaln=True",
     "quant_rows": "quant_rows float32 M=2392 K=2048",
+    "attention_q8": "attention_q8 SA f32 D=128",
+    "linear_q8_gelu_q8": "linear_q8_gelu_q8 FFN1 E=1024",
     "linear_q8": "linear_q8 QKV E=1024",
     "fused_sa_block_q8": "fused_sa_block_q8 E=1024 T=299 residual=True",
     "fused_ca_block_q8": "fused_ca_block_q8 E=1024 T=299 residual=True",

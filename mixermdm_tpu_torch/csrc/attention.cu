@@ -45,10 +45,26 @@
 //   per head, 128 blocks on 132 SMs in one wave, and each K/V tile read into
 //   an SM serves 192 query rows.
 //
-// The output is bf16, or f32 for the W8A8 self-attention block: the JAX
-// package quantises that block's attention output from f32
-// (mixermdm_tpu/ops/fused_block.py:140-146, heads concatenated before any
-// cast), so the f32 instantiation hands the unrounded values to quant_rows.
+// The output is bf16 or f32, or (attention_q8, the W8A8 blocks) int8 with
+// one f32 scale per row of the (B, Tq, H D) output matrix: _quant_act
+// (mixermdm_tpu/ops/fused_block.py:58) of the self-attention block's f32
+// output (:140-146, heads concatenated before any cast) or of the
+// cross-attention block's bf16 output, fused into this kernel's epilogue so
+// the unquantised output never reaches device memory.  A row's scale needs
+// its max |value| over all H heads, one CTA each: the H CTAs of a query
+// tile run as one thread block cluster (dims (1, H, 1)).  Each CTA
+// publishes its rows' partial maxima in shared memory, the cluster barrier
+// (release / acquire) orders them, every CTA reads the others' through
+// distributed shared memory (mapa + ld.shared::cluster), quantises with
+// quant_rows' arithmetic (IEEE division, rintf) and writes int8; rank 0
+// writes the scales; a second barrier keeps each CTA resident until its
+// peers have read it.  The values are the unfused output's (o / l in f32,
+// rounded to bf16 for the CA form), so int8 and scales are bit for bit
+// quant_rows of that output.  What it costs: clusters of 8 CTAs of one SM
+// each fit 15 at a time on an H100 SXM (the GPCs' multiples of 8 SMs, 120
+// SMs), so at (8, 8, 299) the 16 query-tile clusters of the unfused plan
+// take two waves; the host plans the warpgroups per block for waves of
+// clusters (ops/attention.py: attention_q8_plan).
 //
 // f32 inputs (attention_f32_kernel; the f32 softmax branch of _attn_body,
 // attention.py:60; on the port's paths the CLIP post-encoders, (B, 8, 77,
@@ -90,6 +106,7 @@ constexpr int kRows = 64;                // query rows per warpgroup; keys per K
 constexpr int kSlabBytes = kRows * 128;  // 64 rows x 128 bytes, one swizzled slab
 constexpr int kMaxWarpgroups = 3;
 constexpr int kMaxStages = 3;
+constexpr int kMaxClusterHeads = 8;  // the portable cluster size: one CTA per head
 
 // Dynamic shared memory of one block: the Q slabs of every warpgroup, the
 // K/V ring, one barrier for Q and a full / empty pair per stage, aligned to
@@ -99,9 +116,15 @@ __host__ __device__ constexpr int fwd_smem_bytes(int dp, int nwg, int stages) {
   return sm90::kSmemAlign + (nwg + 2 * stages) * (dp / 64) * kSlabBytes + 8 * (1 + 2 * stages);
 }
 
+// What the bf16-input kernel writes: the output in bf16 or f32, or (the
+// quantising epilogue of attention_q8) the output quantised per row of the
+// (B, Tq, H D) matrix, from the f32 values or from their bf16 rounding.
+enum OutKind { kOutBf16 = 0, kOutF32 = 1, kOutQ8F32 = 2, kOutQ8Bf16 = 3 };
+
 struct FwdParams {
-  void* o;  // bf16, or f32 for the OF32 instantiation
+  void* o;  // bf16, f32, or int8 for the quantising instantiations
   long long o_sb, o_sh, o_st;
+  float* qscale;       // (B, Tq) row scales of the int8 output, or null
   float* stats;        // (2, B, H, Tq) row max and denominator, or null
   const bool* kpm;     // (B, Tk), true = masked (bias -1e30), or null
   const float* amask;  // (Tq, Tk) additive, or null
@@ -109,6 +132,15 @@ struct FwdParams {
   float scale;
   int pos[3][3];  // per map (q, k, v): the coordinate slot (1..3) of t, h and b
 };
+
+// The two cluster barriers of the quantising epilogue, for a thread that
+// publishes and reads nothing (the producer warp, a warpgroup past Tq).
+__device__ __forceinline__ void cluster_pass() {
+  sm90::cluster_arrive_relaxed();
+  sm90::cluster_wait();
+  sm90::cluster_arrive_relaxed();
+  sm90::cluster_wait();
+}
 
 // Box (64 columns from c, 64 rows from t) of one (b, h) of a view map whose
 // coordinate slots of t, h and b are pos[0..2].
@@ -118,7 +150,7 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map, uint
   sm90::tma_load_4d(dst, map, bar, c, at(1), at(2), at(3));
 }
 
-template <int DP, int NWG, bool OF32>
+template <int DP, int NWG, int OUT>
 __global__ void __launch_bounds__(128 * NWG + 32, 1)
     attention_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
@@ -127,6 +159,9 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
   constexpr int kSlabs = DP / 64;
   constexpr int kTileBytes = kSlabs * kSlabBytes;  // 64 rows of Q, K or V
   constexpr int NT = DP / 8;                       // n8 column groups of the output
+  constexpr bool kQ8 = OUT == kOutQ8F32 || OUT == kOutQ8Bf16;
+  // The quantising epilogue's per-row partial maxima, read by the cluster.
+  __shared__ float row_amax[kQ8 ? kRows * NWG : 1];
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + sm90::kSmemAlign - 1) &
@@ -179,9 +214,13 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
         issue_kv(j);
       }
     }
+    if constexpr (kQ8) cluster_pass();
     return;
   }
-  if (wg >= nwg_rows) return;  // a warpgroup whose rows are all past Tq
+  if (wg >= nwg_rows) {  // a warpgroup whose rows are all past Tq
+    if constexpr (kQ8) cluster_pass();
+    return;
+  }
   const int r_lo = q0 + wg * kRows + warp * 16 + (lane >> 2);  // rows r_lo and r_lo + 8
 
   // Running state for this thread's two rows.  The row sum is kept per
@@ -311,6 +350,54 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
     }
     l[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
+  if constexpr (kQ8) {
+    // The output row, H D values, is spread over the H CTAs of this cluster
+    // (one head each).  Each thread forms its values as the unquantised
+    // output would hold them (f32, or rounded to bf16), takes their |max|
+    // over the row's D columns of this head (the quad of lanes that shares
+    // the row, shfl 1 and 2), publishes it, and after the cluster barrier
+    // reads the other heads' partials through distributed shared memory.
+    float amax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int e = 0; e < DP / 4; ++e) {
+        float v = o[4 * (e >> 1) + 2 * i + (e & 1)] * l[i];
+        if constexpr (OUT == kOutQ8Bf16) v = __bfloat162float(__float2bfloat16_rn(v));
+        o[4 * (e >> 1) + 2 * i + (e & 1)] = v;
+        amax[i] = fmaxf(amax[i], fabsf(v));
+      }
+      amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], 1));
+      amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], 2));
+    }
+    const int lr = wg * kRows + warp * 16 + (lane >> 2);  // this CTA's row of r_lo
+    if ((lane & 3) == 0) {
+      row_amax[lr] = amax[0];
+      row_amax[lr + 8] = amax[1];
+    }
+    sm90::cluster_arrive();
+    sm90::cluster_wait();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) amax[i] = sm90::cluster_row_max(&row_amax[lr + 8 * i], p.H, lane);
+    sm90::cluster_arrive_relaxed();  // done with the peers' partials
+    const bool rank0 = sm90::cluster_rank() == 0;
+    int8_t* o8 = static_cast<int8_t*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r_lo + i * 8;
+      if (row >= p.Tq) continue;
+      const float sc = fmaxf(amax[i], 1e-8f) / 127.f;  // quant_rows' scale, IEEE division
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const uint32_t w = mm::q8(o[4 * t + 2 * i], sc) | (mm::q8(o[4 * t + 2 * i + 1], sc) << 8);
+        *reinterpret_cast<uint16_t*>(o8 + row * p.o_st + t * 8 + (lane & 3) * 2) =
+            static_cast<uint16_t>(w);
+      }
+      if (rank0 && (lane & 3) == 0) p.qscale[(size_t)b * p.Tq + row] = sc;
+    }
+    sm90::cluster_wait();  // no CTA leaves while a peer may still read its partials
+    return;
+  }
   const long long o_off = b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -322,7 +409,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
       if (col >= p.D) continue;
       const long long off = o_off + (size_t)row * p.o_st + col;
       const float v0 = o[4 * t + 2 * i] * l[i], v1 = o[4 * t + 2 * i + 1] * l[i];
-      if (OF32)
+      if (OUT == kOutF32)
         *reinterpret_cast<float2*>(static_cast<float*>(p.o) + off) = make_float2(v0, v1);
       else
         *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.o) + off) = mm::pack_bf16x2(v0, v1);
@@ -358,25 +445,62 @@ bool view_map(CUtensorMap* map, const void* ptr, const long long* strides, int B
   return sm90::tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 4, dims, st, box);
 }
 
+// The quantising instantiations run as clusters of the H CTAs of one query
+// tile (cluster dims (1, H, 1), H <= 8): cudaLaunchKernelEx with a cluster
+// dimension.  A refused launch returns its error.
+template <int DP, int NWG, int OUT>
+cudaLaunchConfig_t cluster_config(const FwdParams& p, int smem, cudaStream_t s,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.Tq + kRows * NWG - 1) / (kRows * NWG), p.H, p.B);
+  cfg.blockDim = dim3(128 * NWG + 32, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = p.H;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int DP, int NWG, int OUT>
+int launch_out(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+               const FwdParams& p, cudaStream_t s) {
+  const int smem = fwd_smem_bytes(DP, NWG, p.stages);
+  if constexpr (OUT == kOutQ8F32 || OUT == kOutQ8Bf16) {
+    if (p.H < 1 || p.H > kMaxClusterHeads) return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config<DP, NWG, OUT>(p, smem, s, &attr);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, attention_kernel<DP, NWG, OUT>, mq, mk, mv, p);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    const dim3 grid((p.Tq + kRows * NWG - 1) / (kRows * NWG), p.H, p.B);
+    attention_kernel<DP, NWG, OUT><<<grid, 128 * NWG + 32, smem, s>>>(mq, mk, mv, p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DP, int NWG>
 int launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                const FwdParams& p, bool of32, cudaStream_t s) {
-  const dim3 grid((p.Tq + kRows * NWG - 1) / (kRows * NWG), p.H, p.B);
-  const int smem = fwd_smem_bytes(DP, NWG, p.stages);
-  if (of32)
-    attention_kernel<DP, NWG, true><<<grid, 128 * NWG + 32, smem, s>>>(mq, mk, mv, p);
-  else
-    attention_kernel<DP, NWG, false><<<grid, 128 * NWG + 32, smem, s>>>(mq, mk, mv, p);
-  return static_cast<int>(cudaGetLastError());
+                const FwdParams& p, int out, cudaStream_t s) {
+  switch (out) {
+    case kOutBf16: return launch_out<DP, NWG, kOutBf16>(mq, mk, mv, p, s);
+    case kOutF32: return launch_out<DP, NWG, kOutF32>(mq, mk, mv, p, s);
+    case kOutQ8F32: return launch_out<DP, NWG, kOutQ8F32>(mq, mk, mv, p, s);
+    case kOutQ8Bf16: return launch_out<DP, NWG, kOutQ8Bf16>(mq, mk, mv, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int DP>
 int launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                const FwdParams& p, int nwg, bool of32, cudaStream_t s) {
+                const FwdParams& p, int nwg, int out, cudaStream_t s) {
   switch (nwg) {
-    case 1: return launch_bf16<DP, 1>(mq, mk, mv, p, of32, s);
-    case 2: return launch_bf16<DP, 2>(mq, mk, mv, p, of32, s);
-    case 3: return launch_bf16<DP, 3>(mq, mk, mv, p, of32, s);
+    case 1: return launch_bf16<DP, 1>(mq, mk, mv, p, out, s);
+    case 2: return launch_bf16<DP, 2>(mq, mk, mv, p, out, s);
+    case 3: return launch_bf16<DP, 3>(mq, mk, mv, p, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -384,12 +508,29 @@ int launch_bf16(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap&
 template <int DP, int NWG>
 cudaError_t set_fwd_smem() {
   const int smem = fwd_smem_bytes(DP, NWG, kMaxStages);
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel<DP, NWG, false>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return e != cudaSuccess ? e
-                          : cudaFuncSetAttribute(attention_kernel<DP, NWG, true>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 smem);
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t e = cudaFuncSetAttribute(attention_kernel<DP, NWG, kOutBf16>, attr, smem);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(attention_kernel<DP, NWG, kOutF32>, attr, smem);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(attention_kernel<DP, NWG, kOutQ8F32>, attr, smem);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(attention_kernel<DP, NWG, kOutQ8Bf16>, attr, smem);
+  return e;
+}
+
+// How many clusters of H CTAs of the quantising instantiation for (D, nwg,
+// stages) the card holds at once (cudaOccupancyMaxActiveClusters); a
+// negative value is a CUDA error.
+template <int DP, int NWG>
+int q8_clusters(int H, int stages) {
+  FwdParams p{};
+  p.H = H;
+  p.B = 1;
+  p.Tq = kRows * NWG;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<DP, NWG, kOutQ8F32>(
+      p, fwd_smem_bytes(DP, NWG, stages), nullptr, &attr);
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, attention_kernel<DP, NWG, kOutQ8F32>, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // ---------------------------------------------------------------------------
@@ -568,7 +709,7 @@ extern "C" int mm_attention(const void* q, const void* k, const void* v, void* o
   }
   if (nwg < 1 || nwg > kMaxWarpgroups || stages < 1 || stages > kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
-  FwdParams p;
+  FwdParams p{};
   p.o = o;
   p.o_sb = strides[9];
   p.o_sh = strides[10];
@@ -589,8 +730,63 @@ extern "C" int mm_attention(const void* q, const void* k, const void* v, void* o
       !view_map(&mk, k, strides + 3, B, H, Tk, D, p.pos[1]) ||
       !view_map(&mv, v, strides + 6, B, H, Tk, D, p.pos[2]))
     return static_cast<int>(cudaErrorInvalidValue);
-  return D == 64 ? launch_bf16<64>(mq, mk, mv, p, nwg, out_f32, s)
-                 : launch_bf16<128>(mq, mk, mv, p, nwg, out_f32, s);
+  return D == 64 ? launch_bf16<64>(mq, mk, mv, p, nwg, out_f32 ? kOutF32 : kOutBf16, s)
+                 : launch_bf16<128>(mq, mk, mv, p, nwg, out_f32 ? kOutF32 : kOutBf16, s);
+}
+
+// attention_q8: the bf16-input kernel with the quantising epilogue.  q, k, v
+// as for mm_attention (bf16 views, D in {64, 128}); o8 the int8 (B, Tq, H D)
+// output as a (B, H, Tq, D) view (strides[9..11], in elements), qscale the
+// (B, Tq) f32 row scales.  round_bf16: quantise the output's bf16 rounding
+// (what quant_rows reads of a bf16 output), else its f32 values.  H <= 8
+// (one cluster of H CTAs per query tile); nwg and stages from the host plan.
+extern "C" int mm_attention_q8(const void* q, const void* k, const void* v, void* o8,
+                               const long long* strides, const void* kpm, void* qscale, int B,
+                               int H, int Tq, int Tk, int D, int zero_attn, float scale,
+                               int round_bf16, int nwg, int stages, void* stream) {
+  if ((D != 64 && D != 128) || Tk < 1 || H < 1 || H > kMaxClusterHeads || nwg < 1 ||
+      nwg > kMaxWarpgroups || stages < 1 || stages > kMaxStages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p{};
+  p.o = o8;
+  p.o_sb = strides[9];
+  p.o_sh = strides[10];
+  p.o_st = strides[11];
+  p.qscale = static_cast<float*>(qscale);
+  p.kpm = static_cast<const bool*>(kpm);
+  p.B = B;
+  p.H = H;
+  p.Tq = Tq;
+  p.Tk = Tk;
+  p.D = D;
+  p.zero_attn = zero_attn;
+  p.stages = stages;
+  p.scale = scale;
+  CUtensorMap mq, mk, mv;
+  if (!view_map(&mq, q, strides, B, H, Tq, D, p.pos[0]) ||
+      !view_map(&mk, k, strides + 3, B, H, Tk, D, p.pos[1]) ||
+      !view_map(&mv, v, strides + 6, B, H, Tk, D, p.pos[2]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int out = round_bf16 ? kOutQ8Bf16 : kOutQ8F32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_bf16<64>(mq, mk, mv, p, nwg, out, s)
+                 : launch_bf16<128>(mq, mk, mv, p, nwg, out, s);
+}
+
+// How many clusters of attention_q8 (H CTAs of the plan's nwg and stages at
+// head dim D) the card holds at once; negative: a CUDA error.
+extern "C" int mm_attention_q8_clusters(int D, int H, int nwg, int stages) {
+  if ((D != 64 && D != 128) || H < 1 || H > kMaxClusterHeads)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  switch (nwg + 4 * (D == 128)) {
+    case 1: return q8_clusters<64, 1>(H, stages);
+    case 2: return q8_clusters<64, 2>(H, stages);
+    case 3: return q8_clusters<64, 3>(H, stages);
+    case 5: return q8_clusters<128, 1>(H, stages);
+    case 6: return q8_clusters<128, 2>(H, stages);
+    case 7: return q8_clusters<128, 3>(H, stages);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Once, when the library loads: the dynamic shared memory limits of every

@@ -62,7 +62,9 @@ constexpr int kEpiBytes = 2 * kEpiWgBytes;
 constexpr int kSmemAlign = 1024;       // the 128-byte swizzle repeats every 1024 bytes
 constexpr int kSmemLimit = 232448;     // 227 KB, the most a block may ask for
 
-enum Epilogue { kPlain = 0, kGelu = 1, kResidual = 2 };
+// kGeluQ8 (int8 only): the exact GELU in f32 as kGelu, then quantised per
+// row to int8 with one f32 scale per row (gemm_gelu_q8_kernel below).
+enum Epilogue { kPlain = 0, kGelu = 1, kResidual = 2, kGeluQ8 = 3 };
 
 __host__ __device__ constexpr int stage_bytes(int bn) { return (BM + bn) * kRowBytes; }
 
@@ -74,8 +76,9 @@ struct GemmArgs {
   const bf16* bias;      // (N,) or null
   const bf16* res;       // (M, N) row stride ldr, epilogue kResidual only
   long long ldr;
-  void* y;               // (M, N) row stride ldy: bf16, or f32 after the int8 GELU
+  void* y;               // (M, N) row stride ldy: bf16, f32 after the int8 GELU, int8 after kGeluQ8
   long long ldy;
+  float* ys;             // kGeluQ8 only: (M,) row scales of y
   const float* sx;       // int8 only: (M,) row scales
   const float* sw;       // int8 only: (N,) column scales
   int M, N, K;
@@ -215,6 +218,50 @@ __device__ __forceinline__ void named_sync(int id) {
 
 __device__ __forceinline__ float gelu(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// ---- thread block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier, split: arrive (release: this thread's earlier shared
+// memory writes become visible to the cluster's threads that pass the
+// matching wait) and wait (acquire).  Not the .aligned forms, so that a warp
+// may reach them diverged.  Every thread of every CTA of the cluster arrives
+// and waits in turn, the same number of times.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The float at ``p`` in the shared memory of the cluster's CTA ``rank``
+// (the same offset as ``p`` in this CTA's).
+__device__ __forceinline__ float ld_cluster_f32(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// The row amax of a quantising epilogue, from the partials at ``p`` in the
+// shared memory of the cluster's ``n`` CTAs: the four lanes of a quad (which
+// share a row of a wgmma or mma fragment) read every fourth CTA each and
+// combine across the quad.  The whole warp calls it.
+__device__ __forceinline__ float cluster_row_max(const float* p, int n, int lane) {
+  float m = 0.f;
+  for (int r = lane & 3; r < n; r += 4) m = fmaxf(m, ld_cluster_f32(p, r));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
 }
 
 // ---- epilogue ----------------------------------------------------------------
@@ -491,6 +538,265 @@ __global__ void __launch_bounds__(kThreads, 1)
       epilogue<BN, kGelu>(acc, a, m0 + cw * 64, n0, stg, tv, tid, 1 + cw);
     }
   }
+}
+
+// ---- the quantising GELU product (kGeluQ8) -------------------------------------
+//
+// h8, hs = quant_rows(gelu(x8 . w8^T * s_row * s_col + b)): the FFN's first
+// int8 product with _quant_act (mixermdm_tpu/ops/fused_block.py:58) of its
+// f32 hidden fused into the epilogue, so the hidden never reaches device
+// memory (M x N x 4 bytes written and read back by quant_rows before).  A
+// row's scale needs the max |h| over all N columns, which span N / BN tiles:
+// a thread block cluster of those tiles (at most 16 CTAs) computes one row
+// block together.  Each CTA publishes its 64 NC rows' partial maxima in its
+// shared memory, the cluster barrier (release / acquire) orders them, and
+// every CTA reads the other CTAs' partials through distributed shared memory
+// (mapa + ld.shared::cluster): no second launch, no device-memory round trip.
+//
+// The walk: cluster c takes row blocks c, c + clusters, ...; CTA rank r of a
+// cluster keeps columns r BN .. r BN + BN - 1, so the walk is the same for
+// every CTA of a cluster and their cluster barriers pair up.  The partials
+// are double-buffered by tile parity: a CTA writes buffer k & 1 of tile k only
+// after the barrier of tile k - 1, which every peer reaches after reading
+// buffer (k - 2) & 1.  The producer warpgroup arrives at each tile's barrier
+// once it has issued that tile's loads, and waits for it after issuing the
+// next tile's, so the loads of tile k + 1 still overlap the epilogue of tile
+// k.  A last barrier keeps every CTA resident until its peers have read its
+// last partials.
+//
+// The GELU values are kGelu's, computed by the same expressions, and the
+// quantisation is quant_rows' (IEEE division, rintf), so h8 and hs are bit
+// for bit quant_rows of the kGelu product's f32 output.  Columns past N
+// (zero-filled operands, whose gelu(b) is not zero) stay out of the max.
+//
+// NC (1-3) consumer warpgroups of 64 rows each (BM = 64 NC); the host plans
+// NC, the stages and the number of clusters (ops/linear_q8.py: gelu_q8_plan,
+// from cudaOccupancyMaxActiveClusters).  The tile is 128 columns wide
+// (kGeluQ8BN): with 256, and 128 accumulators a thread, this epilogue and
+// kGelu's ran several times slower per tile on an H100 with no register
+// spilled, so N = 2048 takes a cluster of 16 CTAs (the non-portable size),
+// and three consumer warpgroups keep 12 warps per SM on the epilogue's
+// chains of dependent operations (chip_smoke.py times each NC).
+
+__host__ __device__ constexpr int gelu_q8_stage_bytes(int nc, int bn) {
+  return (64 * nc + bn) * kRowBytes;
+}
+
+// Dynamic shared memory: the alignment slack, the ring, per consumer
+// warpgroup the epilogue staging and two buffers of 64 row partials, and the
+// full / empty mbarrier pairs.
+__host__ __device__ constexpr int gelu_q8_smem_bytes(int nc, int bn, int stages) {
+  return kSmemAlign + stages * gelu_q8_stage_bytes(nc, bn) + nc * (kEpiWgBytes + 2 * 64 * 4) +
+         2 * stages * 8;
+}
+
+constexpr int kMaxClusterCtas = 16;  // 8 portable; 16 with the non-portable attribute
+constexpr int kGeluQ8BN = 128;       // the tile width the host launches
+
+// One consumer warpgroup's 64 x BN slab: GELU in registers, the rows'
+// partial maxima to ``part`` (this warpgroup's 64 floats of the tile's
+// buffer), the cluster exchange, then int8 through ``stg`` as 16-byte row
+// pieces (128 columns of each row per chunk) and the row scales from rank 0.
+template <int BN>
+__device__ __forceinline__ void epilogue_gelu_q8(int* acc, const GemmArgs& a, int m0, int n0,
+                                                 uint8_t* stg, const TileVectors<BN, true>& tv,
+                                                 float* part, int tid, int bar) {
+  float* vec = reinterpret_cast<float*>(stg + 64 * kEpiStride);
+  tv.store(vec, tid);
+  named_sync(bar);
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  float amax[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int tc = j * 8 + cq;
+    const float2 bias = *reinterpret_cast<const float2*>(vec + tc);
+    const float2 cs = *reinterpret_cast<const float2*>(vec + kMaxBN + tc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // kGelu's arithmetic (epilogue above), expression for expression.
+        float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), tv.row_scale[h]),
+                            e ? cs.y : cs.x);
+        if (a.bias != nullptr) v = __fadd_rn(v, e ? bias.y : bias.x);
+        v = gelu(v);
+        if (n0 + tc + e >= a.N) v = 0.f;
+        acc[4 * j + 2 * h + e] = __float_as_int(v);
+        amax[h] = fmaxf(amax[h], fabsf(v));
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], 1));
+    amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], 2));
+  }
+  if ((lane & 3) == 0) {
+    part[r0] = amax[0];
+    part[r0 + 8] = amax[1];
+  }
+  cluster_arrive();
+  cluster_wait();
+  float s[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    s[h] = fmaxf(cluster_row_max(part + r0 + 8 * h, a.tiles_n, lane), 1e-8f) / 127.f;
+  if (cluster_rank() == 0 && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (m0 + r0 + 8 * h < a.M) a.ys[m0 + r0 + 8 * h] = s[h];
+  }
+#pragma unroll
+  for (int ch = 0; ch < (BN + 127) / 128; ++ch) {
+    const int c0 = n0 + ch * 128;
+    const int cols = BN - ch * 128 < 128 ? BN - ch * 128 : 128;  // of this tile in the chunk
+    if (c0 >= a.N) continue;  // uniform over the warpgroup
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = ch * 16 + jj;
+      if (j >= BN / 8) continue;  // a constant bound, so that acc stays in registers
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t w = q8(__int_as_float(acc[4 * j + 2 * h]), s[h]) |
+                           (q8(__int_as_float(acc[4 * j + 2 * h + 1]), s[h]) << 8);
+        *reinterpret_cast<uint16_t*>(stg + (r0 + 8 * h) * kEpiStride + jj * 8 + cq) =
+            static_cast<uint16_t>(w);
+      }
+    }
+    named_sync(bar);
+    // 64 rows x 8 pieces of 16 bytes, four pieces per thread: piece i is row
+    // i / 8, columns (i % 8) * 16 of the chunk.
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int i = tid + 128 * p;
+      const int r = i >> 3, row = m0 + r, c = (i & 7) * 16, col = c0 + c;
+      if (row >= a.M || c >= cols || col >= a.N) continue;
+      const uint4 u = *reinterpret_cast<const uint4*>(stg + r * kEpiStride + c);
+      int8_t* dst = static_cast<int8_t*>(a.y) + (size_t)row * a.ldy + col;
+      if (a.vec_y && col + 16 <= a.N) {
+        *reinterpret_cast<uint4*>(dst) = u;
+      } else {
+        const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          if (col + e < a.N) dst[e] = b[e];
+      }
+    }
+    named_sync(bar);
+  }
+}
+
+template <int BN, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+    gemm_gelu_q8_kernel(const __grid_constant__ CUtensorMap tma_x,
+                        const __grid_constant__ CUtensorMap tma_w, const GemmArgs a) {
+  constexpr int kBM = 64 * NC;
+  constexpr int kStage = gelu_q8_stage_bytes(NC, BN);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) & ~uintptr_t(kSmemAlign - 1));
+  const int S = a.stages;
+  uint8_t* epi_smem = smem + S * kStage;
+  float* parts = reinterpret_cast<float*>(epi_smem + NC * kEpiWgBytes);  // [2][kBM]
+  uint64_t* full = reinterpret_cast<uint64_t*>(parts + 2 * kBM);
+  uint64_t* empty = full + S;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);    // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], NC);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int KT = (a.K + kRowBytes - 1) / kRowBytes;
+  const int cn = a.tiles_n;  // CTAs per cluster: the N-tiles of one row block
+  const int cluster = blockIdx.x / cn, clusters = gridDim.x / cn;
+  const int n0 = static_cast<int>(cluster_rank()) * BN;
+  const int wg = threadIdx.x >> 7;
+
+  // Registers: the producer warpgroup gives its own to the consumers; with
+  // three consumer warpgroups 128 x 24 + 384 x 160 fill the SM's 64K.
+  constexpr int kProducerRegs = NC == 3 ? 24 : 40;
+  constexpr int kConsumerRegs = NC == 3 ? 160 : 232;
+  if (wg == 0) {
+    // Producer warpgroup: thread 0 keeps the ring full; all 128 threads take
+    // their part in each tile's cluster barrier.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    int s = 0, k = 0;
+    uint32_t ph = 0;
+    for (int mb = cluster; mb < a.tiles_m; mb += clusters, ++k) {
+      if (threadIdx.x == 0) {
+        if (k == 0) {
+          asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tma_x)) : "memory");
+          asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tma_w)) : "memory");
+        }
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* st = smem + s * kStage;
+          mbar_expect_tx(&full[s], kStage);
+          tma_load_2d(st, &tma_x, &full[s], kt * kRowBytes, mb * kBM);
+          tma_load_2d(st + kBM * kRowBytes, &tma_w, &full[s], kt * kRowBytes, n0);
+          if (++s == S) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+      if (k > 0) cluster_wait();  // the barrier of tile k - 1
+      cluster_arrive_relaxed();   // tile k's
+    }
+    if (k > 0) cluster_wait();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cw = wg - 1;
+    const int tid = threadIdx.x & 127;
+    uint8_t* stg = epi_smem + cw * kEpiWgBytes;
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    int s = 0, k = 0;
+    uint32_t ph = 0;
+    for (int mb = cluster; mb < a.tiles_m; mb += clusters, ++k) {
+      const int m0 = mb * kBM;
+      TileVectors<BN, true> tv;
+      tv.load(a, m0 + cw * 64, n0, tid);
+      int prev = 0;
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(&full[s], ph);
+        const uint8_t* st = smem + s * kStage;
+        const uint64_t da = sw128_desc(st + cw * 64 * kRowBytes);
+        const uint64_t db = sw128_desc(st + kBM * kRowBytes);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) reg_fence(acc[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma<BN>(acc, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+        wgmma_commit();
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) reg_fence(acc[i]);
+        wgmma_wait<1>();
+        if (kt > 0 && tid == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) reg_fence(acc[i]);
+      if (tid == 0) mbar_arrive(&empty[prev]);
+      epilogue_gelu_q8<BN>(acc, a, m0 + cw * 64, n0, stg, tv, parts + (k & 1) * kBM + cw * 64,
+                           tid, 1 + cw);
+    }
+  }
+  // No CTA leaves while a peer may still read its partials.
+  cluster_arrive();
+  cluster_wait();
 }
 
 // ---- host side ---------------------------------------------------------------

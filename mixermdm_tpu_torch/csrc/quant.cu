@@ -4,9 +4,12 @@
 //
 // Replaces _quant_act (mixermdm_tpu/ops/fused_block.py:58), the per-token
 // activation quantisation inside the q8 Pallas block kernels
-// (_sa_block_kernel_q8, _ca_block_kernel_q8, _ffn_kernel_q8): of the
-// modulated input before Q/K/V and FFN1, of the attention output before the
-// output projection, of the f32 FFN hidden before FFN2.  It reads each row
+// (_sa_block_kernel_q8, _ca_block_kernel_q8, _ffn_kernel_q8), where no
+// producer quantises its own output: on the W8A8 path an FFN input that is
+// not modulated.  The modulated inputs, the attention outputs and the FFN
+// hidden are quantised in their producers' epilogues (adaln_modulate_q8,
+// attention_q8, the quantising GELU product of linear_q8), each held bit
+// for bit to this kernel on its unfused output (chip_smoke.py).  It reads each row
 // twice (the second pass hits L1/L2) and writes it once in a quarter or an
 // eighth of the bytes, so on an H100 it is bound by device-memory bytes.
 // One warp owns one row and moves 16 bytes per lane per load.

@@ -4,8 +4,10 @@ Kernels (``csrc/``): ``adaln_modulate`` (and its quantising form
 ``adaln_modulate_q8``), ``linear_epilogue`` (three routes,
 counted apart: the Hopper TMA + ``wgmma`` main loop of ``gemm_sm90.cuh``,
 ``linear_epilogue_skinny`` for M <= 64, ``linear_epilogue_ragged`` for what
-TMA cannot describe), ``attention`` (bf16 and f32 inputs), ``attention_bwd``,
-``quant_rows``, ``linear_q8`` (the same main loop on int8).
+TMA cannot describe), ``attention`` (bf16 and f32 inputs; ``attention_q8``,
+its quantising epilogue for the W8A8 blocks), ``attention_bwd``,
+``quant_rows``, ``linear_q8`` (the same main loop on int8; counted as
+``linear_q8_gelu_q8`` with the quantising GELU epilogue).
 Entry points, one per Pallas entry point of ``mixermdm_tpu/ops``:
 :func:`fused_attention` and its backward :func:`attention_bwd` (with the
 autograd function :class:`FusedAttention`), :func:`fused_sa_block`,
@@ -30,6 +32,8 @@ from .adaln import (
 from .attention import (
     FusedAttention,
     attention_bwd,
+    attention_q8,
+    attention_q8_plain,
     attention_bwd_plain,
     differentiable_attention,
     fused_attention,
@@ -51,7 +55,7 @@ from .fused_block import (
     fused_sa_block_q8_plain,
 )
 from .linear import linear, linear_plain
-from .linear_q8 import linear_q8, linear_q8_plain
+from .linear_q8 import linear_q8, linear_q8_gelu_q8_plain, linear_q8_plain
 from .quant import quant_rows, quant_rows_plain, quantize_weight
 
 __all__ = [
@@ -59,6 +63,7 @@ __all__ = [
     "adaln_modulate", "adaln_modulate_plain", "adaln_modulate_q8", "adaln_modulate_q8_plain",
     "fused_attention", "fused_attention_plain", "reference_attention",
     "attention_bwd", "attention_bwd_plain", "FusedAttention", "differentiable_attention",
+    "attention_q8", "attention_q8_plain",
     "fused_sa_block", "fused_sa_block_plain",
     "fused_ca_block", "fused_ca_block_plain",
     "fused_ffn_block", "fused_ffn_block_plain",
@@ -66,6 +71,6 @@ __all__ = [
     "fused_ca_block_q8", "fused_ca_block_q8_plain",
     "fused_ffn_block_q8", "fused_ffn_block_q8_plain",
     "linear", "linear_plain",
-    "linear_q8", "linear_q8_plain",
+    "linear_q8", "linear_q8_plain", "linear_q8_gelu_q8_plain",
     "quant_rows", "quant_rows_plain", "quantize_weight",
 ]

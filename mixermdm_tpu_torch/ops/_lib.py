@@ -161,6 +161,9 @@ ARGTYPES = {
     "mm_attention": [_vp, _vp, _vp, _vp, ctypes.POINTER(_i64), _vp, _vp, _vp,
                      _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _i32, _i32, _vp],
     "mm_attention_init": [],
+    "mm_attention_q8": [_vp, _vp, _vp, _vp, ctypes.POINTER(_i64), _vp, _vp,
+                        _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _i32, _vp],
+    "mm_attention_q8_clusters": [_i32, _i32, _i32, _i32],
     "mm_attention_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                          _i32, _i32, _i32, _i32, _i32, _f32, _i32, _vp],
     "mm_attention_bwd_init": [],
@@ -168,6 +171,9 @@ ARGTYPES = {
     "mm_linear_q8": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp, _i64, _vp, _i64,
                      _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
     "mm_linear_q8_init": [],
+    "mm_linear_q8_gelu_q8": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp, _i64, _vp,
+                             _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
+    "mm_linear_q8_gelu_q8_clusters": [_i32, _i32, _i32],
 }
 # Run once when the library loads, before any launch a graph could capture
 # (every kernel's dynamic shared memory limit).

@@ -23,7 +23,11 @@ f32 (``mixermdm_tpu/ops/fused_block.py:140-146``).  f32 inputs (the CLIP
 post-encoders) take a third, f32 FMA on the CUDA cores and no TF32, counted
 as ``attention_f32``.  Given a ``stats`` buffer, either kernel also writes
 each row's softmax max and denominator (zero key included) for the
-backward.
+backward.  ``attention_q8`` (:func:`attention_q8_into`) is the bf16 kernel
+with a quantising epilogue for the W8A8 blocks: the H heads of a query tile
+run as one thread block cluster and exchange their rows' partial maxima
+through distributed shared memory, so the output leaves as int8 with one f32
+scale per row, ``quant_rows``' bits of the output it no longer writes.
 
 The backward (``_fused_attention_bwd_impl`` -> ``_attn_bwd_kernel`` and the
 ``custom_vjp`` wrappers ``_fa_*``): :func:`attention_bwd` launches the
@@ -282,6 +286,144 @@ def fused_attention(q, k, v, key_padding_mask=None, attn_mask=None,
                          key_padding_mask, attn_mask, zero_attn, stats)
     _lib.launches["fused_attention"] += 1
     return (out, stats) if return_stats else out
+
+
+# ---------------------------------------------------------------------------
+# The quantising form (W8A8 blocks)
+# ---------------------------------------------------------------------------
+
+MAX_CLUSTER_HEADS = 8  # attention_q8 runs the H heads of a query tile as one cluster
+Q8_HEAD_DIMS = (64, 128)
+# A wave's cost beside its warpgroups of rows, in warpgroups: every CTA runs
+# the whole K/V loop whatever its rows (fitted to attention_q8's times at
+# T = 299 on an H100, chip_smoke.py phase 3).
+Q8_WAVE_OVERHEAD = 4
+
+
+def attention_q8_plain(q, k, v, key_padding_mask=None, zero_attn: bool = True,
+                       out_dtype=torch.float32):
+    """Plain version of ``attention_q8``: the attention output of
+    :func:`fused_attention_plain` in ``out_dtype`` (f32 for the W8A8
+    self-attention block, the compute dtype for the cross-attention block),
+    heads merged into (B, Tq, H D), then ``_quant_act`` per row
+    (:func:`~.quant.quant_rows_plain`) -> (int8 (B, Tq, H D), f32 (B, Tq))."""
+    from .quant import quant_rows_plain
+
+    a = fused_attention_plain(q, k, v, key_padding_mask, None, zero_attn, out_dtype=out_dtype)
+    B, H, Tq, D = a.shape
+    return quant_rows_plain(a.transpose(1, 2).reshape(B, Tq, H * D))
+
+
+def attention_q8_into(q, k, v, out8, scale, key_padding_mask=None, zero_attn: bool = True,
+                      round_bf16: bool = False):
+    """Launch ``attention_q8``: the bf16 ``attention`` kernel whose epilogue
+    quantises each output row of the (B, Tq, H D) matrix to int8 with one
+    f32 scale, the H heads of a query tile forming one thread block cluster
+    that exchanges the rows' partial maxima through distributed shared
+    memory.  q, k, v: bf16 (B, H, T, D) views as :func:`attention_into`
+    takes them, D in {64, 128}, H <= 8; ``out8``: the int8 (B, H, Tq, D)
+    head view of a contiguous (B, Tq, H D) matrix; ``scale``: contiguous
+    (B, Tq) f32.  ``round_bf16`` quantises the bf16 rounding of the output
+    (what :func:`~.quant.quant_rows` reads of a bf16 output), else its f32
+    values.  Writes both and returns them: bit for bit ``quant_rows`` of
+    the ``attention`` kernel's output in that dtype.
+    """
+    _lib.require_cuda_bf16("attention_q8", q, k, v)
+    _lib.require_cuda("attention_q8", (torch.int8,), out8)
+    _lib.require_cuda("attention_q8", (torch.float32,), scale)
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if D not in Q8_HEAD_DIMS or H > MAX_CLUSTER_HEADS:
+        raise ValueError(f"attention_q8: head dim {D} not in {Q8_HEAD_DIMS} or {H} heads "
+                         f"over the cluster's {MAX_CLUSTER_HEADS}")
+    if k.shape != (B, H, Tk, D) or v.shape != k.shape or out8.shape != q.shape:
+        raise ValueError(f"attention_q8: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} out8{tuple(out8.shape)} do not agree")
+    if out8.stride() != (Tq * H * D, D, H * D, 1):
+        raise ValueError("attention_q8: out8 must be the head view of a contiguous "
+                         f"{(B, Tq, H * D)} int8 matrix, got strides {out8.stride()}")
+    if scale.shape != (B, Tq) or not scale.is_contiguous():
+        raise ValueError(f"attention_q8: scale must be a contiguous {(B, Tq)} f32 tensor")
+    strides = []
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not view_ok(t):
+            raise ValueError(f"attention_q8: {name} strides {t.stride()} / alignment "
+                             "not taken by the kernel")
+        strides += list(t.stride()[:3])
+    strides += list(out8.stride()[:3])
+    kpm = _mask_bytes("attention_q8", key_padding_mask, B, Tk, q.device)
+    if B == 0 or Tq == 0:
+        return out8, scale
+    if Tk == 0:
+        raise ValueError("attention_q8: no key")
+    plan = attention_q8_plan(B, H, Tq, Tk, D)
+    rc = _lib.library().mm_attention_q8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out8.data_ptr(),
+        (ctypes.c_int64 * 12)(*strides), None if kpm is None else kpm.data_ptr(),
+        scale.data_ptr(), B, H, Tq, Tk, D, int(bool(zero_attn)), 1.0 / math.sqrt(D),
+        int(bool(round_bf16)), plan.nwg, plan.stages, _lib.stream_handle(q))
+    _lib.check_launch("attention_q8", rc)
+    return out8, scale
+
+
+def attention_q8(q, k, v, key_padding_mask=None, zero_attn: bool = True,
+                 out_dtype=torch.float32):
+    """q, k, v (B, H, T, D) -> the int8 (B, Tq, H D) attention output and
+    its (B, Tq) f32 row scales, quantised from the output in ``out_dtype``
+    (f32 or bf16).
+
+    A CPU tensor (any tensor inside ``ops.plain_versions()``) takes
+    :func:`attention_q8_plain`; a CUDA tensor launches the kernel or raises.
+    """
+    if _lib.use_plain(q):
+        return attention_q8_plain(q, k, v, key_padding_mask, zero_attn, out_dtype)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention_q8: quantises an f32 or bf16 output, not {out_dtype}")
+    B, H, Tq, D = q.shape
+    out8 = torch.empty((B, Tq, H * D), dtype=torch.int8, device=q.device)
+    scale = torch.empty((B, Tq), dtype=torch.float32, device=q.device)
+    attention_q8_into(q, k, v, out8.view(B, Tq, H, D).transpose(1, 2), scale,
+                      key_padding_mask, zero_attn, round_bf16=out_dtype == torch.bfloat16)
+    return out8, scale
+
+
+@functools.lru_cache(maxsize=None)
+def attention_q8_clusters(D: int, H: int, nwg: int, stages: int) -> int:
+    """How many ``attention_q8`` clusters (H CTAs each) of this plan the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    n = _lib.library().mm_attention_q8_clusters(D, H, nwg, stages)
+    if n < 0:
+        raise RuntimeError(f"attention_q8 clusters: CUDA error {-n}")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def attention_q8_plan(B: int, H: int, Tq: int, Tk: int, D: int, nwg: Optional[int] = None,
+                      max_clusters=None) -> AttentionPlan:
+    """The launch shape of ``attention_q8``, cached.  A wave is the clusters
+    of H CTAs the card holds at once (``max_clusters(D, H, nwg, stages)``,
+    :func:`attention_q8_clusters` on the card), not its SMs: clusters of 8
+    CTAs of one SM each fill only the GPCs' multiples of 8 SMs (15 clusters,
+    120 SMs, on an H100 SXM).  The warpgroups per block are the count whose
+    waves cost least, a wave costing its warpgroups plus
+    :data:`Q8_WAVE_OVERHEAD`; ties to the larger block.  ``nwg`` forces
+    the warpgroups."""
+    max_clusters = max_clusters or attention_q8_clusters
+    dp = 64 if D <= 64 else 128
+    stages = max(1, min(MAX_STAGES, -(-Tk // ATTN_ROWS)))
+    best = None
+    for n in (nwg,) if nwg else range(1, MAX_WARPGROUPS + 1):
+        tiles = -(-Tq // (ATTN_ROWS * n))
+        cap = max_clusters(D, H, n, stages)
+        if cap < 1:
+            continue
+        cost = -(-(tiles * B) // cap) * (n + Q8_WAVE_OVERHEAD)
+        if best is None or cost <= best[0]:
+            best = (cost, n, tiles)
+    if best is None:
+        raise RuntimeError(f"attention_q8: no cluster of {H} CTAs fits the card at D={D}")
+    _, n, tiles = best
+    return AttentionPlan(n, stages, (tiles, H, B), attention_smem_bytes(dp, n, stages))
 
 
 # ---------------------------------------------------------------------------

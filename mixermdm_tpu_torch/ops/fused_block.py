@@ -28,10 +28,13 @@ what the JAX kernels quantise, in the same precision: the modulated input
 once for Q, K and V (self-attention); the modulated ``xf`` once for K and V
 and the modulated ``x`` for Q (cross-attention), each in the prologue
 itself, ``adaln_modulate_q8`` (LN, modulation, bf16 rounding and
-quantisation in one pass, as the TPU kernel does them in one program); with
-``quant_rows`` the self-attention output in f32, the cross-attention output
-in the compute dtype, the FFN hidden in f32 after ``+ b1`` and the GELU, and
-an FFN input that is not modulated.
+quantisation in one pass, as the TPU kernel does them in one program); the
+self-attention output in f32 and the cross-attention output in the compute
+dtype in the attention kernel's epilogue, ``attention_q8``; the FFN hidden
+in f32 after ``+ b1`` and the GELU in the first product's epilogue
+(``linear_q8`` with ``quant_out``); with ``quant_rows`` an FFN input that
+is not modulated.  The fused epilogues give ``quant_rows``' bits of the
+output they no longer write.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from .adaln import (
     adaln_modulate_q8,
     adaln_modulate_q8_plain,
 )
-from .attention import attention_into, fused_attention_plain
+from .attention import attention_into, attention_q8, fused_attention_plain
 from .linear import linear, linear_plain
 from .linear_q8 import linear_q8, linear_q8_plain
 from .quant import quant_rows, quant_rows_plain
@@ -220,10 +223,8 @@ def fused_sa_block_q8(x, scale, shift, w8_qkv, s_qkv, b_qkv, w8_o, s_o, b_o,
     _check("fused_sa_block_q8", x, n_heads, E)
     x8, xs = adaln_modulate_q8(x, scale, shift, eps)
     q, k, v = linear_q8(x8, xs, w8_qkv, s_qkv, b_qkv).split(E, dim=-1)
-    out = torch.empty((B, T, E), dtype=torch.float32, device=x.device)
-    attention_into(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
-                   _heads(out, n_heads), key_padding_mask, None, zero_attn)
-    a8, as_ = quant_rows(out)
+    a8, as_ = attention_q8(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
+                           key_padding_mask, zero_attn, out_dtype=torch.float32)
     y = linear_q8(a8, as_, w8_o, s_o, b_o, residual=x if residual else None)
     _lib.launches["fused_sa_block_q8"] += 1
     return y
@@ -271,10 +272,8 @@ def fused_ca_block_q8(x, xf, scale, shift, xf_scale, xf_shift, w8_qkv, s_qkv, b_
     f8, fs = adaln_modulate_q8(xf, xf_scale, xf_shift, eps)
     q = linear_q8(x8, xs, w8_qkv[:E], s_qkv[:E], b_qkv[:E])              # (B, T, E)
     k, v = linear_q8(f8, fs, w8_qkv[E:], s_qkv[E:], b_qkv[E:]).split(E, dim=-1)
-    out = torch.empty((B, T, E), dtype=x.dtype, device=x.device)
-    attention_into(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
-                   _heads(out, n_heads), key_padding_mask, None, zero_attn)
-    a8, as_ = quant_rows(out)
+    a8, as_ = attention_q8(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
+                           key_padding_mask, zero_attn, out_dtype=x.dtype)
     y = linear_q8(a8, as_, w8_o, s_o, b_o, residual=x if residual else None)
     _lib.launches["fused_ca_block_q8"] += 1
     return y
@@ -309,7 +308,7 @@ def fused_ffn_block_q8(x, scale: Optional[torch.Tensor], shift: Optional[torch.T
         return fused_ffn_block_q8_plain(x, scale, shift, w8_1, s_1, b1, w8_2, s_2, b2,
                                         eps=eps, residual=residual)
     x8, xs = quant_rows(x) if scale is None else adaln_modulate_q8(x, scale, shift, eps)
-    h8, hs = quant_rows(linear_q8(x8, xs, w8_1, s_1, b1, activation="gelu"))
+    h8, hs = linear_q8(x8, xs, w8_1, s_1, b1, activation="gelu", quant_out=True)
     y = linear_q8(h8, hs, w8_2, s_2, b2, residual=x if residual else None)
     _lib.launches["fused_ffn_block_q8"] += 1
     return y

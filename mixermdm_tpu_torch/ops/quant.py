@@ -12,7 +12,10 @@ division: the divisors are tensors, since PyTorch's CUDA division by a
 Python number multiplies by its reciprocal, which can flip an int8 value.
 
 Kernel ``quant_rows`` (``csrc/quant.cu``) quantises activations on the card:
-one warp per row, bound by device-memory bytes.  Weights are quantised once,
+one warp per row, bound by device-memory bytes.  On the W8A8 path it is left
+to an FFN input that is not modulated; the other activations are quantised
+in their producers' epilogues (``adaln_modulate_q8``, ``attention_q8``,
+``linear_q8(..., quant_out=True)``), with its bits.  Weights are quantised once,
 when a model is built or cast (:func:`quantize_weight`, plain PyTorch, as
 the JAX package quantises them outside its kernels).
 """

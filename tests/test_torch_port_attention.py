@@ -130,3 +130,28 @@ def test_plan_constants_match_the_kernel():
     # Both attention libraries set their limits when the library loads.
     assert {"mm_attention_init", "mm_attention_bwd_init"} <= set(_lib.INIT_FUNCTIONS)
 
+
+
+def _h100_q8_clusters(D, H, nwg, stages):
+    """Clusters of 8 CTAs an H100 SXM holds at once (chip_smoke.py phase 3):
+    15 at one CTA to an SM, 30 where two fit (one warpgroup at D = 64)."""
+    return 30 if (D == 64 and nwg == 1) else 15
+
+
+@pytest.mark.parametrize("D,nwg", [(128, 2), (64, 1)])
+def test_attention_q8_plan_counts_waves_of_clusters(D, nwg):
+    """The W8A8 blocks' shapes (8 sequences of 299 frames, 8 heads): the
+    quantising attention's plan counts waves in clusters, not SMs."""
+    plan = attn.attention_q8_plan(8, 8, 299, 299, D, max_clusters=_h100_q8_clusters)
+    assert plan.nwg == nwg and plan.grid == (-(-299 // (64 * nwg)), 8, 8)
+    assert plan.smem == attn.attention_smem_bytes(D, plan.nwg, plan.stages) <= SMEM_227K
+    assert attn.attention_q8_plan(8, 8, 299, 299, D, nwg=3,
+                                  max_clusters=_h100_q8_clusters).nwg == 3
+
+
+def test_attention_q8_constants_match_the_kernel():
+    src = _src("attention.cu")
+    assert int(_constexpr(src, "kMaxClusterHeads")) == attn.MAX_CLUSTER_HEADS
+    assert "cudaLaunchAttributeClusterDimension" in src and "attr->val.clusterDim.y = p.H;" in src
+    for out in ("kOutBf16", "kOutF32", "kOutQ8F32", "kOutQ8Bf16"):
+        assert f"case {out}: return launch_out<DP, NWG, {out}>" in src

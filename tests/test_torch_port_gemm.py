@@ -251,3 +251,60 @@ def test_launch_shapes_are_counted_beside_the_launches():
     finally:
         _lib.reset_launch_counts()
     assert not _lib.launches and not _lib.launch_shapes
+
+
+# ------------------------------------------- the quantising GELU product's plan
+
+lq = importlib.import_module("mixermdm_tpu_torch.ops.linear_q8")
+
+
+def _h100_clusters(nc, ctas, smem):
+    """Clusters an H100 SXM holds at once, as cudaOccupancyMaxActiveClusters
+    reported them (chip_smoke.py phase 3): 15 of 8 CTAs or fewer (one CTA
+    to an SM), 13 at three warpgroups, 7 of 16 CTAs (one to a GPC)."""
+    return 7 if ctas > 8 else (13 if nc == 3 else 15)
+
+
+@pytest.mark.parametrize("m,k,n", [(M, 1024, 2048), (M, 512, 1024), (393, 1024, 1040)])
+def test_gelu_q8_plan(m, k, n):
+    """The FFN's first products (denoisers F = 2048, mixer F = 1024) and a
+    ragged one: a cluster spans a row block's N-tiles, fits the card, and
+    every cluster has a row block."""
+    plan = lq.gelu_q8_plan(m, n, k, max_clusters=_h100_clusters)
+    assert plan.cluster_ctas == -(-n // lq.GELU_Q8_BN) <= lq.MAX_CLUSTER_CTAS
+    assert plan.nc in lq.GELU_Q8_WARPGROUPS and 2 <= plan.stages <= lin.MAX_STAGES
+    assert plan.smem == lq.gelu_q8_smem_bytes(plan.nc, plan.stages) <= SMEM_227K
+    assert 1 <= plan.clusters <= -(-m // (64 * plan.nc))
+    if m == M:  # the main path: three warpgroups, the fewest rounds of row blocks
+        assert plan.nc == 3 and -(-(-(-m // 192)) // plan.clusters) == (2 if n == 2048 else 1)
+
+
+def test_gelu_q8_plan_refuses_what_no_cluster_spans():
+    with pytest.raises(ValueError, match="more than 16 tiles"):
+        lq.gelu_q8_plan(M, 2049, 1024, max_clusters=_h100_clusters)
+    with pytest.raises(RuntimeError, match="no cluster"):
+        lq.gelu_q8_plan(M, 2048, 1024, max_clusters=lambda *a: 0)
+
+
+def test_gelu_q8_constants_match_the_kernel():
+    with open(os.path.join(CSRC, "gemm_sm90.cuh")) as f:
+        src = f.read()
+    assert int(_constexpr(src, "kGeluQ8BN")) == lq.GELU_Q8_BN
+    assert int(_constexpr(src, "kMaxClusterCtas")) == lq.MAX_CLUSTER_CTAS
+    assert ("kSmemAlign + stages * gelu_q8_stage_bytes(nc, bn) + nc * (kEpiWgBytes + 2 * 64 * 4) +"
+            in src)
+    with open(os.path.join(CSRC, "linear_q8.cu")) as f:
+        launcher = f.read()
+    for nc in lq.GELU_Q8_WARPGROUPS:
+        assert f"return launch_gelu_q8<{nc}>" in launcher
+        assert f"set_gelu_q8_attributes<{nc}>()" in launcher
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in launcher
+
+
+def test_fused_quant_launchers_have_argtypes():
+    """The launchers of attention_q8 and of the quantising GELU product, and
+    their occupancy queries, are bound (checked type by type above)."""
+    new = {"mm_attention_q8", "mm_attention_q8_clusters", "mm_linear_q8_gelu_q8",
+           "mm_linear_q8_gelu_q8_clusters"}
+    assert new <= set(_launchers()) and new <= set(_lib.ARGTYPES)
+    assert _lib.ARGTYPES["mm_attention_q8"][4] == ctypes.POINTER(ctypes.c_int64)
