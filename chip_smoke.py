@@ -24,6 +24,17 @@ Phases, each printing its wall-clock seconds:
    unfused kernel's output, beside the unfused pair and with every
    warpgroup count of their plans), the eager time and
    the host's microseconds per call, and the card's bound for the same work;
+3b. the one-launch SA blocks of the kernel experiments (``sa_block``:
+   ``sa_variant`` rows 1 / 2 with and without the reciprocal softmax,
+   ``sa_headbatch``, ``sa_ablate``'s five skip sets, bf16 and W8A8;
+   ``sa_block_i8x``: ``sa_int8x``'s four lever sets) against their plain
+   versions at (8, 299, 1024) and (40, 299, 1024), H 8, and at B 8 with
+   keys masked; at B 8 timed beside the shipped composition and the bound;
+   int8 p.v also held on the kernel's own q, k, v (the witness of its
+   limit); the W8A8 blocks at shapes their fused plan refuses (16 heads;
+   FFN 4096) through the unfused pair; then ``python -m
+   mixermdm_tpu_torch.scripts.exp_kernels`` in each of its modes, which
+   times B 40, with the launch counts of that run;
 4. the sampling path at full published width (two 1024-d in2IN denoisers,
    the 512-d mixer, the ViT-L/14 text tower with its f32 post-encoder heads;
    T = 299, CFG 3.5, mixing mode 4, random weights from a seed), on the
@@ -937,6 +948,285 @@ def train_kernel_checks(gen, compare):
 
 
 # --------------------------------------------------------------------------
+# Phase 3b: the SA-block variants of the kernel experiments
+# --------------------------------------------------------------------------
+
+# sa_block and sa_block_i8x against their plain versions (the port's plain
+# compositions, ops/sa_variants.py), max |diff| / max |plain| over the finite
+# values (the ablation without softmax puts 1e30-sized values in rows whose
+# padded keys reach them); the non-finite values must agree in place.  The
+# kernels round where the shipped blocks' kernels round (bf16 projections
+# and output, bf16 p), so they are held as those blocks are (3e-2); int8
+# p and v move a value on a rounding boundary by one step where the f32
+# logits differ in their last bits.  Readings on an H100 before the limit
+# was written: 0 to 0.007 (sa_block), 0.003 to 0.005 (sa_block_i8x with the
+# static scale alone).
+SA_TOL = 3e-2
+# Beside it, the block's update (output - x, the attention term without the
+# residual that sets max |out|) on ||diff|| / ||plain|| over the finite
+# values, which a systematic error in a few percent of the values moves
+# where the max-abs ratio does not.  Readings on an H100 before the limit
+# was kept: 0-0.0068 (W8A8 sa_block the largest; int8 p.v 0.0012-0.0029).
+SA_L2_TOL = 1e-2
+# sa_block_i8x with int8 p.v: p8 = round(127 p), and at T 299 the typical
+# probability (127 / 299 = 0.42 of a step, spread by the logits) lies next to
+# the 0.5 rounding boundary, so where q, k or v differ in their last bits
+# (the modulated rows' int8 rounding, the product's order) p8 flips between
+# 0 and 1 at some keys.  Each flip moves an attention output by v / 127 and
+# can move its row's int8 scale, so whole output rows shift by a step.  So
+# the block is held on 6e-2, and each stage on its own, on every run: the
+# projections against the plain ones (SA_TOL); the attention on the
+# kernel's own q, k, v, where every integer sum p8.v8 of the kernel may
+# differ from the plain one only by what the keys whose 127 p lies within
+# SA_FLIP_REL (relative) of a rounding boundary can move it; the tail
+# (quantised attention, out-projection, residual) against the plain tail on
+# the kernel's attention (SA_TOL).  Readings on an H100 (the kernel
+# experiments' data, B 8 with and without masked keys, B 40): block
+# 0.0116-0.0302; attention 0-247 of 2.4-12.2 million sums differ, all
+# explained at a width of 1e-6 (125 unexplained at 1e-7), attention rel-L2
+# 0-0.0010; tail 0, bit for bit.  A denominator without the zero key, 1 /
+# 300 off, would move 127 p by about 1e-3 at every key.
+SA_QPV_TOL = 6e-2
+SA_FLIP_REL = 1e-5
+SA_SHAPES = ((8, 299, 1024, 8), (40, 299, 1024, 8))  # the SA blocks' shape; the script's
+SA_TIMED_B = 8  # B 40 is timed by the experiment script's own run
+
+
+def _finite_rel(got, want):
+    """max |got - want| / max |want| over the finite values of ``want``; inf
+    where the non-finite values differ in place or value."""
+    import torch
+
+    got, want = got.float(), want.float()
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(got[~fin], want[~fin]):
+        return math.inf, math.inf
+    max_abs = (got - want)[fin].abs().max().item()
+    return max_abs, max_abs / max(want[fin].abs().max().item(), 1e-6)
+
+
+def _update_l2(got, want, x):
+    """||got - want|| / ||want - x|| over the finite values of ``want``."""
+    import torch
+
+    got, want = got.double(), want.double()  # the ablation without softmax reaches 1e30
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    d = (got - want)[fin].norm().item()
+    return d / max((want - x.double())[fin].norm().item(), 1e-12)
+
+
+def _qpv_witness(sv, mid, kpm, H, T, qqk):
+    """The int8 p.v of sa_block_i8x on its own q, k, v (``mid``, from the
+    launch) against the plain product: the integer sums p8.v8 of both, how
+    many differ, and how many differ by more than the keys whose 127 p lies
+    within SA_FLIP_REL (relative) of a rounding boundary can move them (each
+    such key moves a sum by at most |v8|)."""
+    import torch
+
+    E = mid["qkv"].shape[-1] // 3
+    q, k, v = mid["qkv"].split(E, dim=-1)
+    p = sv.int8_attention_probs(q, k, kpm, n_heads=H, qqk=qqk)
+    v8, vs = sv.quant_v(v, H)
+    step = (vs / 127.0)[:, None, None, None]
+    ours = sv._heads(mid["attn"], H) / step
+    acc_ours = torch.round(ours)
+    t = p * 127.0
+    acc_plain = sv._int_matmul(torch.round(t), v8)
+    d = (acc_ours - acc_plain)[:, :, :T].abs()
+    near = (t - torch.floor(t) - 0.5).abs() <= SA_FLIP_REL * t
+    reach = torch.matmul(near.float(), v8.abs())[:, :, :T]
+    a_ours, a_plain = acc_ours[:, :, :T] * step, acc_plain[:, :, :T] * step
+    return {
+        "values": d.numel(), "differ": int((d > 0).sum()),
+        "max_steps": float(d.max()), "near_boundary_keys": int(near[:, :, :T].sum()),
+        "unexplained": int((d > reach).sum()),
+        "off_grid": float((ours - acc_ours).abs().max()),
+        "attn_rel_l2": float((a_ours - a_plain).norm() / a_plain.norm().clamp_min(1e-12)),
+    }
+
+
+def _key_mask(B, T, device):
+    """Sequences of falling lengths T, ..., about T / 2, and the last one
+    with every key masked (as the sampling path's padded batches)."""
+    import torch
+
+    lengths = [T - (b * T) // (2 * B) for b in range(B - 1)] + [0]
+    kpm = torch.arange(T, device=device)[None, :] >= torch.tensor(lengths, device=device)[:, None]
+    return kpm, sum(lengths)
+
+
+def sa_variant_phase(seed):
+    """Every configuration of ``sa_block`` (sa_variant rows 1 / 2 x recip x
+    bf16 / W8A8; sa_headbatch; sa_ablate's five skip sets) and of
+    ``sa_block_i8x`` (sa_int8x's four lever sets) against its plain version
+    at the SA blocks' shape (8, 299, 1024), H 8, and at the kernel
+    experiments' B 40; at B 8 also with keys masked (sa_variant, sa_int8x),
+    and there graph-replay ms beside the shipped composition
+    (fused_sa_block / fused_sa_block_q8 on the same inputs) and the H100's
+    bound, and host us per eager call.  The int8 p.v configurations also
+    hold the kernel's attention alone against the plain one on the kernel's
+    q, k, v (:func:`_qpv_witness`) and the block's tail (quantised attention,
+    out-projection, residual) against the plain tail on the kernel's
+    attention.  Then the W8A8 blocks at shapes whose fused plan refuses them
+    (16 heads; F 4096) through the unfused pair, against their plain
+    versions.  Then the slice's path: the experiment script
+    (``python -m mixermdm_tpu_torch.scripts.exp_kernels``) in each of its
+    modes at B 40, which times B 40, with the launch counts of that run.
+    Returns (results, counts)."""
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import _lib
+    from mixermdm_tpu_torch.ops import sa_variants as sv
+    from mixermdm_tpu_torch.scripts import exp_kernels as ek
+
+    results = []
+    for B, T, E, H in SA_SHAPES:
+        timed = B == SA_TIMED_B
+        inp = ek.make_inputs(B, T, E, H, seed=seed)
+        w = ek.weights(inp)
+        st = ek.static_scale(inp)
+        args = (inp.x, inp.scale, inp.shift, w)
+        flops = ek.cost_flops(B, T, E)
+        shipped = {q: (graph_timed(ek.shipped_block(inp, q)),
+                       host_us(ek.shipped_block(inp, q), reps=50)) if timed else (None, None)
+                   for q in (False, True)}
+        kpm, n_keys = _key_mask(B, T, inp.x.device)
+        masks = (("", inp.kpm, B * T),) + ((" masked", kpm, n_keys),) * timed
+        cases = [(f"rows={r} recip={int(c)}{m}", "sa_block", q, {}, mask,
+                  lambda r=r, c=c, q=q, mask=mask, plain=False: (
+                      sv.sa_variant_plain if plain else sv.sa_variant)(
+                      *args, mask, n_heads=H, rows=r, recip=c, quant=q))
+                 for m, mask, _ in masks for r in (1, 2) for c in (False, True)
+                 for q in (False, True) if not m or not c]
+        for q in (False, True):
+            cases.append(("headbatch", "sa_block", q, {}, None,
+                          lambda q=q, plain=False: (sv.sa_headbatch_plain if plain else
+                                                    sv.sa_headbatch)(*args, n_heads=H, quant=q)))
+            for name, sk in ek.ABLATIONS:
+                cases.append((f"ablate {name}", "sa_block", q, sk, None,
+                              lambda q=q, sk=sk, plain=False: (sv.sa_ablate_plain if plain else
+                                                               sv.sa_ablate)(
+                                  *args, n_heads=H, quant=q, **sk)))
+        for m, mask, _ in masks:
+            for name, levers in ek.LEVERS:
+                kw = ek.lever_kwargs(levers, st)
+                cases.append((name + m, "sa_block_i8x", True, kw, mask,
+                              lambda kw=kw, mask=mask, plain=False, **more: (
+                                  sv.sa_int8x_plain if plain else sv.sa_int8x)(
+                                  *args, mask, n_heads=H, **kw, **more)))
+        outs = {}
+        for name, kernel, quant, kw, mask, run in cases:
+            qpv = kw.get("qpv", False)
+            mid = {} if qpv else None
+            got = outs[name, quant] = run(intermediates=mid) if qpv else run()
+            torch.cuda.synchronize()
+            want = run(plain=True)
+            max_abs, rel = _finite_rel(got, want)
+            l2 = _update_l2(got, want, inp.x)
+            keys = B * T if mask is None else int((~mask).sum())
+            bound, by = ek.bound(B, T, E, quant=quant, qqk=kw.get("qqk", False), qpv=qpv,
+                                 skip_attn=kw.get("skip_attn", False), keys=keys)
+            tol = SA_QPV_TOL if qpv else SA_TOL
+            ok = rel <= tol and l2 <= SA_L2_TOL
+            res = {
+                "check": f"{kernel} {name} {'w8a8' if quant else 'bf16'} B={B}", "kind": kernel,
+                "shape": {"B": B, "T": T, "E": E, "H": H, "quant": quant, "masked_keys":
+                          B * T - keys, **kw},
+                "max_abs_err": max_abs, "max_rel_err": rel, "tol_rel": tol,
+                "update_rel_l2": l2, "tol_l2": SA_L2_TOL,
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "ms": None, "shipped_ms": shipped[quant][0], "shipped_host_us": shipped[quant][1],
+                "host_us": None, "plain_ms": None,
+            }
+            if qpv:
+                # Each stage alone: the projections, the attention on the
+                # kernel's q, k, v, and the tail on the kernel's attention
+                # (the plain tail: quant_rows, linear_q8 with bias and cast,
+                # + x).
+                _, kp = sv._pad(inp.x, mask)
+                qkv = sv.sa_int8x_qkv_plain(*args, static_as=kw.get("static_as"))
+                res["qkv_rel_err"] = _finite_rel(mid["qkv"], qkv)[1]
+                res["witness"] = wit = _qpv_witness(sv, mid, kp, H, T, kw.get("qqk", False))
+                a8, as_ = sv.quant_rows_plain(mid["attn"])
+                tail = sv.linear_q8_plain(a8, as_, w.w8_o, w.s_o, w.b_o, dtype=inp.x.dtype,
+                                          residual=sv._pad(inp.x, None)[0])[:, :T]
+                res["tail_rel_err"] = _finite_rel(got, tail)[1]
+                ok = (ok and res["qkv_rel_err"] <= SA_TOL and wit["unexplained"] == 0
+                      and res["tail_rel_err"] <= SA_TOL)
+            if timed and keys == B * T:
+                res["ms"] = ms = graph_timed(run)
+                res["tflops"] = flops / ms / 1e9
+                res["host_us"] = host_us(run, reps=50)
+                if name in ("rows=1 recip=0", "static + int8 attn"):
+                    res["plain_ms"] = graph_timed(lambda: run(plain=True), reps=2, replays=2)
+            res["ok"] = ok
+            print("   " + json.dumps(res), flush=True)
+            results.append(res)
+        # The attention schedule does not reach the values: rows 1 and 2, and
+        # the head-batched walk, give the same bits (bf16; the W8A8
+        # head-batched form quantises the bf16 rounding, as its JAX kernel).
+        same = {f"rows=2 vs rows=1 {'w8a8' if q else 'bf16'}":
+                torch.equal(outs["rows=2 recip=0", q], outs["rows=1 recip=0", q])
+                for q in (False, True)}
+        same["headbatch vs rows=1 bf16"] = torch.equal(outs["headbatch", False],
+                                                       outs["rows=1 recip=0", False])
+        res = {"check": f"sa_block schedule B={B}", "kind": "sa_block", "bitwise": same,
+               "ok": all(same.values())}
+        print("   " + json.dumps(res), flush=True)
+        results.append(res)
+
+    # The W8A8 blocks where the fused plan refuses: 16 heads of 64 (SA, CA),
+    # F 4096 (FFN), through attention / linear_q8 + quant_rows.
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape, std=1.0: (torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+                                   * std).to(torch.bfloat16)
+    B, T, E = 8, 299, 1024
+    q8w = lambda n, k: (*ops.quantize_weight(rnd(n, k, std=k ** -0.5)), rnd(n, std=0.1))  # noqa: E731
+    x, xf = rnd(B, T, E), rnd(B, T, E)
+    mods = [rnd(B, E, std=0.2) for _ in range(4)]
+    wsa = (*q8w(3 * E, E), *q8w(E, E))
+    wffn = (*q8w(4096, E), *q8w(E, 4096))
+    for name, route, kern, plain in (
+        ("fused_sa_block_q8 H=16", "attention_q8_pair",
+         lambda: ops.fused_sa_block_q8(x, *mods[:2], *wsa, n_heads=16, residual=True),
+         lambda: ops.fused_sa_block_q8_plain(x, *mods[:2], *wsa, n_heads=16, residual=True)),
+        ("fused_ca_block_q8 H=16", "attention_q8_pair",
+         lambda: ops.fused_ca_block_q8(x, xf, *mods, *wsa, n_heads=16, residual=True),
+         lambda: ops.fused_ca_block_q8_plain(x, xf, *mods, *wsa, n_heads=16, residual=True)),
+        ("fused_ffn_block_q8 F=4096", "linear_q8_gelu_q8_pair",
+         lambda: ops.fused_ffn_block_q8(x, *mods[:2], *wffn, residual=True),
+         lambda: ops.fused_ffn_block_q8_plain(x, *mods[:2], *wffn, residual=True)),
+    ):
+        _lib.reset_launch_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        routed = dict(_lib.launches)
+        max_abs, rel = _finite_rel(got, plain())
+        ok = rel <= 3e-2 and routed.get(route, 0) == 1 and routed.get("quant_rows", 0) >= 1
+        res = {"check": f"{name} (unfused pair)", "kind": route, "max_abs_err": max_abs,
+               "max_rel_err": rel, "tol_rel": 3e-2, "launches": routed, "ok": ok,
+               "ms": graph_timed(kern)}
+        print("   " + json.dumps(res), flush=True)
+        results.append(res)
+    _lib.reset_launch_counts()  # comparison launches do not count
+
+    # The slice's path: the experiment script in each mode, counted; its
+    # records are the B 40 times.
+    for argv in ([], ["--quant"], ["--headbatch"], ["--headbatch", "--quant"], ["--ablate"],
+                 ["--ablate", "--quant"], ["--int8attn"]):
+        print(f"   exp_kernels {' '.join(argv)}", flush=True)
+        records = ek.run(argv)
+        if records is None:
+            raise SmokeFailure(f"exp_kernels {argv} failed")
+        print("   " + json.dumps({"check": f"exp_kernels {' '.join(argv)}".strip(),
+                                  "B": ek.SHAPE["B"], "records": records}), flush=True)
+    counts = dict(_lib.launches)
+    print("   exp_kernels launches: " + json.dumps(counts), flush=True)
+    return results, counts
+
+
+# --------------------------------------------------------------------------
 # Phase 4: the sampling path at full width
 # --------------------------------------------------------------------------
 
@@ -1452,6 +1742,12 @@ KERNELS = {
     "fused_ffn_block_q8": ("mixermdm_tpu_torch/ops/fused_block.py",
                            "mixermdm_tpu/ops/fused_block.py:473 (fused_ffn_block quant=True -> "
                            "pallas_call :522, body _ffn_kernel_q8 :467)"),
+    "sa_block": ("mixermdm_tpu_torch/csrc/sa_block.cu",
+                 "scripts/exp_kernels.py:204 (sa_variant -> _sa_v_kernel :69, _sa_v_kernel_q8 "
+                 ":145); :595 (sa_headbatch -> _sa_hb_kernel :483, _hb_q8 :548); :433 "
+                 "(sa_ablate -> _sa_abl_kernel :315, _abl_q8 :386)"),
+    "sa_block_i8x": ("mixermdm_tpu_torch/csrc/sa_block_i8x.cu",
+                     "scripts/exp_kernels.py:792 (sa_int8x -> _sa_i8x_kernel :655)"),
 }
 # The kernels each main path must launch.  The shipped config samples on the
 # W8A8 path; the bf16 path (QUANT_FROZEN off) runs the bf16 block forms.
@@ -1468,12 +1764,16 @@ PATH_KERNELS = {
     "train": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
               "attention_bwd", "fused_attention", "fused_sa_block", "fused_ca_block",
               "fused_ffn_block"),
+    # The kernel experiments (mixermdm_tpu_torch.scripts.exp_kernels): the
+    # one-launch SA blocks, beside the shipped composition.
+    "exp_kernels": ("sa_block", "sa_block_i8x", "fused_sa_block", "fused_sa_block_q8"),
 }
 # The path whose counts stand in a kernel's row: the shipped sampling path,
 # the bf16 one for the bf16 block forms, the training path for the kernels
 # it brought; quant_rows stands on the W8A8 path it left to its producers
 # (0 launches there unless an FFN input is not modulated).
-ROW_PATH = {"attention_f32": "train", "attention_bwd": "train", "quant_rows": "W8A8"}
+ROW_PATH = {"attention_f32": "train", "attention_bwd": "train", "quant_rows": "W8A8",
+            "sa_block": "exp_kernels", "sa_block_i8x": "exp_kernels"}
 # The check whose numbers stand for each name in the kernels line: the
 # largest main-path shape.
 REPRESENTATIVE = {
@@ -1496,6 +1796,8 @@ REPRESENTATIVE = {
     "fused_sa_block_q8": "fused_sa_block_q8 E=1024 T=299 residual=True",
     "fused_ca_block_q8": "fused_ca_block_q8 E=1024 T=299 residual=True",
     "fused_ffn_block_q8": "fused_ffn_block_q8 E=1024 F=2048 residual=True",
+    "sa_block": "sa_block rows=1 recip=0 bf16 B=8",
+    "sa_block_i8x": "sa_block_i8x static + int8 attn w8a8 B=8",
 }
 
 
@@ -1563,6 +1865,15 @@ def main(argv=None):
     if bad:
         raise SmokeFailure("kernels disagree with their plain versions: " + ", ".join(bad))
 
+    t0 = phase("3b. the SA-block variants (sa_block, sa_block_i8x) and the W8A8 blocks' "
+               "unfused route, against their plain versions; the kernel experiments, counted")
+    sa_results, sa_counts = sa_variant_phase(args.seed)
+    results += sa_results
+    bad = [r["check"] for r in sa_results if not r["ok"]]
+    done(t0)
+    if bad:
+        raise SmokeFailure("kernels disagree with their plain versions: " + ", ".join(bad))
+
     t0 = phase("4. sampling path at full width: networks and one step, kernels vs plain")
     system, batch = sample_phase(args.seed)
     done(t0)
@@ -1578,6 +1889,7 @@ def main(argv=None):
     done(t0)
 
     t0 = phase("7. summary")
+    counts["exp_kernels"] = sa_counts
     line = kernels_line(results, counts)
     missing = [f"{name} ({path} path)" for path, names in PATH_KERNELS.items() for name in names
                if not counts[path].get(name)]

@@ -7,7 +7,10 @@ counted apart: the Hopper TMA + ``wgmma`` main loop of ``gemm_sm90.cuh``,
 TMA cannot describe), ``attention`` (bf16 and f32 inputs; ``attention_q8``,
 its quantising epilogue for the W8A8 blocks), ``attention_bwd``,
 ``quant_rows``, ``linear_q8`` (the same main loop on int8; counted as
-``linear_q8_gelu_q8`` with the quantising GELU epilogue).
+``linear_q8_gelu_q8`` with the quantising GELU epilogue), and ``sa_block`` /
+``sa_block_i8x``, the one-launch self-attention blocks of the kernel
+experiments (:mod:`.sa_variants`, the counterparts of
+``scripts/exp_kernels.py``; no model calls them).
 Entry points, one per Pallas entry point of ``mixermdm_tpu/ops``:
 :func:`fused_attention` and its backward :func:`attention_bwd` (with the
 autograd function :class:`FusedAttention`), :func:`fused_sa_block`,

@@ -31,8 +31,9 @@ import time
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(PACKAGE_DIR, "_build")
-SOURCES = ("adaln.cu", "linear.cu", "attention.cu", "attention_bwd.cu", "quant.cu", "linear_q8.cu")
-HEADERS = ("common.cuh", "gemm_sm90.cuh", "wgmma.cuh")
+SOURCES = ("adaln.cu", "linear.cu", "attention.cu", "attention_bwd.cu", "quant.cu", "linear_q8.cu",
+           "sa_block.cu", "sa_block_i8x.cu")
+HEADERS = ("common.cuh", "gemm_sm90.cuh", "wgmma.cuh", "sa_common.cuh")
 LIB_NAME = "libmixermdm_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -44,6 +45,19 @@ launches: collections.Counter = collections.Counter()
 # The same launches by (name, *shape) where the wrapper gives a shape (the
 # GEMM routes: M, K, N, epilogue), for a histogram of a run.
 launch_shapes: collections.Counter = collections.Counter()
+
+
+class ShapeRefused(ValueError):
+    """A fused kernel's launch plan does not take this shape."""
+
+
+class NoClusterFits(RuntimeError):
+    """No thread block cluster of a fused kernel's launch plan fits the card."""
+
+
+# What a fused kernel's plan raises when it refuses a launch: its callers
+# may take another kernel route then.  A CUDA error is neither.
+PLAN_REFUSALS = (ShapeRefused, NoClusterFits)
 
 
 def reset_launch_counts() -> None:
@@ -174,11 +188,21 @@ ARGTYPES = {
     "mm_linear_q8_gelu_q8": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp, _i64, _vp,
                              _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
     "mm_linear_q8_gelu_q8_clusters": [_i32, _i32, _i32],
+    "mm_sa_block": [_vp, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                    _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _f32, _f32,
+                    _i32, _vp],
+    "mm_sa_block_occupancy": [_i32],
+    "mm_sa_block_init": [],
+    "mm_sa_block_i8x": [_vp, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                        _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _f32,
+                        _f32, _f32, _f32, _i32, _vp],
+    "mm_sa_block_i8x_occupancy": [_i32],
+    "mm_sa_block_i8x_init": [],
 }
 # Run once when the library loads, before any launch a graph could capture
 # (every kernel's dynamic shared memory limit).
 INIT_FUNCTIONS = ("mm_linear_init", "mm_linear_q8_init", "mm_attention_init",
-                  "mm_attention_bwd_init")
+                  "mm_attention_bwd_init", "mm_sa_block_init", "mm_sa_block_i8x_init")
 
 
 @functools.lru_cache(maxsize=None)

@@ -407,7 +407,12 @@ def attention_q8_plan(B: int, H: int, Tq: int, Tk: int, D: int, nwg: Optional[in
     120 SMs, on an H100 SXM).  The warpgroups per block are the count whose
     waves cost least, a wave costing its warpgroups plus
     :data:`Q8_WAVE_OVERHEAD`; ties to the larger block.  ``nwg`` forces
-    the warpgroups."""
+    the warpgroups.  A head dim the kernel lacks or more heads than a cluster
+    spans raise :class:`~._lib.ShapeRefused`, a card that holds no cluster
+    :class:`~._lib.NoClusterFits` (:data:`~._lib.PLAN_REFUSALS`)."""
+    if D not in Q8_HEAD_DIMS or H > MAX_CLUSTER_HEADS:
+        raise _lib.ShapeRefused(f"attention_q8: head dim {D} not in {Q8_HEAD_DIMS} or {H} "
+                                f"heads over the cluster's {MAX_CLUSTER_HEADS}")
     max_clusters = max_clusters or attention_q8_clusters
     dp = 64 if D <= 64 else 128
     stages = max(1, min(MAX_STAGES, -(-Tk // ATTN_ROWS)))
@@ -421,7 +426,7 @@ def attention_q8_plan(B: int, H: int, Tq: int, Tk: int, D: int, nwg: Optional[in
         if best is None or cost <= best[0]:
             best = (cost, n, tiles)
     if best is None:
-        raise RuntimeError(f"attention_q8: no cluster of {H} CTAs fits the card at D={D}")
+        raise _lib.NoClusterFits(f"attention_q8: no cluster of {H} CTAs fits the card at D={D}")
     _, n, tiles = best
     return AttentionPlan(n, stages, (tiles, H, B), attention_smem_bytes(dp, n, stages))
 

@@ -35,6 +35,15 @@ in f32 after ``+ b1`` and the GELU in the first product's epilogue
 (``linear_q8`` with ``quant_out``); with ``quant_rows`` an FFN input that
 is not modulated.  The fused epilogues give ``quant_rows``' bits of the
 output they no longer write.
+
+A W8A8 block asks the fused kernel's plan (``attention_q8_plan``,
+``gelu_q8_plan``) before it launches anything.  Where the plan refuses the
+shape (more heads than a cluster spans, an FFN over 16 tiles of 128, no
+cluster that fits the card: :data:`._lib.PLAN_REFUSALS`), the block takes
+the unfused pair, the producer kernel writing its output (``attention``
+in f32 or bf16, ``linear_q8`` with the f32 GELU) and then ``quant_rows``,
+counted as ``attention_q8_pair`` / ``linear_q8_gelu_q8_pair``: the same
+bits, one more pass over device memory.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from typing import Optional
 import torch
 
 from . import _lib
+from . import attention as _attention
+from . import linear_q8 as _linear_q8
 from .adaln import (
     adaln_modulate,
     adaln_modulate_plain,
@@ -66,6 +77,41 @@ def _merge(t: torch.Tensor) -> torch.Tensor:
     """(B, H, T, D) -> (B, T, H*D)."""
     B, H, T, D = t.shape
     return t.transpose(1, 2).reshape(B, T, H * D)
+
+
+def _fused_attention_q8(B: int, H: int, Tq: int, Tk: int, D: int) -> bool:
+    """Whether ``attention_q8``'s plan takes this shape (else the block
+    takes the unfused pair)."""
+    try:
+        _attention.attention_q8_plan(B, H, Tq, Tk, D)
+    except _lib.PLAN_REFUSALS:
+        return False
+    return True
+
+
+def _fused_gelu_q8(M: int, N: int, K: int) -> bool:
+    """Whether the quantising GELU product's plan takes this shape (an
+    empty product launches nothing either way)."""
+    if M == 0:
+        return True
+    try:
+        _linear_q8.gelu_q8_plan(M, N, K)
+    except _lib.PLAN_REFUSALS:
+        return False
+    return True
+
+
+def _attention_q8_route(fused: bool, q, k, v, key_padding_mask, zero_attn: bool, out_dtype):
+    """The attention output as int8 rows with f32 scales: ``attention_q8``,
+    or (``fused`` False) ``attention`` writing ``out_dtype`` and then
+    ``quant_rows``, which quantises the same values to the same bits."""
+    if fused:
+        return attention_q8(q, k, v, key_padding_mask, zero_attn, out_dtype=out_dtype)
+    B, H, Tq, D = q.shape
+    a = torch.empty((B, Tq, H * D), dtype=out_dtype, device=q.device)
+    attention_into(q, k, v, _heads(a, H), key_padding_mask, None, zero_attn)
+    _lib.launches["attention_q8_pair"] += 1
+    return quant_rows(a)
 
 
 def _check(name: str, x: torch.Tensor, n_heads: int, E: int) -> None:
@@ -221,10 +267,12 @@ def fused_sa_block_q8(x, scale, shift, w8_qkv, s_qkv, b_qkv, w8_o, s_o, b_o,
                                        eps=eps, residual=residual)
     B, T, E = x.shape
     _check("fused_sa_block_q8", x, n_heads, E)
+    _lib.require_cuda_bf16("fused_sa_block_q8", x, scale, shift)  # before the plan asks the card
+    fused = _fused_attention_q8(B, n_heads, T, T, E // n_heads)
     x8, xs = adaln_modulate_q8(x, scale, shift, eps)
     q, k, v = linear_q8(x8, xs, w8_qkv, s_qkv, b_qkv).split(E, dim=-1)
-    a8, as_ = attention_q8(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
-                           key_padding_mask, zero_attn, out_dtype=torch.float32)
+    a8, as_ = _attention_q8_route(fused, _heads(q, n_heads), _heads(k, n_heads),
+                                  _heads(v, n_heads), key_padding_mask, zero_attn, torch.float32)
     y = linear_q8(a8, as_, w8_o, s_o, b_o, residual=x if residual else None)
     _lib.launches["fused_sa_block_q8"] += 1
     return y
@@ -268,12 +316,14 @@ def fused_ca_block_q8(x, xf, scale, shift, xf_scale, xf_shift, w8_qkv, s_qkv, b_
     B, T, E = x.shape
     _check("fused_ca_block_q8", x, n_heads, E)
     _check("fused_ca_block_q8", xf, n_heads, E)
+    _lib.require_cuda_bf16("fused_ca_block_q8", x, xf, scale, shift, xf_scale, xf_shift)
+    fused = _fused_attention_q8(B, n_heads, T, xf.shape[1], E // n_heads)
     x8, xs = adaln_modulate_q8(x, scale, shift, eps)
     f8, fs = adaln_modulate_q8(xf, xf_scale, xf_shift, eps)
     q = linear_q8(x8, xs, w8_qkv[:E], s_qkv[:E], b_qkv[:E])              # (B, T, E)
     k, v = linear_q8(f8, fs, w8_qkv[E:], s_qkv[E:], b_qkv[E:]).split(E, dim=-1)
-    a8, as_ = attention_q8(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
-                           key_padding_mask, zero_attn, out_dtype=x.dtype)
+    a8, as_ = _attention_q8_route(fused, _heads(q, n_heads), _heads(k, n_heads),
+                                  _heads(v, n_heads), key_padding_mask, zero_attn, x.dtype)
     y = linear_q8(a8, as_, w8_o, s_o, b_o, residual=x if residual else None)
     _lib.launches["fused_ca_block_q8"] += 1
     return y
@@ -307,8 +357,14 @@ def fused_ffn_block_q8(x, scale: Optional[torch.Tensor], shift: Optional[torch.T
     if _lib.use_plain(x):
         return fused_ffn_block_q8_plain(x, scale, shift, w8_1, s_1, b1, w8_2, s_2, b2,
                                         eps=eps, residual=residual)
+    _lib.require_cuda_bf16("fused_ffn_block_q8", x, scale, shift)  # before the plan asks the card
+    fused = _fused_gelu_q8(x.numel() // x.shape[-1], w8_1.shape[0], x.shape[-1])
     x8, xs = quant_rows(x) if scale is None else adaln_modulate_q8(x, scale, shift, eps)
-    h8, hs = linear_q8(x8, xs, w8_1, s_1, b1, activation="gelu", quant_out=True)
+    if fused:
+        h8, hs = linear_q8(x8, xs, w8_1, s_1, b1, activation="gelu", quant_out=True)
+    else:
+        h8, hs = quant_rows(linear_q8(x8, xs, w8_1, s_1, b1, activation="gelu"))
+        _lib.launches["linear_q8_gelu_q8_pair"] += 1
     y = linear_q8(h8, hs, w8_2, s_2, b2, residual=x if residual else None)
     _lib.launches["fused_ffn_block_q8"] += 1
     return y

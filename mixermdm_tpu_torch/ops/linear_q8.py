@@ -90,12 +90,14 @@ def gelu_q8_plan(M: int, N: int, K: int, nc: Optional[int] = None,
     ``cudaOccupancyMaxActiveClusters`` on the card) must walk, a round
     costing its warpgroups plus :data:`GELU_Q8_ROUND_OVERHEAD`; the cheapest
     wins, ties to more rows per tile.  ``nc`` forces the warpgroups.  The
-    ring is as deep as 227 KB allows, at most 6 stages.
+    ring is as deep as 227 KB allows, at most 6 stages.  An N over 16 tiles
+    raises :class:`~._lib.ShapeRefused`, a card that holds no cluster
+    :class:`~._lib.NoClusterFits` (:data:`~._lib.PLAN_REFUSALS`).
     """
     ctas = -(-N // GELU_Q8_BN)
     if ctas > MAX_CLUSTER_CTAS:
-        raise ValueError(f"linear_q8_gelu_q8: N={N} spans more than {MAX_CLUSTER_CTAS} tiles "
-                         f"of {GELU_Q8_BN}")
+        raise _lib.ShapeRefused(f"linear_q8_gelu_q8: N={N} spans more than {MAX_CLUSTER_CTAS} "
+                                f"tiles of {GELU_Q8_BN}")
     max_clusters = max_clusters or _device_clusters
     best = None
     for n_wg in (nc,) if nc else GELU_Q8_WARPGROUPS:
@@ -111,8 +113,8 @@ def gelu_q8_plan(M: int, N: int, K: int, nc: Optional[int] = None,
         if best is None or cost <= best[0]:
             best = (cost, GeluQ8Plan(n_wg, ctas, stages, clusters, smem))
     if best is None:
-        raise RuntimeError(f"linear_q8_gelu_q8: no cluster of the plan fits the card "
-                           f"(M={M}, N={N}, K={K})")
+        raise _lib.NoClusterFits(f"linear_q8_gelu_q8: no cluster of the plan fits the card "
+                                 f"(M={M}, N={N}, K={K})")
     return best[1]
 
 

@@ -301,6 +301,22 @@ def test_gelu_q8_constants_match_the_kernel():
     assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in launcher
 
 
+def test_sa_block_launchers_have_argtypes():
+    """The launchers, occupancy queries and init functions of the one-launch
+    SA blocks are parsed from their two sources and bound (checked type by
+    type above)."""
+    files = {}
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        with open(path) as f:
+            for m in re.finditer(r'extern "C" int (\w+)\(', f.read()):
+                files[m.group(1)] = os.path.basename(path)
+    for name in ("mm_sa_block", "mm_sa_block_occupancy", "mm_sa_block_init"):
+        assert files[name] == "sa_block.cu" and name in _lib.ARGTYPES
+    for name in ("mm_sa_block_i8x", "mm_sa_block_i8x_occupancy", "mm_sa_block_i8x_init"):
+        assert files[name] == "sa_block_i8x.cu" and name in _lib.ARGTYPES
+    assert {"sa_block.cu", "sa_block_i8x.cu"} <= set(_lib.SOURCES)
+
+
 def test_fused_quant_launchers_have_argtypes():
     """The launchers of attention_q8 and of the quantising GELU product, and
     their occupancy queries, are bound (checked type by type above)."""

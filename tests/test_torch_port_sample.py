@@ -216,11 +216,13 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     QUANT_FROZEN on in bf16 (the card's dtype) with the width gate at the
     tiny width, so that its blocks take the W8A8 path, then two steps of the
     training CLI (``python -m mixermdm_tpu_torch train-mixermdm --tiny
-    --device cpu --max-steps 2``)."""
+    --device cpu --max-steps 2``).  The JAX package's ``scripts/`` is
+    blocked too, and the port's copy of its kernel experiments
+    (``mixermdm_tpu_torch.scripts.exp_kernels``) runs its check on the CPU."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "yaml",
-                     "mixermdm_tpu"):
+                     "mixermdm_tpu", "scripts"):
             sys.modules[name] = None
         import mixermdm_tpu_torch
         mods = [m.name for m in pkgutil.walk_packages(mixermdm_tpu_torch.__path__,
@@ -228,6 +230,11 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
         for m in mods:
             importlib.import_module(m)
         import chip_smoke
+        assert "mixermdm_tpu_torch.scripts.exp_kernels" in mods
+        from mixermdm_tpu_torch.scripts import exp_kernels
+        import torch
+        small = exp_kernels.make_inputs(2, 7, 128, 2, device="cpu", dtype=torch.float32)
+        assert len(exp_kernels.variants_main(True, True, small)) == 3
         from mixermdm_tpu_torch.cli import infer_mixermdm
         infer_mixermdm.main(["--tiny", "--device", "cpu", "--name", "g", "--num-samples", "2",
                              "--out-dir", {str(tmp_path)!r}, "--text-interaction", "two hug",
@@ -253,7 +260,8 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
                     "--max-steps", "2", "--out-dir", {str(tmp_path / "train")!r}]
         assert cli() == 0
         bad = [k for k, v in sys.modules.items() if v is not None and
-               k.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml", "mixermdm_tpu")]
+               k.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml", "mixermdm_tpu",
+                                    "scripts")]
         assert not bad, bad
         print("imported", len(mods), "modules")
     """)
