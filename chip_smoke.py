@@ -47,6 +47,15 @@ Phases, each printing its wall-clock seconds:
    ``MixerMDMSystem.generate_cond`` and ``sample``, with the launch counts of
    that run and the GEMM launches by (route, M, K, N, epilogue), per request
    for the text and per DDIM step for the chain;
+5b. the inference surface at full width, on the three released-layout
+   checkpoint files written from that system: they load back bit for bit
+   into a system of another seed (int8 buffers and one W8A8 step too);
+   ``infer-mixermdm`` runs in-process on them (DPM-Solver++ 25 with 5 steps
+   skipped, trajectory control, a warm start, decomposed prompts), counted;
+   one DPM-Solver++ step on the kernels against the plain versions; and
+   ``serve`` answers in-process at B 10, T 299, DDIM-50, W8A8 (seeded
+   requests reproducible and equal to a direct ``sample``, unseeded ones
+   coalesced, malformed ones refused);
 6. adversarial training at full width (``configs/models/MixerMDM.yaml``,
    ``configs/train/MixerMDM.yaml``, B = 8, T = 300): the gradients of one G
    and one D step on the kernels against the plain versions (and against
@@ -1478,6 +1487,339 @@ def sample_main_paths(system, batch, seed):
 
 
 # --------------------------------------------------------------------------
+# Phase 5b: the inference surface at full width
+# --------------------------------------------------------------------------
+
+# The DPM-Solver++ run of the CLI: 25 steps, the first 5 skipped.
+DPM_STEPS, DPM_SKIP = 25, 5
+# serve at bench.py's workload: B 10, T 299, DDIM-50, W8A8.
+SERVE_B = 10
+
+
+def _save_released(system, root):
+    """The three released files of ``system`` (the mixer file without its
+    CLIP tower, as the released MixerMDM.ckpt drops it); their paths."""
+    import torch
+
+    from mixermdm_tpu_torch.weights import released_in2in_state_dict, \
+        released_mixermdm_state_dict
+
+    files = (f"{root}/MixerMDM.ckpt", f"{root}/individual.ckpt", f"{root}/interaction.ckpt")
+    torch.save({"state_dict": released_mixermdm_state_dict(system, with_clip=False)}, files[0])
+    torch.save({"state_dict": released_in2in_state_dict(system.model1, "individual")}, files[1])
+    torch.save({"state_dict": released_in2in_state_dict(system.model2, "interaction")}, files[2])
+    return files
+
+
+def _int8_buffers(system):
+    from mixermdm_tpu_torch.models import layers
+
+    return {f"{name}.{src}_{kind}": getattr(m, f"{src}_{kind}")
+            for name, m in system.named_modules() if isinstance(m, layers.Int8Block)
+            for src in m._int8_sources() for kind in ("q8", "scale")
+            if hasattr(m, f"{src}_{kind}")}
+
+
+def _request(url, body=None, timeout=600):
+    """(status, json) of GET ``url`` or POST ``body`` to it."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else (body if isinstance(body, bytes)
+                                      else json.dumps(body).encode())
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def surface_phase(system, seed, card):
+    """The inference surface on the card, on files written from ``system``
+    (the shipped config's W8A8 system of phases 4-5):
+
+    (a) the three released files load into a system built from another
+        seed: every parameter bitwise, the unfilled list exactly the mixer's
+        CLIP tower, every Int8Block's int8 weights and scales equal, and one
+        W8A8 CFG mixer step the same bits on both systems;
+    (b) ``infer-mixermdm`` in-process on those files: B 2, T 299,
+        DPM-Solver++ 25 with 5 skipped, trajectory control and a warm start
+        from a motion it writes, the individual prompts decomposed; finite,
+        non-zero motions, influence histories of 20 steps, and launches of
+        20 W8A8 steps plus one text encoding;
+    (c) one DPM-Solver++ step (trajectory control on, a multistep step) at
+        phase 4's input on the kernels against the plain versions: its x0
+        and its update of the latents on STEP_TOL and on phase 4's witness
+        against an f32 twin;
+    (d) ``serve`` in-process at B 10, T 299, DDIM-50, W8A8 on the files: warm
+        after start-up, a seeded request twice the same bytes and equal to
+        ``sample`` on the padded batch, three concurrent unseeded requests
+        of 3 rows in one dispatch, 400 for a malformed request.
+
+    Returns the readings for the summary."""
+    import base64
+    import io
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli import infer_mixermdm, serve
+    from mixermdm_tpu_torch.cli.infer_mixermdm import build_system
+    from mixermdm_tpu_torch.diffusion.mixer_diffusion import dpmpp_step
+    from mixermdm_tpu_torch.diffusion.gaussian import _apply_traj_control, dpmpp_coefficients
+    from mixermdm_tpu_torch.diffusion.schedule import named_schedule
+    from mixermdm_tpu_torch.train.checkpoint import load_released_mixermdm
+
+    B, T, F = len(PROMPTS), 299, system.nfeats
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    x = torch.randn(B, T, 2 * F, generator=gen, device="cuda")
+    t = torch.full((B,), 979, dtype=torch.long, device="cuda")
+    batch = {"text_interaction": [p[0] for p in PROMPTS],
+             "text_individual1": [p[1] for p in PROMPTS],
+             "text_individual2": [p[2] for p in PROMPTS]}
+    cond = system.generate_cond(batch)
+    readings = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_surface_") as tmp:
+        # (a) checkpoint round trip
+        t0 = time.time()
+        files = _save_released(system, tmp)
+        t1 = time.time()
+        other = build_system(None, device="cuda", seed=seed + 7, zero_init_std=0.02)
+        with torch.inference_mode():
+            unfilled = load_released_mixermdm(other, *files)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        mb = sum(os.path.getsize(f) for f in files) / 2**20
+        print(f"   (a) wrote the 3 released files ({mb:.0f} MiB) in {t1 - t0:.1f} s, built a "
+              f"system from seed {seed + 7} and loaded them in {t2 - t1:.1f} s", flush=True)
+        tower = sorted(k for k, _ in other.named_parameters() if k.startswith("text.clip."))
+        if unfilled != tower:
+            raise SmokeFailure(f"unfilled after the load: {unfilled[:5]}... (want the mixer's "
+                               f"CLIP tower, {len(tower)} tensors)")
+        src = dict(system.named_parameters())
+        differ = [k for k, p in other.named_parameters()
+                  if k not in unfilled and not torch.equal(p, src[k])]
+        # The W8A8 step quantises the loaded weights again (each block keys
+        # its int8 cache on its weights' versions); then the buffers match.
+        with _quant(system, True), _quant(other, True):
+            step_a, step_b = (s.cfg_mixer_step(x, x, t, cond) for s in (system, other))
+        same_step = torch.equal(step_a, step_b)
+        q8_src, q8_dst = _int8_buffers(system), _int8_buffers(other)
+        q8_differ = [k for k in q8_src if k not in q8_dst or not torch.equal(q8_src[k], q8_dst[k])]
+        print(f"   (a) {len(src) - len(unfilled)} parameters bitwise equal: "
+              f"{'ok' if not differ else 'FAIL ' + str(differ[:3])}; unfilled = the mixer's "
+              f"CLIP tower ({len(tower)} tensors): ok; {len(q8_src)} int8 buffers equal: "
+              f"{'ok' if not q8_differ and q8_src else 'FAIL ' + str(q8_differ[:3])}; one W8A8 "
+              f"CFG mixer step bitwise equal: {'ok' if same_step else 'FAIL'}", flush=True)
+        if differ or q8_differ or not q8_src or not same_step:
+            raise SmokeFailure("the released files did not load back bit for bit")
+        del other, step_b
+        torch.cuda.empty_cache()
+
+        # (b) the CLI: DPM-Solver++ 25, skip 5, trajectory control, warm start
+        with _quant(system, True):
+            ops.reset_launch_counts()
+            system.cfg_mixer_step(x, x, t, cond)
+            torch.cuda.synchronize()
+            step_counts = collections.Counter(ops.launches)
+            ops.reset_launch_counts()
+            system.generate_cond({k: [v[0]] * B for k, v in batch.items()})
+            torch.cuda.synchronize()
+            text_counts = collections.Counter(ops.launches)
+        motion = np.random.default_rng(seed).standard_normal((T - 40, 2 * F)).astype(np.float32)
+        np.save(f"{tmp}/control.npy", 0.5 * motion)
+        argv = ["--name", "surface", "--out-dir", f"{tmp}/out", "--num-samples", str(B),
+                "--window", str(T), "--seed", str(seed + 11),
+                "--text-interaction", "one person pushes the other, who stumbles back",
+                "--sampler", "dpmpp", "--sample-steps", str(DPM_STEPS),
+                "--skip-timesteps", str(DPM_SKIP), "--traj-control", f"{tmp}/control.npy",
+                "--warm-start", f"{tmp}/control.npy", "--checkpoint", files[0],
+                "--ckpt-individual", files[1], "--ckpt-interaction", files[2]]
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            infer_mixermdm.main(argv)
+        torch.cuda.synchronize()
+        t_cli = time.time() - t0
+        cli_counts = collections.Counter(ops.launches)
+        for line in out.getvalue().splitlines():
+            print(f"   (b) | {line}", flush=True)
+        sampled_s = [float(line.split(" in ")[1].split(" s")[0])
+                     for line in out.getvalue().splitlines() if line.startswith("sampled ")]
+        n_steps = DPM_STEPS - DPM_SKIP
+        motions = np.load(f"{tmp}/out/surface_motion.npy")
+        infl = np.load(f"{tmp}/out/surface_influence_i1.npy")
+        want = {k: n_steps * step_counts[k] + text_counts[k]
+                for k in set(step_counts) | set(text_counts)}
+        said = out.getvalue()
+        ok = (motions.shape == (B, T, 2 * F) and bool(np.isfinite(motions).all())
+              and float(np.abs(motions).max()) > 0 and infl.shape == (n_steps, B, T, F)
+              and dict(cli_counts) == want and len(sampled_s) == 1
+              and "decomposed individual prompts" in said
+              and ("(skipped video render" in said or "influence plot:" in said))
+        readings["dpmpp"] = {"s_per_request": sampled_s[0] if sampled_s else None,
+                             "cli_wall_s": t_cli, "launches": sum(cli_counts.values()),
+                             "B": B, "T": T, "steps": n_steps}
+        print(f"   (b) infer-mixermdm, DPM-Solver++ {DPM_STEPS} skip {DPM_SKIP} (B={B}, T={T}): "
+              f"output {motions.shape}, max |out| {float(np.abs(motions).max()):.4g}, influence "
+              f"{infl.shape}; {t_cli:.1f} s for the CLI, {sampled_s[0] if sampled_s else '?'} s "
+              f"for the request (text + {n_steps} steps) on {card}; launches "
+              f"{sum(cli_counts.values())} = {n_steps} x {sum(step_counts.values())} (one W8A8 "
+              f"step) + {sum(text_counts.values())} (text): "
+              f"{'ok' if dict(cli_counts) == want else 'FAIL'}", flush=True)
+        if not ok:
+            raise SmokeFailure(f"the CLI's DPM-Solver++ run: counts {dict(cli_counts)} vs "
+                               f"{want}, or its output is wrong")
+
+        # (c) one DPM-Solver++ step, kernels vs plain, at phase 4's input:
+        # its latents (seed + 1) and conds at t = 979, which is step j = 1 (a
+        # multistep step, c2 > 0) of the 1000-step chain entered at chain
+        # index 980 (19 steps skipped), with the root trajectory pinned.
+        # Held as phase 4 holds its step, on STEP_TOL and on the witness
+        # against an f32 twin: the step's x0 (the CFG mixer step's raw
+        # output, and its split into the two model spaces) and each stream's
+        # update, sig_ratio * pinned latent - next latent = alp_next * phi *
+        # D, which is where the x0 enters the next latents.
+        s = named_schedule(system.cfg.BETA_SCHEDULER, int(system.cfg.DIFFUSION_STEPS),
+                           device="cuda")
+        n_eff, j = 981, 1
+        coefs = dpmpp_coefficients(s, n_eff)
+        if int(s.timestep_map[n_eff - 1 - j]) != int(t[0]):
+            raise SmokeFailure("phase 5b (c) does not sit at phase 4's timestep")
+        x4 = torch.randn(B, T, 2 * F, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+        prev = torch.randn(B, T, 2 * F, generator=gen, device="cuda")
+        ctl = torch.randn(B, T, 2 * F, generator=gen, device="cuda")
+        pinned = _apply_traj_control(x4, ctl)
+
+        def one_step(sys_):
+            raw = []
+
+            def mixer(a, b, tt, m, c):
+                raw.append(sys_.cfg_mixer_step(a, b, tt, c, m))
+                return raw[-1]
+
+            with torch.inference_mode():
+                nxt, nxt2, x0, x02 = dpmpp_step(
+                    mixer, s, coefs, j, x4, x4, prev, prev, cond, normalizer1=sys_.normalizer1,
+                    normalizer2=sys_.normalizer2, align=sys_.align, nfeats=F, traj_control=ctl)
+                return {"x0, raw (the CFG mixer step)": raw[0], "x0, model-1 space": x0,
+                        "x0, model-2 space": x02,
+                        "update, model-1 space": coefs[0][j] * pinned - nxt,
+                        "update, model-2 space": coefs[0][j] * pinned - nxt2}
+
+        twin = copy.deepcopy(system).cast_(None)
+        with _quant(system, True):
+            got = one_step(system)
+            with ops.plain_versions():
+                plain = one_step(system)
+                f32 = one_step(twin)
+        del twin
+        torch.cuda.empty_cache()
+        name = "one DPM-Solver++ step with trajectory control, W8A8"
+        for what in got:
+            _agree(f"{name}: {what}", got[what], plain[what], STEP_TOL, "fro")
+            gap_p = _agree(f"{name}: {what}", plain[what], f32[what], None, "fro",
+                           "plain W8A8 vs f32")
+            _agree(f"{name}: {what}", got[what], f32[what], WITNESS_RATIO * gap_p, "fro",
+                   f"kernels vs f32 (at most {WITNESS_RATIO} x plain W8A8 vs f32)")
+
+        # (d) serve at B 10, T 299, DDIM-50, W8A8
+        t0 = time.time()
+        server, batcher, state = serve.make_server(
+            ["--batch-size", str(SERVE_B), "--window", str(T), "--port", "0",
+             "--seed", str(seed + 13), "--checkpoint", files[0], "--ckpt-individual", files[1],
+             "--ckpt-interaction", files[2]])
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            print(f"   (d) serve up and warm in {time.time() - t0:.1f} s (B={SERVE_B}, T={T}, "
+                  f"{state['system'].sample_schedule.num_timesteps} {state['system'].sampler_type}"
+                  f" steps, QUANT_FROZEN {state['system'].quant_frozen})", flush=True)
+            code, health = _request(url + "/healthz")
+            if code != 200 or not health.get("warm"):
+                raise SmokeFailure(f"/healthz after start-up: {code} {health}")
+            body = {"text_interaction": PROMPTS[0][0], "text_individual1": PROMPTS[0][1],
+                    "text_individual2": PROMPTS[0][2], "num_samples": 3, "seed": 11}
+            latencies = []
+            answers = []
+            for _ in range(2):
+                ops.reset_launch_counts()
+                t1 = time.time()
+                code, resp = _request(url + "/generate", body)
+                latencies.append(time.time() - t1)
+                if code != 200:
+                    raise SmokeFailure(f"seeded request: {code} {resp}")
+                answers.append(resp["motion_npy_b64"])
+                print(f"   (d) seeded request (3 rows, seed 11): {code}, {latencies[-1]:.3f} s "
+                      f"at the client, {resp['latency_s']} s in the server", flush=True)
+            serve_launches = sum(ops.launches.values())
+            srv = state["system"]
+            padded = {k: [body[k]] * SERVE_B for k in serve.TEXT_KEYS}
+            direct = srv.sample(srv.generate_cond(padded), T,
+                                generator=torch.Generator(device="cuda").manual_seed(11))
+            got = np.load(io.BytesIO(base64.b64decode(answers[0])))
+            same = answers[0] == answers[1]
+            equal = bool(np.array_equal(got, direct[:3].float().cpu().numpy()))
+            print(f"   (d) the two answers identical bytes: {'ok' if same else 'FAIL'}; equal to "
+                  f"sample() on the padded batch: {'ok' if equal else 'FAIL'}", flush=True)
+            if not (same and equal):
+                raise SmokeFailure("a seeded request is not reproducible")
+            # Three unseeded requests of 3 rows queue behind a seeded one and
+            # go out as one dispatch.
+            before = batcher.batches
+            results = {}
+
+            def post(i, b):
+                t1 = time.time()
+                results[i] = (_request(url + "/generate", b), time.time() - t1)
+
+            blocker = threading.Thread(target=post, args=("seeded", body))
+            blocker.start()
+            time.sleep(0.3)
+            unseeded = {k: v for k, v in body.items() if k != "seed"}
+            threads = [threading.Thread(target=post, args=(i, unseeded)) for i in range(3)]
+            for th in threads:
+                th.start()
+            for th in [blocker] + threads:
+                th.join(timeout=300)
+            codes = {i: r[0][0] for i, r in results.items()}
+            seeds = {r[0][1].get("seed") for i, r in results.items() if i != "seeded"}
+            dispatches = batcher.batches - before
+            for i, ((code, resp), dt) in sorted(results.items(), key=str):
+                print(f"   (d) {'seeded' if i == 'seeded' else 'unseeded'} request {i}: {code}, "
+                      f"{dt:.3f} s at the client, dispatch seed {resp.get('seed')}", flush=True)
+            print(f"   (d) dispatches for the seeded + 3 unseeded requests: {dispatches} "
+                  f"(want 2), one dispatch seed among the unseeded: {len(seeds) == 1}",
+                  flush=True)
+            if set(codes.values()) != {200} or dispatches != 2 or len(seeds) != 1:
+                raise SmokeFailure(f"the unseeded requests did not coalesce: {codes}, "
+                                   f"{dispatches} dispatches, seeds {seeds}")
+            code, resp = _request(url + "/generate", {"text_interaction": "no other texts"})
+            print(f"   (d) malformed request: {code} ({resp.get('error', '')[:60]})", flush=True)
+            if code != 400:
+                raise SmokeFailure(f"a malformed request got {code}")
+            code, health = _request(url + "/healthz")
+            print(f"   (d) /healthz: {json.dumps(health)}; on {card}", flush=True)
+            readings["serve"] = {"s_per_request": latencies, "launches": serve_launches,
+                                 "B": SERVE_B, "T": T, "dispatches": health["batches"]}
+        finally:
+            server.shutdown()
+            server.server_close()
+            batcher.stop()
+            del state
+            torch.cuda.empty_cache()
+    return readings
+
+
+# --------------------------------------------------------------------------
 # Phase 6: adversarial training at full width
 # --------------------------------------------------------------------------
 
@@ -1880,6 +2222,11 @@ def main(argv=None):
 
     t0 = phase("5. sampling main paths (text + DDIM-50, W8A8 and bf16), counted")
     counts = sample_main_paths(system, batch, args.seed)
+    done(t0)
+
+    t0 = phase("5b. the inference surface at full width: released files, infer-mixermdm "
+               "(DPM-Solver++, trajectory control, warm start), serve")
+    surface = surface_phase(system, args.seed, card)
     del system
     torch.cuda.empty_cache()
     done(t0)
@@ -1896,7 +2243,8 @@ def main(argv=None):
     if missing:
         raise SmokeFailure("not launched in the main path: " + ", ".join(missing))
     done(t0)
-    print(f"   total seconds: {time.time() - t_start:.1f}", flush=True)
+    print(f"   inference surface (phase 5b): {json.dumps(surface)}", flush=True)
+    print(f"   total seconds: {time.time() - t_start:.1f} (BUDGET_S {BUDGET_S})", flush=True)
     print(card)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,7 @@ import sys
 COMMANDS = {
     "infer-mixermdm": ("mixermdm_tpu_torch.cli.infer_mixermdm", "MixerMDM inference"),
     "train-mixermdm": ("mixermdm_tpu_torch.cli.train_mixermdm", "MixerMDM adversarial training"),
+    "serve": ("mixermdm_tpu_torch.cli.serve", "HTTP generation server (continuous batching)"),
 }
 
 

@@ -1,16 +1,17 @@
-"""Dual-stream MixerMDM DDIM chain and adversarial training losses;
-counterpart of ``mixermdm_tpu/diffusion/mixer_diffusion.py:center_person``,
-``process_xstart_dual``, ``ddim_sample_loop_x2`` and
-``mixer_training_losses`` (reference gaussian_diffusion.py:1465-1965,
+"""Dual-stream MixerMDM sampling chains (DDIM and DPM-Solver++) and the
+adversarial training losses; counterpart of
+``mixermdm_tpu/diffusion/mixer_diffusion.py:center_person``,
+``process_xstart_dual``, ``ddim_sample_loop_x2``, ``dpmpp_sample_loop_x2``
+and ``mixer_training_losses`` (reference gaussian_diffusion.py:1465-1965,
 2031-2062).
 
 Two latents go through the chain: ``img`` in model-1 space (per-person
 centred, HumanML3D-normalised) and ``img2`` in model-2 space (InterHuman-
 normalised).  The JAX package compiles the chain into one ``lax.scan``; here
-it is a Python loop whose step body reads the schedule by device gathers and
-makes no host sync.  The last step's branch (``t0 == 0``: no re-
-normalisation, so the chain returns raw motion) is decided on the host from
-the loop index.
+it is a Python loop whose step body reads the schedule (and the DPM-Solver++
+coefficients) by device gathers and makes no host sync.  The last step's
+branch (``t0 == 0``: no re-normalisation, so the chain returns raw motion)
+is decided on the host from the loop index.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 
 from ..utils.alignment import center_person_fast
 from ..utils.normalizer import Normalizer
-from .gaussian import extract, predict_eps_from_xstart, q_sample
+from .gaussian import _apply_traj_control, dpmpp_coefficients, extract, \
+    predict_eps_from_xstart, q_sample
 from .schedule import DiffusionSchedule
 
 
@@ -46,12 +48,61 @@ def process_xstart_dual(mixed: torch.Tensor, last_step: bool, normalizer1: Norma
     return torch.cat([ab[:B], ab[B:]], dim=-1), x2
 
 
+def _initial_latents(s: DiffusionSchedule, shape: tuple, device, n_eff: int,
+                     noise: Optional[torch.Tensor], generator: Optional[torch.Generator],
+                     skip_timesteps: int, init_image: Optional[torch.Tensor]) -> torch.Tensor:
+    """The chain's starting latent, shared by both streams: ``noise`` or a
+    draw from ``generator``; for a warm start (``skip_timesteps`` or
+    ``init_image``), ``init_image`` (zeros if not given) q-sampled to the
+    first remaining timestep ``n_eff - 1`` with that same draw as its noise
+    (reference :1031-1038, :1854-1860)."""
+    img = noise if noise is not None else torch.randn(shape, generator=generator, device=device)
+    img = img.to(device=device, dtype=torch.float32)
+    if skip_timesteps and init_image is None:
+        init_image = torch.zeros(shape, device=device)
+    if init_image is not None:
+        t0 = torch.full((shape[0],), n_eff - 1, dtype=torch.long, device=device)
+        img = q_sample(s, init_image.to(device=device, dtype=torch.float32), t0, img)
+    return img
+
+
+def _mixed_x0(mixer_fn: Callable, s: DiffusionSchedule, img, img2, i: int, mask, cond,
+              traj_control, collect_influence: bool, infl_hist: list, normalizer1, normalizer2,
+              align: bool, nfeats: int):
+    """One step's model call at chain index ``i``: pin the trajectory of
+    both latents (``traj_control``), run the mixer, split its raw-space x0
+    into the two model spaces.  Returns ``(img, img2, t, pred_x, pred_x2)``
+    with the pinned latents and the (B,) timestep."""
+    B = img.shape[0]
+    t = torch.full((B,), i, dtype=torch.long, device=img.device)
+    t_orig = s.timestep_map[t]
+    if traj_control is not None:
+        img = _apply_traj_control(img, traj_control)
+        img2 = _apply_traj_control(img2, traj_control)
+    if collect_influence:
+        mixed, infl = mixer_fn(img, img2, t_orig, mask, cond)
+        infl_hist.append(infl)
+    else:
+        mixed = mixer_fn(img, img2, t_orig, mask, cond)
+    pred_x, pred_x2 = process_xstart_dual(mixed, i == 0, normalizer1, normalizer2, align, nfeats)
+    return img, img2, t, pred_x, pred_x2
+
+
+def _chain_result(pred_x2, infl_hist: list, collect_influence: bool):
+    if collect_influence:
+        return pred_x2, (torch.stack([h[0] for h in infl_hist]),
+                         torch.stack([h[1] for h in infl_hist]))
+    return pred_x2
+
+
 def ddim_sample_loop_x2(mixer_fn: Callable, s: DiffusionSchedule, shape: tuple,
                         cond: torch.Tensor, *, mask: Optional[torch.Tensor] = None,
                         normalizer1: Normalizer, normalizer2: Normalizer, align: bool = True,
                         noise: Optional[torch.Tensor] = None,
                         generator: Optional[torch.Generator] = None, nfeats: int = 262,
-                        collect_influence: bool = False):
+                        collect_influence: bool = False,
+                        traj_control: Optional[torch.Tensor] = None, skip_timesteps: int = 0,
+                        init_image: Optional[torch.Tensor] = None):
     """Deterministic (eta = 0) dual-stream DDIM chain.
 
     ``mixer_fn(x, x2, t_orig, mask, cond)`` is typically the CFG-wrapped
@@ -60,34 +111,86 @@ def ddim_sample_loop_x2(mixer_fn: Callable, s: DiffusionSchedule, shape: tuple,
     ``noise`` or a draw from ``generator``; eta = 0 draws nothing else.
     Returns the final ``pred_xstart2`` (raw motion), and with
     ``collect_influence`` the per-step influences stacked on a leading axis.
+
+    ``traj_control`` (the reference's ``x_start``, :1874-1882) pins the root
+    trajectory dims [0, 2] and [262, 264] of both streams before every
+    step.  ``skip_timesteps`` / ``init_image`` warm-start the chain: it
+    starts at chain index ``num_timesteps - skip_timesteps - 1`` from the
+    init image q-sampled there (see :func:`_initial_latents`).
     """
     device = cond.device
-    img = noise if noise is not None else torch.randn(shape, generator=generator, device=device)
-    img = img.to(device=device, dtype=torch.float32)
+    n_eff = s.num_timesteps - int(skip_timesteps)
+    img = _initial_latents(s, shape, device, n_eff, noise, generator, skip_timesteps,
+                           init_image)
     img2 = img
-    B, nd = shape[0], len(shape)
+    nd = len(shape)
     infl_hist = []
     pred_x2 = None
-    for i in reversed(range(s.num_timesteps)):
-        t = torch.full((B,), i, dtype=torch.long, device=device)
-        t_orig = s.timestep_map[t]
-        if collect_influence:
-            mixed, infl = mixer_fn(img, img2, t_orig, mask, cond)
-            infl_hist.append(infl)
-        else:
-            mixed = mixer_fn(img, img2, t_orig, mask, cond)
-        pred_x, pred_x2 = process_xstart_dual(mixed, i == 0, normalizer1, normalizer2, align,
-                                              nfeats)
+    for i in reversed(range(n_eff)):
+        img, img2, t, pred_x, pred_x2 = _mixed_x0(
+            mixer_fn, s, img, img2, i, mask, cond, traj_control, collect_influence, infl_hist,
+            normalizer1, normalizer2, align, nfeats)
         eps = predict_eps_from_xstart(s, img, t, pred_x)
         eps2 = predict_eps_from_xstart(s, img2, t, pred_x2)
         alpha_bar_prev = extract(s.alphas_cumprod_prev, t, nd)
         coef = torch.sqrt(1 - alpha_bar_prev)
         img = pred_x * torch.sqrt(alpha_bar_prev) + coef * eps
         img2 = pred_x2 * torch.sqrt(alpha_bar_prev) + coef * eps2
-    if collect_influence:
-        return pred_x2, (torch.stack([h[0] for h in infl_hist]),
-                         torch.stack([h[1] for h in infl_hist]))
-    return pred_x2
+    return _chain_result(pred_x2, infl_hist, collect_influence)
+
+
+def dpmpp_step(mixer_fn: Callable, s: DiffusionSchedule, coefs: tuple, j: int, img, img2,
+               prev_x, prev_x2, cond: torch.Tensor, *, mask: Optional[torch.Tensor] = None,
+               normalizer1: Normalizer, normalizer2: Normalizer, align: bool = True,
+               nfeats: int = 262, traj_control: Optional[torch.Tensor] = None,
+               infl_hist: Optional[list] = None):
+    """Step ``j`` of a DPM-Solver++(2M) chain whose coefficient tables
+    (:func:`..gaussian.dpmpp_coefficients`) are ``coefs``: chain index
+    ``i = len - 1 - j``, the model's x0 of this step and ``prev_x`` /
+    ``prev_x2`` of the last one.  Returns ``(img, img2, pred_x, pred_x2)``:
+    the next latents and this step's x0 (``pred_x2`` raw motion at
+    ``i == 0``).  With ``infl_hist`` the step's influences are appended."""
+    sig_ratio, alp_next, phi, c2 = coefs
+    i = sig_ratio.shape[0] - 1 - j
+    img, img2, _, pred_x, pred_x2 = _mixed_x0(
+        mixer_fn, s, img, img2, i, mask, cond, traj_control, infl_hist is not None, infl_hist,
+        normalizer1, normalizer2, align, nfeats)
+    d = (1.0 + c2[j]) * pred_x - c2[j] * prev_x
+    d2 = (1.0 + c2[j]) * pred_x2 - c2[j] * prev_x2
+    return (sig_ratio[j] * img - alp_next[j] * phi[j] * d,
+            sig_ratio[j] * img2 - alp_next[j] * phi[j] * d2, pred_x, pred_x2)
+
+
+def dpmpp_sample_loop_x2(mixer_fn: Callable, s: DiffusionSchedule, shape: tuple,
+                         cond: torch.Tensor, *, mask: Optional[torch.Tensor] = None,
+                         normalizer1: Normalizer, normalizer2: Normalizer, align: bool = True,
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None, nfeats: int = 262,
+                         collect_influence: bool = False,
+                         traj_control: Optional[torch.Tensor] = None, skip_timesteps: int = 0,
+                         init_image: Optional[torch.Tensor] = None):
+    """Dual-stream DPM-Solver++(2M) chain (JAX ``dpmpp_sample_loop_x2``): the
+    model surface, the per-step trajectory pinning and ``process_xstart_dual``
+    of :func:`ddim_sample_loop_x2`, with the second-order multistep update
+    of :func:`..gaussian.dpmpp_coefficients` (first order at the first and
+    the last step), one :func:`dpmpp_step` per step.  Both streams are one
+    joint ODE and share the coefficients, which live on the device and are
+    read by index, so a step makes no host sync.  Deterministic:
+    ``generator`` is read only for the initial draw.  ``skip_timesteps`` /
+    ``init_image`` warm-start both streams as in the DDIM chain."""
+    device = cond.device
+    n = s.num_timesteps - int(skip_timesteps)
+    img = _initial_latents(s, shape, device, n, noise, generator, skip_timesteps, init_image)
+    img2 = img
+    coefs = dpmpp_coefficients(s, n)
+    pred_x, pred_x2 = torch.zeros_like(img), torch.zeros_like(img)
+    infl_hist = [] if collect_influence else None
+    for j in range(n):
+        img, img2, pred_x, pred_x2 = dpmpp_step(
+            mixer_fn, s, coefs, j, img, img2, pred_x, pred_x2, cond, mask=mask,
+            normalizer1=normalizer1, normalizer2=normalizer2, align=align, nfeats=nfeats,
+            traj_control=traj_control, infl_hist=infl_hist)
+    return _chain_result(pred_x2, infl_hist, collect_influence)
 
 
 # ---------------------------------------------------------------------------

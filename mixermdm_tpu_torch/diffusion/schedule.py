@@ -66,6 +66,7 @@ class DiffusionSchedule(NamedTuple):
     the model."""
 
     betas: torch.Tensor
+    alphas_cumprod: torch.Tensor                # DPM-Solver++ coefficients
     alphas_cumprod_prev: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
@@ -102,6 +103,7 @@ def make_schedule(betas: np.ndarray, use_timesteps: Sequence[int] | None = None,
 
     return DiffusionSchedule(
         betas=arr(betas),
+        alphas_cumprod=arr(alphas_cumprod),
         alphas_cumprod_prev=arr(alphas_cumprod_prev),
         sqrt_recip_alphas_cumprod=arr(np.sqrt(1.0 / alphas_cumprod)),
         sqrt_recipm1_alphas_cumprod=arr(np.sqrt(1.0 / alphas_cumprod - 1.0)),

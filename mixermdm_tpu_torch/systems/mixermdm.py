@@ -32,7 +32,11 @@ eval mode; the trainer turns on the side it trains.  Built with
 ``disc_i``, ``disc_I``) keep f32 master weights, cast to the compute dtype
 per forward as the JAX package casts their inputs.
 
-Not ported yet: the DPM-Solver++ sampler, trajectory control / warm start.
+Sampling runs the DDIM chain or DPM-Solver++(2M) (``sampler_type``, from the
+config's ``SAMPLER_TYPE`` / ``STRATEGY: dpmppN``, or
+:func:`..systems.apply_sampler_overrides`), with trajectory control and warm
+start (``traj_control``, ``skip_timesteps``, ``init_image``).  Released
+checkpoints load through :func:`..train.checkpoint.load_released_mixermdm`.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ import torch
 from torch import nn
 
 from ..config import MIXERMDM_DEFAULT, Config
-from ..diffusion.mixer_diffusion import ddim_sample_loop_x2, mixer_training_losses
+from ..diffusion.mixer_diffusion import ddim_sample_loop_x2, dpmpp_sample_loop_x2, \
+    mixer_training_losses
 from ..diffusion.samplers import named_schedule_sampler
 from ..diffusion.schedule import named_schedule, resolve_sampler_strategy
 from ..models.cfg import cfg_model_x2
@@ -98,9 +103,7 @@ class MixerMDMSystem(nn.Module):
         self.quant_frozen = bool(self.cfg.get("QUANT_FROZEN", False))
         self.quant_train = bool(self.cfg.get("QUANT_TRAIN", False))
 
-        sampler_type, strategy = resolve_sampler_strategy(self.cfg)
-        if sampler_type != "ddim":
-            raise NotImplementedError(f"sampler {sampler_type!r} is not ported yet (ddim is)")
+        self.sampler_type, strategy = resolve_sampler_strategy(self.cfg)
 
         with torch.device(device):
             self.model1 = (model1 if model1 is not None
@@ -276,21 +279,48 @@ class MixerMDMSystem(nn.Module):
     def sample(self, cond: torch.Tensor, n_frames: int, *,
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None, collect_influence: bool = False,
-               force_influence_val=_FIV_FROM_CONFIG):
-        """Full dual-stream CFG DDIM chain (reference mixermdm.py:490-548).
+               force_influence_val=_FIV_FROM_CONFIG, traj_control=None,
+               skip_timesteps: int = 0, init_image=None):
+        """Full dual-stream CFG chain (reference mixermdm.py:490-548), DDIM
+        or DPM-Solver++ by :attr:`sampler_type`.
 
         Returns raw motion (B, n_frames, 2 * 262) f32; with
         ``collect_influence`` also the per-step (infl1, infl2) histories.
         The initial noise is ``noise`` or a draw from ``generator``.
+        ``traj_control`` (B, n_frames, 524), in model-2 (InterHuman-
+        normalised) space, pins the root trajectory of both streams every
+        step; ``skip_timesteps`` drops the first steps of the chain and
+        ``init_image`` (same space and shape; zeros if not given) is its
+        warm start.
         """
         fiv = (self.force_influence_val if force_influence_val is MixerMDMSystem._FIV_FROM_CONFIG
                else force_influence_val)
-        cond = cond.to(self.device, torch.float32)
+        dev = self.device
+        cond = cond.to(dev, torch.float32)
+        as_f32 = lambda a: None if a is None else torch.as_tensor(a).to(dev, torch.float32)  # noqa: E731
         model = cfg_model_x2(self._mixer_eval(fiv, collect_influence), self.cfg_weight,
                              with_influence=collect_influence)
+        loop = dpmpp_sample_loop_x2 if self.sampler_type == "dpmpp" else ddim_sample_loop_x2
         with w8a8_scope(self.quant_frozen):
-            return ddim_sample_loop_x2(
+            return loop(
                 model, self.sample_schedule, (cond.shape[0], n_frames, self.nfeats * 2), cond,
                 normalizer1=self.normalizer1, normalizer2=self.normalizer2, align=self.align,
                 noise=noise, generator=generator, nfeats=self.nfeats,
-                collect_influence=collect_influence)
+                collect_influence=collect_influence, traj_control=as_f32(traj_control),
+                skip_timesteps=int(skip_timesteps), init_image=as_f32(init_image))
+
+    def forward(self, batch: dict, generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> dict:
+        """Text encoding + sampling with the influence histories, at
+        ``batch["motion_lens"][0]`` frames (JAX ``forward``, reference
+        mixermdm.py:490)."""
+        cond = self.generate_cond(batch)
+        out, infl = self.sample(cond, int(batch["motion_lens"][0]), generator=generator,
+                                noise=noise, collect_influence=True)
+        return {"output": out, "influence_i1": infl[0], "influence_i2": infl[1]}
+
+    def forward_test(self, batch: dict, generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sampling only (JAX ``forward_test``, reference mixermdm.py:550-602)."""
+        cond = self.generate_cond(batch)
+        return self.sample(cond, int(batch["motion_lens"][0]), generator=generator, noise=noise)

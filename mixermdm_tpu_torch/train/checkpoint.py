@@ -1,0 +1,130 @@
+"""Released checkpoints into the port's MixerMDMSystem; counterpart of
+``mixermdm_tpu/train/checkpoint.py`` (``load_torch_state_dict``,
+``convert_in2in_system``, ``convert_mixermdm_system``) and of
+``mixermdm_tpu/cli/convert.py --family mixermdm`` (the shape-checked merge
+and the list of leaves no file filled).
+
+The reference releases a MixerMDM as three PyTorch files:
+
+* ``MixerMDM.ckpt``: the mixer core (``mixing.``), both discriminators and
+  the mixer's own post-encoder head (``clipTransEncoder.`` / ``clip_ln.``);
+  the frozen submodels are dropped at save;
+* the individual and the interaction in2IN checkpoints: the denoiser
+  (``decoder.net_<mode>.``) and its head (``clipTransEncoder_<mode>.`` /
+  ``clip_ln_<mode>.``).
+
+Any of the three may hold a CLIP tower (``token_embedding``,
+``clip_transformer.resblocks``, ...).  The port's system holds three text
+pipelines, each with its own tower (``MixerMDMSystem.text_pipelines``), and
+each file's tower goes where the JAX converters put it: the individual
+file's into ``model1``, the interaction file's into ``model2``, the mixer
+file's into the mixer's own ``text``.  A tower that no file holds keeps its
+values and is listed as unfilled.
+
+The JAX package's ``--checkpoint`` is an orbax directory, which the port
+cannot read: a JAX-trained system reaches the port as torch-named files,
+written by ``export_mixermdm_system`` / ``export_in2in_system``.  The port
+writes the same three files with :func:`..weights.released_mixermdm_state_dict`
+and :func:`..weights.released_in2in_state_dict`.
+"""
+
+from __future__ import annotations
+
+import pickle
+import sys
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..weights import MIXER_RENAMES, in2in_renames, rename, without_individual_cross_attention
+
+
+# What a pickled numpy array needs beside tensors: ``torch.save`` of the JAX
+# exporters' dicts of numpy arrays reads under ``weights_only`` with these.
+_NUMPY_GLOBALS = [np.ndarray.__reduce__(np.zeros(0))[0], np.ndarray, np.dtype] + [
+    type(np.dtype(c)) for c in "?" + np.typecodes["AllInteger"] + np.typecodes["AllFloat"]]
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint file as a flat dict of CPU tensors: a Lightning
+    checkpoint's ``state_dict`` unwrapped, and the reference's ``model.``
+    prefix stripped (JAX ``load_torch_state_dict``).  The file is read with
+    ``weights_only=True``, which admits tensors, numpy arrays and plain
+    containers.  A file that pickles other objects beside them, as a
+    Lightning ``.ckpt`` may (its hyper-parameters, loop state), is read in
+    full, as the JAX package reads every file, and that is printed: a full
+    read runs whatever code the file holds, so load only files you trust."""
+    try:
+        with torch.serialization.safe_globals(_NUMPY_GLOBALS):
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        print(f"{path}: pickles objects other than tensors and arrays; reading it in full "
+              f"(weights_only=False), which runs any code the file holds", file=sys.stderr)
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    out = {}
+    for key, value in sd.items():
+        if key.startswith("model."):
+            key = key[len("model."):]
+        out[key] = value.detach() if torch.is_tensor(value) else torch.from_numpy(
+            np.ascontiguousarray(value))
+    return out
+
+
+def released_entries(ckpt: Optional[str] = None, ckpt_individual: Optional[str] = None,
+                     ckpt_interaction: Optional[str] = None) -> Dict[str, tuple]:
+    """``{module path: (file, tensor)}`` of the given released files, keys
+    mapped onto a MixerMDMSystem (``MIXER_RENAMES``; ``in2in_renames`` under
+    ``model1.`` / ``model2.``).  A key with no module path is an error.  The
+    individual file's cross-attention, which the individual denoiser does
+    not have, is left out (as ``weights.load_denoiser_params`` leaves it
+    out)."""
+    entries: Dict[str, tuple] = {}
+    if ckpt is not None:
+        for key, value in rename(load_torch_state_dict(ckpt), MIXER_RENAMES).items():
+            entries[key] = (ckpt, value)
+    for path, name, mode in ((ckpt_individual, "model1", "individual"),
+                             (ckpt_interaction, "model2", "interaction")):
+        if path is None:
+            continue
+        sd = load_torch_state_dict(path)
+        if mode == "individual":
+            sd = without_individual_cross_attention(sd, "decoder.net_individual.")
+        for key, value in rename(sd, in2in_renames(mode)).items():
+            entries[f"{name}.{key}"] = (path, value)
+    return entries
+
+
+@torch.no_grad()
+def load_released_mixermdm(system: nn.Module, ckpt: Optional[str] = None,
+                           ckpt_individual: Optional[str] = None,
+                           ckpt_interaction: Optional[str] = None,
+                           strict: bool = False) -> List[str]:
+    """Load the released files (``ckpt``: ``MixerMDM.ckpt``; the two in2IN
+    checkpoints) into ``system``, a
+    :class:`~mixermdm_tpu_torch.systems.mixermdm.MixerMDMSystem`.
+
+    Every entry is checked against its parameter's shape first (a key that
+    the system lacks is a ``KeyError``, a shape that differs a
+    ``ValueError``), then copied in place into the parameter's dtype and
+    device.  Returns the parameter paths that no file filled; with
+    ``strict`` those raise a ``ValueError`` before anything is copied.
+    The copy moves each weight's version, so the int8 weights of the W8A8
+    blocks quantise again from the loaded values at their next call."""
+    entries = released_entries(ckpt, ckpt_individual, ckpt_interaction)
+    params = dict(system.named_parameters())
+    for key, (path, value) in entries.items():
+        if key not in params:
+            raise KeyError(f"{path}: {key!r} is not a parameter of the system")
+        if tuple(value.shape) != tuple(params[key].shape):
+            raise ValueError(f"{path}: shape mismatch at {key}: checkpoint "
+                             f"{tuple(value.shape)} vs model {tuple(params[key].shape)}")
+    unfilled = sorted(set(params) - set(entries))
+    if strict and unfilled:
+        raise ValueError(f"strict: {len(unfilled)} parameters are in no checkpoint file "
+                         f"(first 10): {', '.join(unfilled[:10])}")
+    for key, (_, value) in entries.items():
+        params[key].copy_(value)
+    return unfilled

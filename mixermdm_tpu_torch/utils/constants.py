@@ -20,5 +20,14 @@ FACE_JOINT_INDX = (2, 1, 17, 16)
 FID_R = (8, 11)
 FID_L = (7, 10)
 
+# HumanML3D kinematic chains (the skeleton the plots draw).
+HML_KINEMATIC_CHAIN = (
+    (0, 2, 5, 8, 11),
+    (0, 1, 4, 7, 10),
+    (0, 3, 6, 9, 12, 15),
+    (9, 14, 17, 19, 21),
+    (9, 13, 16, 18, 20),
+)
+
 # Default sampling window.
 INFER_WINDOW = 299

@@ -7,9 +7,11 @@ The conversion is this package's own copy of the mapping in
 numpy arrays in the flax layout becomes a flat state dict with the reference
 PyTorch repository's key names, which :func:`load_mixermdm_params` renames
 onto this package's modules and loads strictly.  The way back,
-:func:`released_mixermdm_state_dict`, writes a system's trained parts in the
-released ``MixerMDM.ckpt`` layout (the keys ``export_mixermdm_system``
-writes), which the JAX package's ``convert_mixermdm_system`` reads.
+:func:`released_mixermdm_state_dict` and :func:`released_in2in_state_dict`,
+writes a system in the three released files' layout (the keys
+``export_mixermdm_system`` and ``export_in2in_system`` write), which the JAX
+package's ``convert_mixermdm_system`` / ``convert_in2in_system`` and this
+package's :func:`..train.checkpoint.load_released_mixermdm` read.
 """
 
 from __future__ import annotations
@@ -310,19 +312,51 @@ def mixermdm_state_dict(params: Mapping) -> StateDict:
     return sd
 
 
-def released_mixermdm_state_dict(system: nn.Module) -> Dict[str, torch.Tensor]:
-    """A MixerMDMSystem's trained parts in the released ``MixerMDM.ckpt``
-    layout: mixer core (``mixing.``), discriminators, the mixer's
-    post-encoder head (``clipTransEncoder.`` / ``clip_ln.``) and its CLIP
-    tower, as f32 CPU tensors.  The frozen denoisers are left out, as the
-    released file leaves them out."""
+def _released(state_dict: Mapping[str, torch.Tensor], renames: tuple,
+              with_clip: bool) -> Dict[str, torch.Tensor]:
+    """The entries of a port state dict that ``renames`` maps, under their
+    released names, as f32 CPU tensors; ``with_clip=False`` leaves the CLIP
+    tower out."""
+    if not with_clip:
+        renames = renames[len(_CLIP_RENAMES):]
     out = {}
-    for key, value in system.state_dict().items():
-        for ref, port in MIXER_RENAMES:
+    for key, value in state_dict.items():
+        for ref, port in renames:
             if key.startswith(port):
                 out[ref + key[len(port):]] = value.detach().float().cpu()
                 break
     return out
+
+
+def released_mixermdm_state_dict(system: nn.Module,
+                                 with_clip: bool = True) -> Dict[str, torch.Tensor]:
+    """A MixerMDMSystem's trained parts in the released ``MixerMDM.ckpt``
+    layout: mixer core (``mixing.``), discriminators, the mixer's
+    post-encoder head (``clipTransEncoder.`` / ``clip_ln.``) and its CLIP
+    tower (unless ``with_clip`` is off, as the released file drops it), as
+    f32 CPU tensors.  The frozen denoisers are left out, as the released
+    file leaves them out."""
+    return _released(system.state_dict(), MIXER_RENAMES, with_clip)
+
+
+def released_in2in_state_dict(in2in_system: nn.Module, mode: str,
+                              with_clip: bool = True) -> Dict[str, torch.Tensor]:
+    """An In2INSystem in the released in2IN layout, the keys the JAX
+    package's ``export_in2in_system`` writes: the denoiser under
+    ``decoder.net_<mode>.``, its post-encoder head as
+    ``clipTransEncoder_<mode>.`` / ``clip_ln_<mode>.``, and the CLIP tower at
+    top level (unless ``with_clip`` is off), as f32 CPU tensors.  With
+    :func:`released_mixermdm_state_dict` a MixerMDMSystem writes all three
+    released files (``system.model1`` individual, ``system.model2``
+    interaction)."""
+    return _released(in2in_system.state_dict(), in2in_renames(mode), with_clip)
+
+
+def without_individual_cross_attention(sd: Mapping, prefix: str = "") -> dict:
+    """An individual-mode denoiser has no cross-attention; trees converted
+    from reference checkpoints carry it all the same.  Drops the
+    ``.ca_block.`` entries of the keys under ``prefix``."""
+    return {k: v for k, v in sd.items() if not (k.startswith(prefix) and ".ca_block." in k)}
 
 
 def load_state_dict_np(module: nn.Module, sd: StateDict, strict: bool = True) -> nn.Module:
@@ -345,5 +379,5 @@ def load_denoiser_params(denoiser: nn.Module, params: Mapping) -> nn.Module:
     reference checkpoints carry it all the same, and it is left out."""
     sd = export_in2in_denoiser(params)
     if denoiser.mode == "individual":
-        sd = {k: v for k, v in sd.items() if ".ca_block." not in k}
+        sd = without_individual_cross_attention(sd)
     return load_state_dict_np(denoiser, sd)

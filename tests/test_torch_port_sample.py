@@ -218,11 +218,15 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     training CLI (``python -m mixermdm_tpu_torch train-mixermdm --tiny
     --device cpu --max-steps 2``).  The JAX package's ``scripts/`` is
     blocked too, and the port's copy of its kernel experiments
-    (``mixermdm_tpu_torch.scripts.exp_kernels``) runs its check on the CPU."""
+    (``mixermdm_tpu_torch.scripts.exp_kernels``) runs its check on the CPU.
+    The inference CLI also samples from a released-layout checkpoint triple
+    with DPM-Solver++, trajectory control, a warm start and decomposed
+    prompts (matplotlib blocked too, as on the card machine, so its plots
+    are skipped), and the server's module imports."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "yaml",
-                     "mixermdm_tpu", "scripts"):
+                     "mixermdm_tpu", "scripts", "matplotlib"):
             sys.modules[name] = None
         import mixermdm_tpu_torch
         mods = [m.name for m in pkgutil.walk_packages(mixermdm_tpu_torch.__path__,
@@ -239,6 +243,30 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
         infer_mixermdm.main(["--tiny", "--device", "cpu", "--name", "g", "--num-samples", "2",
                              "--out-dir", {str(tmp_path)!r}, "--text-interaction", "two hug",
                              "--text-individual1", "one hugs", "--text-individual2", "one hugs"])
+        # The inference surface: a released-layout checkpoint triple written by
+        # the port, DPM-Solver++, trajectory control and a warm start, and the
+        # individual prompts left to the decomposer; then the server's module.
+        import numpy as np
+        from mixermdm_tpu_torch.weights import released_in2in_state_dict, \
+            released_mixermdm_state_dict
+        src = infer_mixermdm.build_system(tiny=True, device="cpu", seed=3, zero_init_std=0.02)
+        ck = {str(tmp_path / "ck")!r}
+        import os
+        os.makedirs(ck, exist_ok=True)
+        torch.save({{"state_dict": released_mixermdm_state_dict(src, with_clip=False)}},
+                   ck + "/MixerMDM.ckpt")
+        torch.save(released_in2in_state_dict(src.model1, "individual"), ck + "/ind.pt")
+        torch.save(released_in2in_state_dict(src.model2, "interaction"), ck + "/inter.pt")
+        np.save(ck + "/motion.npy", np.random.default_rng(0).standard_normal((10, 524)))
+        infer_mixermdm.main(["--tiny", "--device", "cpu", "--name", "d", "--num-samples", "2",
+                             "--out-dir", {str(tmp_path)!r},
+                             "--text-interaction", "one person waves while the other person bows",
+                             "--sampler", "dpmpp", "--sample-steps", "4", "--skip-timesteps", "1",
+                             "--traj-control", ck + "/motion.npy", "--warm-start",
+                             ck + "/motion.npy", "--checkpoint", ck + "/MixerMDM.ckpt",
+                             "--ckpt-individual", ck + "/ind.pt", "--ckpt-interaction",
+                             ck + "/inter.pt"])
+        import mixermdm_tpu_torch.cli.serve
         import torch
         from mixermdm_tpu_torch.models import layers
         calls = []
@@ -275,6 +303,12 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     assert np.load(tmp_path / "g_influence_i1.npy").shape == (4, 2, 16, F)
     assert "training done: 2 steps" in res.stdout
     assert (tmp_path / "train" / "MixerMDM.ckpt").is_file()
+    motion = np.load(tmp_path / "d_motion.npy")
+    assert motion.shape == (2, 16, 2 * F) and np.isfinite(motion).all() and np.abs(motion).max() > 0
+    assert np.load(tmp_path / "d_influence_i2.npy").shape == (3, 2, 16, F)  # 4 steps, 1 skipped
+    assert "decomposed individual prompts" in res.stdout
+    assert "(skipped video render" in res.stdout  # no matplotlib, as on the card machine
+    assert "parameters keep their random values" in res.stdout  # the mixer file's tower
 
 
 @pytest.mark.parametrize("steps,respacing", [(1000, "ddim50"), (N_STEPS, "ddim5"),
