@@ -56,10 +56,21 @@ Phases, each printing its wall-clock seconds:
    ``serve`` answers in-process at B 10, T 299, DDIM-50, W8A8 (seeded
    requests reproducible and equal to a direct ``sample``, unseeded ones
    coalesced, malformed ones refused);
+5c. the base-model systems at full published width (in2IN interaction,
+   individual and DualMDM: 1024-d, 8 layers, 8 heads, FF 2048, ViT-L/14;
+   MDM: 512-d, 8 layers, 4 heads, FF 1024, ViT-B/32; InterGen: 1024-d, 8
+   layers, 8 heads, FF 2048): per family one network at the CFG batch and
+   two CFG steps against the plain versions (and f32), two W8A8 steps of
+   in2IN interaction; their released files written and loaded back bit for
+   bit; ``infer-in2in`` (three modes, B 2, T 210, DDIM-50, the dual run with
+   trajectory control and a warm start) and ``infer-mdm`` (B 2, T 196)
+   in-process on them, counted, no plain version chosen; one CFG mixer step
+   of ``build_mixer_system`` with MDM as MODEL1 and InterGen as MODEL2;
 6. adversarial training at full width (``configs/models/MixerMDM.yaml``,
    ``configs/train/MixerMDM.yaml``, B = 8, T = 300): the gradients of one G
    and one D step on the kernels against the plain versions (and against
-   f32), the training CLI (``cli/train_mixermdm``) for 4 fit steps on a
+   f32), all three gaps printed before any is held, the training CLI
+   (``cli/train_mixermdm``) for 4 fit steps on a
    synthetic InterHuman fixture with the launch counts of that run, the
    frozen networks bitwise unchanged, and seconds per fit step with the
    differentiated attention on the kernels and on the plain versions;
@@ -67,6 +78,9 @@ Phases, each printing its wall-clock seconds:
 
 Any failure exits nonzero and prints no result line.  The script imports
 nothing of JAX or of the JAX package.
+
+``python -m mixermdm_tpu_torch.scripts.grad_seeds`` runs phase 6's
+gradient check at several seeds, with a diagnosis of its gaps.
 """
 
 from __future__ import annotations
@@ -226,10 +240,11 @@ def kernel_checks(gen):
           flush=True)
 
     # --- attention kernel, through the fused_attention entry point ---------
-    def attn_case(name, B, H, Tq, Tk, D, zero_attn, causal=False, kpm_rows=(), tol=2e-2):
+    def attn_case(name, B, H, Tq, Tk, D, zero_attn, causal=False, kpm_rows=(), tol=2e-2,
+                  kpm_tail=False):
         q, k, v = rnd(B, H, Tq, D), rnd(B, H, Tk, D), rnd(B, H, Tk, D)
         kpm = None
-        if kpm_rows:
+        if kpm_rows or kpm_tail:
             kpm = torch.zeros(B, Tk, dtype=torch.bool, device=dev)
             kpm[:, Tk - Tk // 5:] = True          # padded tail
             for r in kpm_rows:
@@ -347,7 +362,7 @@ def kernel_checks(gen):
                      w2=rnd(E, F_, std=F_ ** -0.5), b2=rnd(E, std=0.1))
         return p
 
-    def sa_case(B, T, E, H, residual, kpm_tail=False):
+    def sa_case(B, T, E, H, residual, kpm_tail=False, label=""):
         x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
         p = block_params(E)
         kpm = None
@@ -358,13 +373,13 @@ def kernel_checks(gen):
         kw = dict(n_heads=H, residual=residual)
         n_bytes = 2 * (2 * B * T * E + 2 * B * E + 4 * E * E + 4 * E)
         flops = 2 * B * T * E * 4 * E + 4 * B * T * T * E
-        return compare(f"fused_sa_block E={E} T={T} residual={residual}",
+        return compare(f"fused_sa_block E={E} T={T} residual={residual}{label}",
                        lambda: ops.fused_sa_block(*args, **kw),
                        lambda: ops.fused_sa_block_plain(*args, **kw), 3e-2, n_bytes, flops,
                        kind="fused_sa_block", B=B, T=T, E=E, H=H, residual=residual,
                        key_padding=kpm_tail)
 
-    def ca_case(B, T, E, H, residual):
+    def ca_case(B, T, E, H, residual, label=""):
         x, xf = rnd(B, T, E), rnd(B, T, E)
         mods = [rnd(B, E, std=0.2) for _ in range(4)]
         p = block_params(E)
@@ -372,18 +387,18 @@ def kernel_checks(gen):
         kw = dict(n_heads=H, residual=residual)
         n_bytes = 2 * (3 * B * T * E + 4 * B * E + 4 * E * E + 4 * E)
         flops = 2 * B * T * E * 4 * E + 4 * B * T * T * E
-        return compare(f"fused_ca_block E={E} T={T} residual={residual}",
+        return compare(f"fused_ca_block E={E} T={T} residual={residual}{label}",
                        lambda: ops.fused_ca_block(*args, **kw),
                        lambda: ops.fused_ca_block_plain(*args, **kw), 3e-2, n_bytes, flops,
                        kind="fused_ca_block", B=B, T=T, E=E, H=H, residual=residual)
 
-    def ffn_case(B, T, E, F_, residual, modulate=True):
+    def ffn_case(B, T, E, F_, residual, modulate=True, label=""):
         x = rnd(B, T, E)
         sc, sh = (rnd(B, E, std=0.2), rnd(B, E, std=0.2)) if modulate else (None, None)
         p = block_params(E, F_)
         args = (x, sc, sh, p["w1"], p["b1"], p["w2"], p["b2"])
         n_bytes = 2 * (2 * B * T * E + (2 * B * E if modulate else 0) + 2 * E * F_ + F_ + E)
-        return compare(f"fused_ffn_block E={E} F={F_} residual={residual} adaln={modulate}",
+        return compare(f"fused_ffn_block E={E} F={F_} residual={residual} adaln={modulate}{label}",
                        lambda: ops.fused_ffn_block(*args, residual=residual),
                        lambda: ops.fused_ffn_block_plain(*args, residual=residual), 3e-2,
                        n_bytes, 4 * B * T * E * F_, kind="fused_ffn_block",
@@ -402,6 +417,33 @@ def kernel_checks(gen):
 
     results += q8_checks(gen, compare, block_params, rnd)
     results += train_kernel_checks(gen, compare)
+
+    # The base models' shapes (phase 5c), drawn after every earlier check so
+    # that those keep their inputs.  MDM's encoder: no zero-attn, D = 128,
+    # the cond token + 196 frames, B 2 with CFG, under a key mask (the
+    # kernel's softmax starts at (-inf, 0) here, not the zero key's (0, 1));
+    # the ViT-B/32 tower of MDM's text: causal, 8 heads of 64, 2 x B rows.
+    results.append(attn_case("attention MDM encoder D=128 kpm, no zero-attn", 4, 4, 197, 197,
+                             128, False, kpm_tail=True))
+    results.append(attn_case("attention ViT-B/32 tower", 4, 8, 77, 77, 64, False, causal=True))
+    # MDM's encoder at B 2 with CFG: 4 x 197 rows (the cond token + 196
+    # frames); its input_process at 4 x 196 rows of the HumanML3D-width
+    # motion the configs give (K = 262, the ragged route).
+    M_MDM = 4 * 197
+    results.append(lin_case("linear MDM QKV K=512", M_MDM, 512, 1536))
+    results.append(lin_case("linear MDM FFN1 gelu K=512", M_MDM, 512, 1024, act="gelu"))
+    results.append(lin_case("linear MDM FFN2 K=1024", M_MDM, 1024, 512))
+    results.append(lin_case("linear MDM input_process K=262", 4 * 196, 262, 512))
+    # The in2IN blocks at the infer-in2in window, T 210, B 2: the
+    # interaction mode's 4-way CFG (16 person-stacked rows); dual's 2-way CFG
+    # (8) and the individual mode's (4).
+    T_IN2IN = 210
+    for rows in (16, 8, 4):
+        label = f" B={rows}"
+        results.append(sa_case(rows, T_IN2IN, 1024, 8, True, label=label))
+        if rows == 16:
+            results.append(ca_case(rows, T_IN2IN, 1024, 8, True, label=label))
+        results.append(ffn_case(rows, T_IN2IN, 1024, 2048, True, label=label))
     _lib.reset_launch_counts()  # comparison launches do not count
     return results
 
@@ -1301,6 +1343,39 @@ def _quant(system, on: bool):
         system.quant_frozen = prev
 
 
+def _block_counts(nets):
+    """(SA, CA, FFN blocks, modulated FFN blocks) of ``nets``."""
+    from mixermdm_tpu_torch.models import layers
+
+    n = collections.Counter(type(m).__name__ for net in nets for m in net.modules()
+                            if isinstance(m, layers.Int8Block))
+    ffn_mod = sum(1 for net in nets for m in net.modules()
+                  if isinstance(m, layers.FFN) and m.norm is not None)
+    return n["VanillaSelfAttention"], n["VanillaCrossAttention"], n["FFN"], ffn_mod
+
+
+def _expected_launches(nets, label):
+    """The block kernels one call of ``nets`` launches on the W8A8 or the
+    bf16 path, read off their modules.  Per W8A8 call: the int8 products of
+    each block, the FFN's first one with the quantising GELU epilogue
+    (linear_q8_gelu_q8); the attention of each SA and CA block with its
+    quantising epilogue (attention_q8); the quantising prologue for the
+    input of each SA block, both inputs of each CA block and each modulated
+    FFN input; quant_rows only for an FFN input that is not modulated.  The
+    bf16 path runs the same blocks on the bf16 kernels."""
+    sa, ca, ffn, ffn_mod = _block_counts(nets)
+    if label == "W8A8":
+        return {"linear_q8": 2 * sa + 3 * ca + ffn, "linear_q8_gelu_q8": ffn,
+                "attention_q8": sa + ca, "quant_rows": ffn - ffn_mod,
+                "adaln_modulate_q8": sa + 2 * ca + ffn_mod, "adaln_modulate": 0,
+                "fused_sa_block_q8": sa, "fused_ca_block_q8": ca, "fused_ffn_block_q8": ffn,
+                "fused_sa_block": 0, "fused_ca_block": 0, "fused_ffn_block": 0}
+    return {"linear_q8": 0, "linear_q8_gelu_q8": 0, "attention_q8": 0, "quant_rows": 0,
+            "adaln_modulate_q8": 0, "adaln_modulate": sa + 2 * ca + ffn_mod,
+            "fused_sa_block_q8": 0, "fused_ca_block_q8": 0, "fused_ffn_block_q8": 0,
+            "fused_sa_block": sa, "fused_ca_block": ca, "fused_ffn_block": ffn}
+
+
 def sample_phase(seed):
     import torch
 
@@ -1394,28 +1469,9 @@ def sample_phase(seed):
     q8_vs_bf16 = _gaps(steps["W8A8"][0], steps["bf16"][0])[2]
     if not q8_vs_bf16 > steps["W8A8"][1]:
         raise SmokeFailure(f"W8A8 step within {q8_vs_bf16:.4g} of the bf16 step: int8 did not run")
-    n = collections.Counter(type(m).__name__ for net in (system.model1, system.model2, system.core)
-                            for m in net.modules() if isinstance(m, layers.Int8Block))
-    sa, ca, ffn = n["VanillaSelfAttention"], n["VanillaCrossAttention"], n["FFN"]
-    ffn_mod = sum(1 for net in (system.model1, system.model2, system.core) for m in net.modules()
-                  if isinstance(m, layers.FFN) and m.norm is not None)
-    # Per W8A8 step: the int8 products of each block, the FFN's first one
-    # with the quantising GELU epilogue (linear_q8_gelu_q8); the attention
-    # of each SA and CA block with its quantising epilogue (attention_q8);
-    # the quantising prologue for the input of each SA block, both inputs of
-    # each CA block and each modulated FFN input; quant_rows only for an FFN
-    # input that is not modulated.  The bf16 step runs the same blocks on the
-    # bf16 kernels.
-    expected = {
-        "W8A8": {"linear_q8": 2 * sa + 3 * ca + ffn, "linear_q8_gelu_q8": ffn,
-                 "attention_q8": sa + ca, "quant_rows": ffn - ffn_mod,
-                 "adaln_modulate_q8": sa + 2 * ca + ffn_mod, "adaln_modulate": 0,
-                 "fused_sa_block_q8": sa, "fused_ca_block_q8": ca, "fused_ffn_block_q8": ffn,
-                 "fused_sa_block": 0, "fused_ca_block": 0, "fused_ffn_block": 0},
-        "bf16": {"linear_q8": 0, "linear_q8_gelu_q8": 0, "attention_q8": 0, "quant_rows": 0,
-                 "adaln_modulate_q8": 0, "adaln_modulate": sa + 2 * ca + ffn_mod,
-                 "fused_sa_block_q8": 0, "fused_ca_block_q8": 0, "fused_ffn_block_q8": 0,
-                 "fused_sa_block": sa, "fused_ca_block": ca, "fused_ffn_block": ffn}}
+    nets = (system.model1, system.model2, system.core)
+    sa, ca, ffn, ffn_mod = _block_counts(nets)
+    expected = {label: _expected_launches(nets, label) for label in ("W8A8", "bf16")}
     for label, on in (("W8A8", True), ("bf16", False)):
         with _quant(system, on):
             ops.reset_launch_counts()
@@ -1820,6 +1876,361 @@ def surface_phase(system, seed, card):
 
 
 # --------------------------------------------------------------------------
+# Phase 5c: the base-model systems at full width
+# --------------------------------------------------------------------------
+
+# The base models' requests: B 2; in2IN at the infer-in2in window (T 210),
+# MDM at infer-mdm's (T 196), InterGen at in2IN's; DDIM-50.  The dual run
+# also pins a trajectory and starts warm, BASE_SKIP steps down the chain.
+BASE_B, IN2IN_T, MDM_T, BASE_SKIP = 2, 210, 196, 10
+# The chain index of the first CFG step held in (a) and of the one in (c):
+# the first step of DDIM-50 (original timestep 980).
+BASE_STEP = 49
+
+
+@contextlib.contextmanager
+def _plain_calls():
+    """Count the entry points' choices of their plain versions inside the
+    block (``ops._lib.use_plain`` answering yes); yields a one-item list."""
+    from mixermdm_tpu_torch.ops import _lib
+
+    n, orig = [0], _lib.use_plain
+
+    def counted(x):
+        r = orig(x)
+        n[0] += bool(r)
+        return r
+
+    _lib.use_plain = counted
+    try:
+        yield n
+    finally:
+        _lib.use_plain = orig
+
+
+def _hold_step(name, run, system, twin):
+    """``run(sys_)`` -> {what: tensor} on the kernels, on the plain versions
+    and on the f32 twin (plain versions): each on STEP_TOL (rel fro) and the
+    witness, as phase 4 holds its step."""
+    from mixermdm_tpu_torch import ops
+
+    got = run(system)
+    with ops.plain_versions():
+        plain, f32 = run(system), run(twin)
+    for what in got:
+        _agree(f"{name}: {what}", got[what], plain[what], STEP_TOL, "fro")
+        gap_p = _agree(f"{name}: {what}", plain[what], f32[what], None, "fro", "plain vs f32")
+        _agree(f"{name}: {what}", got[what], f32[what], WITNESS_RATIO * gap_p, "fro",
+               f"kernels vs f32 (at most {WITNESS_RATIO} x plain vs f32)")
+
+
+def _base_step(system, x, cond):
+    """Two CFG steps of a base-model system from chain index BASE_STEP: the
+    first step's x0, and the update of the two (the latent two steps on,
+    minus ``x``), the second step taken from the first step's own latent.
+    The update holds what the first x0 does not fix: the network again, at
+    the latent that the first step made."""
+    import torch
+
+    from mixermdm_tpu_torch.diffusion.gaussian import ddim_step
+    from mixermdm_tpu_torch.models.layers import w8a8_scope
+
+    s = system.sample_schedule
+    t = torch.full((x.shape[0],), BASE_STEP, dtype=torch.long, device=x.device)
+    model = system.cfg_model()
+    with torch.inference_mode(), w8a8_scope(system.quant):
+        x0 = model(x, s.timestep_map[t], None, cond)
+        x1 = ddim_step(s, x, t, x0)
+        x2 = ddim_step(s, x1, t - 1, model(x1, s.timestep_map[t - 1], None, cond))
+    return {"x0": x0, "update": x2 - x}
+
+
+def _hold_network(name, fn):
+    import torch
+
+    from mixermdm_tpu_torch import ops
+
+    with torch.inference_mode():
+        k = fn()
+        with ops.plain_versions():
+            p = fn()
+    _agree(name, k, p, NET_TOL, "max")
+
+
+def _run_cli(label, main, argv, out_dir, name, want_shape, card):
+    """One CLI run in-process, counted: its launches per kernel, the plain
+    versions it chose (none allowed), its seconds per request; the output
+    finite, non-zero and of ``want_shape``."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from mixermdm_tpu_torch import ops
+
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with _plain_calls() as plain, contextlib.redirect_stdout(out):
+        main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(ops.launches)
+    gemms = sorted(ops._lib.launch_shapes.items(), key=lambda kv: -kv[1])
+    for line in out.getvalue().splitlines():
+        print(f"   (b) | {line}", flush=True)
+    print(f"   (b) {label}: GEMM launches per request by (route, M, K, N, epilogue): "
+          f"{json.dumps([[*k, n] for k, n in gemms])}", flush=True)
+    said = [float(line.split(" in ")[1].split(" s")[0])
+            for line in out.getvalue().splitlines() if line.startswith("sampled ")]
+    motions = np.load(f"{out_dir}/{name}_motion.npy")
+    ok = (motions.shape == want_shape and bool(np.isfinite(motions).all())
+          and float(np.abs(motions).max()) > 0 and plain[0] == 0 and len(said) == 1)
+    print(f"   (b) {label}: output {motions.shape}, max |out| {float(np.abs(motions).max()):.4g}; "
+          f"{said[0] if said else '?'} s per request, {wall:.1f} s for the CLI, on {card}; plain "
+          f"versions chosen: {plain[0]}; launches per request: {json.dumps(counts, sort_keys=True)}"
+          f": {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure(f"{label}: wrong output or a plain version chosen")
+    return {"s_per_request": said[0], "cli_wall_s": wall, "launches": counts}
+
+
+def _same_params(label, got, sources):
+    """Every parameter of ``got`` bitwise the one of the same name in the
+    first of ``sources`` (name -> module) whose key prefix matches."""
+    import torch
+
+    differ = []
+    for k, p in got.named_parameters():
+        src = next(m for pre, m in sources if k.startswith(pre))
+        if not torch.equal(p, dict(src.named_parameters())[k]):
+            differ.append(k)
+    n = sum(1 for _ in got.parameters())
+    print(f"   (b) {label}: {n - len(differ)}/{n} parameters bitwise equal to the written system: "
+          f"{'ok' if not differ else 'FAIL ' + str(differ[:3])}", flush=True)
+    if differ:
+        raise SmokeFailure(f"{label}: the released files did not load back bit for bit")
+
+
+def base_models_phase(seed, card):
+    """The base-model systems on the card at full published width, random
+    weights from ``seed``:
+
+    (a) per family (in2IN interaction with its 4-way CFG, in2IN individual,
+        DualMDM's two denoisers and blend, MDM, InterGen) one network
+        forward at the CFG batch on NET_TOL and two CFG steps (the first
+        x0, the two steps' update) on STEP_TOL and the witness, kernels vs
+        plain, at B 2; two W8A8 steps of in2IN interaction (QUANT: true)
+        likewise, their launches read off the modules;
+    (b) the released files of in2IN (interaction, individual) and MDM,
+        written from those systems, load back bitwise (the dual pair
+        merged); then ``infer-in2in`` in its three modes (B 2, T 210,
+        DDIM-50; dual with trajectory control and a warm start) and
+        ``infer-mdm`` (B 2, T 196) in-process on them, counted per kernel,
+        no plain version chosen;
+    (c) ``build_mixer_system`` with MDM as MODEL1 and InterGen as MODEL2:
+        one CFG mixer step, bf16 and W8A8, kernels vs plain on STEP_TOL and
+        the witness.
+
+    Returns (readings, launches per request by path)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli import infer_in2in, infer_mdm
+    from mixermdm_tpu_torch.config import INTERGEN_DEFAULT, MDM_DEFAULT, MIXERMDM_DEFAULT
+    from mixermdm_tpu_torch.models.clip_text import ClipTextConfig
+    from mixermdm_tpu_torch.systems.intergen import InterGenSystem
+    from mixermdm_tpu_torch.systems.mixermdm import build_mixer_system
+    from mixermdm_tpu_torch.train.checkpoint import load_released_in2in, load_released_mdm, \
+        save_released
+    from mixermdm_tpu_torch.weights import init_params_, released_in2in_state_dict, \
+        released_mdm_state_dict
+
+    B = BASE_B
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    texts = {"text": [p[0] for p in PROMPTS], "text_individual1": [p[1] for p in PROMPTS],
+             "text_individual2": [p[2] for p in PROMPTS]}
+    bf = torch.bfloat16
+    readings, counts = {}, {}
+
+    def twin_of(system):
+        return copy.deepcopy(system).cast_(None)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_base_") as tmp:
+        files = {}
+        # (a) in2IN interaction: 4-way CFG, bf16, then W8A8
+        t0 = time.time()
+        inter = infer_in2in.build_system(None, "interaction", device="cuda", seed=seed,
+                                         zero_init_std=0.02)
+        cond = inter.build_cond(texts)
+        x = torch.randn(B, IN2IN_T, 2 * inter.nfeats, generator=gen, device="cuda")
+        t = torch.full((4 * B,), int(inter.sample_schedule.timestep_map[BASE_STEP]),
+                       device="cuda")
+        td = inter.text_dim
+        c4 = torch.cat([cond, torch.cat([cond[:, :td], torch.zeros_like(cond[:, td:])], 1),
+                        torch.cat([torch.zeros_like(cond[:, :td]), cond[:, td:]], 1),
+                        torch.zeros_like(cond)])
+        den = inter.denoisers["interaction"]
+        print(f"   (a) built in2IN interaction (1024-d, 8 x 8 heads, FF 2048, ViT-L/14) in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        _hold_network("(a) in2IN interaction denoiser at the 4-way CFG batch",
+                      lambda: den(torch.cat([x] * 4).to(bf), t, None, c4.to(bf)))
+        twin = twin_of(inter)
+        _hold_step("(a) in2IN interaction, two 4-way CFG steps, bf16",
+                   lambda sys_: _base_step(sys_, x, cond), inter, twin)
+        inter.quant = True
+        inter.cast_(bf)  # quantises the blocks' int8 weights
+        ops.reset_launch_counts()
+        _base_step(inter, x, cond)
+        torch.cuda.synchronize()
+        want = {k: 2 * n for k, n in _expected_launches([den], "W8A8").items()}
+        got = {k: int(ops.launches.get(k, 0)) for k in want}
+        print(f"   (a) launches in two W8A8 4-way CFG steps of in2IN interaction: "
+              f"{json.dumps(got)}; from the modules: {json.dumps(want)}", flush=True)
+        if got != want:
+            raise SmokeFailure("the W8A8 in2IN steps' launches differ from the modules' count")
+        _hold_step("(a) in2IN interaction, two 4-way CFG steps, W8A8 (QUANT: true)",
+                   lambda sys_: _base_step(sys_, x, cond), inter, twin)
+        inter.quant = False
+        del twin
+        files["interaction"] = f"{tmp}/interaction.ckpt"
+        save_released(files["interaction"], released_in2in_state_dict(inter, "interaction"))
+
+        # (a) in2IN individual
+        ind = infer_in2in.build_system(None, "individual", device="cuda", seed=seed + 1,
+                                       zero_init_std=0.02)
+        cond_i = ind.build_cond(texts)
+        xi = torch.randn(B, IN2IN_T, ind.nfeats, generator=gen, device="cuda")
+        t2 = t[:2 * B]
+        d_i = ind.denoisers["individual"]
+        _hold_network("(a) in2IN individual denoiser at the CFG batch",
+                      lambda: d_i(torch.cat([xi] * 2).to(bf), t2, None,
+                                  torch.cat([cond_i, torch.zeros_like(cond_i)]).to(bf)))
+        _hold_step("(a) in2IN individual, two CFG steps", lambda sys_: _base_step(sys_, xi, cond_i),
+                   ind, twin_of(ind))
+        files["individual"] = f"{tmp}/individual.ckpt"
+        save_released(files["individual"], released_in2in_state_dict(ind, "individual"))
+
+        # (a) DualMDM: its two denoisers on the 5-slice cond, and the blend
+        dual = infer_in2in.build_system(None, "dual", device="cuda", seed=seed + 2,
+                                        zero_init_std=0.02)
+        cond_d = dual.build_cond(texts)
+        c2 = torch.cat([cond_d, torch.zeros_like(cond_d)]).to(bf)
+        for name in ("interaction", "individual"):
+            dn = dual.denoisers[name]
+            _hold_network(f"(a) DualMDM {name} denoiser at the CFG batch",
+                          lambda: dn(torch.cat([x] * 2).to(bf), t2, None, c2))
+        _hold_step("(a) DualMDM, two CFG steps (both denoisers, the blend)",
+                   lambda sys_: _base_step(sys_, x, cond_d), dual, twin_of(dual))
+        del dual
+
+        # (a) MDM
+        mdm = infer_mdm.build_system(None, device="cuda", seed=seed + 3, zero_init_std=0.02)
+        cond_m = mdm.text_process(texts["text_individual1"])
+        xm = torch.randn(B, MDM_T, mdm.nfeats, generator=gen, device="cuda")
+        print(f"   (a) built MDM (512-d, 8 x 4 heads, FF 1024, ViT-B/32); cond "
+              f"{tuple(cond_m.shape)}", flush=True)
+        _hold_network("(a) MDM denoiser at the CFG batch",
+                      lambda: mdm.denoiser(torch.cat([xm] * 2).to(bf), t2, None,
+                                           torch.cat([cond_m, torch.zeros_like(cond_m)]).to(bf)))
+        _hold_step("(a) MDM, two CFG steps", lambda sys_: _base_step(sys_, xm, cond_m), mdm,
+                   twin_of(mdm))
+        files["mdm"] = f"{tmp}/mdm.ckpt"
+        save_released(files["mdm"], released_mdm_state_dict(mdm))
+
+        # (a) InterGen
+        ig = init_params_(InterGenSystem(INTERGEN_DEFAULT, clip_cfg=ClipTextConfig.vit_l_14()),
+                          seed + 4, 0.02)
+        cond_g = ig.text_process(texts["text"])
+        _hold_network("(a) InterGen denoiser at the CFG batch",
+                      lambda: ig.denoiser(torch.cat([x] * 2).to(bf), t2, None,
+                                          torch.cat([cond_g, torch.zeros_like(cond_g)]).to(bf)))
+        _hold_step("(a) InterGen, two CFG steps", lambda sys_: _base_step(sys_, x, cond_g), ig,
+                   twin_of(ig))
+        del ig
+        torch.cuda.empty_cache()
+
+        # (b) the files load back bitwise, then the CLIs on them
+        other = infer_in2in.build_system(None, "interaction", device="cuda", seed=seed + 7)
+        if load_released_in2in(other, files["interaction"], strict=True):
+            raise SmokeFailure("the interaction file left parameters unfilled")
+        _same_params("interaction file", other, [("", inter)])
+        other = infer_in2in.build_system(None, "individual", device="cuda", seed=seed + 7)
+        load_released_in2in(other, files["individual"], strict=True)
+        _same_params("individual file", other, [("", ind)])
+        other = infer_in2in.build_system(None, "dual", device="cuda", seed=seed + 7)
+        load_released_in2in(other, files["interaction"], files["individual"], strict=True)
+        _same_params("the dual pair, merged", other,
+                     [("denoisers.individual.", ind), ("text.post.individual.", ind),
+                      ("", inter)])
+        other = infer_mdm.build_system(None, device="cuda", seed=seed + 7)
+        load_released_mdm(other, files["mdm"], strict=True)
+        _same_params("MDM file", other, [("", mdm)])
+        del other, inter, ind, mdm
+        torch.cuda.empty_cache()
+
+        motion = np.random.default_rng(seed).standard_normal((IN2IN_T - 40, 524))
+        np.save(f"{tmp}/control.npy", (0.5 * motion).astype(np.float32))
+        common = ["--num-samples", str(B), "--out-dir", f"{tmp}/out", "--seed", str(seed + 11)]
+        runs = {
+            "interaction": ["--mode", "interaction", "--checkpoint", files["interaction"]],
+            "individual": ["--mode", "individual", "--checkpoint", files["individual"]],
+            "dual": ["--mode", "dual", "--checkpoint", files["interaction"],
+                     "--ckpt-individual", files["individual"], "--traj-control",
+                     f"{tmp}/control.npy", "--warm-start", f"{tmp}/control.npy",
+                     "--skip-timesteps", str(BASE_SKIP)],
+        }
+        for mode, extra in runs.items():
+            argv = ["--name", mode, "--text", PROMPTS[0][0], "--text-individual1", PROMPTS[0][1],
+                    "--text-individual2", PROMPTS[0][2], "--window", str(IN2IN_T), "--strict",
+                    *extra, *common]
+            width = 262 if mode == "individual" else 524
+            r = _run_cli(f"infer-in2in --mode {mode}", infer_in2in.main, argv, f"{tmp}/out",
+                         mode, (B, IN2IN_T, width), card)
+            readings[f"infer-in2in {mode}"] = r
+            counts[f"in2in {mode}"] = r["launches"]
+        r = _run_cli("infer-mdm", infer_mdm.main,
+                     ["--name", "mdm", "--text", PROMPTS[0][1], "--window", str(MDM_T),
+                      "--checkpoint", files["mdm"], "--strict", *common],
+                     f"{tmp}/out", "mdm", (B, MDM_T, 262), card)
+        readings["infer-mdm"] = r
+        counts["mdm"] = r["launches"]
+
+    # (c) the mixer with MDM as MODEL1 and InterGen as MODEL2
+    t0 = time.time()
+    mixer = init_params_(build_mixer_system(MIXERMDM_DEFAULT, MDM_DEFAULT, INTERGEN_DEFAULT,
+                                            clip_cfg=ClipTextConfig.vit_l_14(), device="cuda"),
+                         seed + 6, 0.02)
+    batch = {"text_interaction": texts["text"], "text_individual1": texts["text_individual1"],
+             "text_individual2": texts["text_individual2"]}
+    cond = mixer.generate_cond(batch)
+    print(f"   (c) built the mixer with MDM (MODEL1) and InterGen (MODEL2) in "
+          f"{time.time() - t0:.1f} s; cond {tuple(cond.shape)}, slices "
+          f"{json.dumps(mixer.mixer_cfg.cond_slices())}", flush=True)
+    xx = torch.randn(B, IN2IN_T, 2 * mixer.nfeats, generator=gen, device="cuda")
+    tt = torch.full((B,), 979, dtype=torch.long, device="cuda")
+    twin = twin_of(mixer)
+    for label, on in (("bf16", False), ("W8A8", True)):
+        with _quant(mixer, on):
+            _hold_step(f"(c) one CFG mixer step, MDM + InterGen, {label}",
+                       lambda sys_: {"x0": sys_.cfg_mixer_step(xx, xx, tt, cond)}, mixer, twin)
+    with _quant(mixer, True):
+        ops.reset_launch_counts()
+        mixer.cfg_mixer_step(xx, xx, tt, cond)
+        torch.cuda.synchronize()
+    q8 = {k: int(v) for k, v in ops.launches.items() if "q8" in k}
+    print(f"   (c) launches of the int8 kernels in one W8A8 step: {json.dumps(q8)}", flush=True)
+    if not q8.get("linear_q8") or not q8.get("attention_q8"):
+        raise SmokeFailure("the W8A8 mixer step with InterGen launched no int8 kernel")
+    del mixer, twin
+    torch.cuda.empty_cache()
+    return readings, counts
+
+
+# --------------------------------------------------------------------------
 # Phase 6: adversarial training at full width
 # --------------------------------------------------------------------------
 
@@ -1874,6 +2285,100 @@ def _device_batch(system, batch):
             **system.tokenize_batch(batch)}
 
 
+def _grad_step(seed, normalizer, batch_np):
+    """The full-width training system at ``seed`` with ``normalizer`` (the
+    fixture's statistics, :func:`_fixture_normalizer`), its f32 twin, and
+    ``side(sys_, mode, plain) -> (losses, {subtree: flat gradient})``: one
+    G or D step's gradients of the trained subtrees, on the kernels or
+    (``plain``) the plain versions."""
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli.infer_mixermdm import build_system
+    from mixermdm_tpu_torch.systems.mixermdm import DISC_MODULES, GEN_MODULES
+    from mixermdm_tpu_torch.train.trainer import trainable_params
+
+    t0 = time.time()
+    system = build_system(MODEL_CFG, device="cuda", seed=seed, zero_init_std=0.02, train=True)
+    system.normalizer1 = system.normalizer2 = normalizer
+    system.cast_(system.compute_dtype, train=True)  # the forward takes the new statistics
+    twin = copy.deepcopy(system).cast_(None, train=True)
+    print(f"   built the training system and its f32 twin in {time.time() - t0:.1f} s (seed "
+          f"{seed})", flush=True)
+    batch = _device_batch(system, batch_np)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    t = torch.randint(0, int(system.cfg.DIFFUSION_STEPS), (TRAIN_B,), generator=gen,
+                      device="cuda")
+    noise = torch.randn(TRAIN_B, TRAIN_T, 2 * system.nfeats, generator=gen, device="cuda")
+    drop = torch.zeros(TRAIN_B, 1, dtype=torch.bool, device="cuda")
+    drop[-1] = True
+
+    def side(sys_, mode, plain):
+        keys = GEN_MODULES if mode == "generator" else DISC_MODULES
+        params = trainable_params(sys_, keys)
+        for p in params:
+            p.requires_grad_(True)
+        try:
+            with ops.plain_versions() if plain else contextlib.nullcontext():
+                cond = sys_.encode_cond(batch["tokens_inter"], batch["tokens_i1"],
+                                        batch["tokens_i2"])
+                losses = sys_.compute_loss(batch["motions"], batch["motion_lens"], cond,
+                                           mode=mode, t=t, noise=noise, drop=drop,
+                                           dropout=False)
+                grads = torch.autograd.grad(losses["total"], params)
+        finally:
+            for p in params:
+                p.requires_grad_(False)
+        out, i = {}, 0
+        for k in keys:
+            n = len(list(sys_.get_submodule(k).parameters()))
+            out[k] = torch.cat([g.float().flatten() for g in grads[i:i + n]])
+            i += n
+        return {k: float(v) for k, v in losses.items()}, out
+
+    return system, twin, side
+
+
+def grad_check(seed, normalizer, batch_np):
+    """The gradients of one G and one D step on the full-width training
+    system at ``seed``, on the kernels, on the plain versions and in f32
+    (plain versions): all three gaps of every trained subtree's gradient are
+    printed first, then each is held, in the order and with the limits
+    below (kernels vs plain on GRAD_TOL; the witness, kernels vs f32 at most
+    WITNESS_RATIO x plain vs f32).  Returns the gaps, ``{"generator.core":
+    (k-p, p-f, k-f), ...}`` in rel(fro)."""
+    import torch
+
+    system, twin, side = _grad_step(seed, normalizer, batch_np)
+    gaps, grads = {}, {}
+    for mode in ("generator", "discriminator"):
+        lk, gk = side(system, mode, False)
+        lp, gp = side(system, mode, True)
+        lf, gf = side(twin, mode, True)
+        print(f"   {mode} step losses, kernels / plain / f32: "
+              + ", ".join(f"{k} {lk[k]:.6g} / {lp[k]:.6g} / {lf[k]:.6g}" for k in lk),
+              flush=True)
+        if not all(math.isfinite(v) for v in list(lk.values()) + list(lp.values())):
+            raise SmokeFailure(f"{mode} step losses are not finite")
+        for k in gk:
+            gaps[f"{mode}.{k}"] = (_gaps(gk[k], gp[k])[2], _gaps(gp[k], gf[k])[2],
+                                   _gaps(gk[k], gf[k])[2])
+            grads[f"{mode}.{k}"] = (gk[k], gp[k], gf[k])
+    del system, twin
+    torch.cuda.empty_cache()
+    for name, (kp, pf, kf) in gaps.items():
+        print(f"   seed {seed}, {name} gradient, rel(fro): kernels vs plain {kp:.5g}, plain vs "
+              f"f32 {pf:.5g}, kernels vs f32 {kf:.5g} (witness ratio {kf / max(pf, 1e-12):.4g})",
+              flush=True)
+    for name, (gk_, gp_, gf_) in grads.items():
+        what = f"{name.split('.')[0]} step, gradient of {name.split('.', 1)[1]}"
+        _agree(what, gk_, gp_, GRAD_TOL, "fro")
+        gap_p = _agree(what, gp_, gf_, None, "fro", "plain vs f32")
+        _agree(what, gk_, gf_, WITNESS_RATIO * gap_p, "fro",
+               f"kernels vs f32 (at most {WITNESS_RATIO} x plain vs f32)")
+    return gaps
+
+
 def train_phase(seed):
     """Gradient check of one G and one D step (kernels vs plain versions vs
     f32), the training CLI on a synthetic fixture with its launch counts,
@@ -1891,8 +2396,6 @@ def train_phase(seed):
     from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
     from mixermdm_tpu_torch.data.loader import collate
     from mixermdm_tpu_torch.models import layers
-    from mixermdm_tpu_torch.systems.mixermdm import DISC_MODULES, GEN_MODULES
-    from mixermdm_tpu_torch.train.trainer import trainable_params
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
@@ -1904,62 +2407,7 @@ def train_phase(seed):
               f"{batch_np['motion_lens'].tolist()} of T = {batch_np['motions'].shape[1]}",
               flush=True)
 
-        # --- gradient check ---------------------------------------------------
-        t0 = time.time()
-        system = build_system(MODEL_CFG, device="cuda", seed=seed, zero_init_std=0.02, train=True)
-        system.normalizer1 = system.normalizer2 = _fixture_normalizer(dataset)
-        system.cast_(system.compute_dtype, train=True)  # the forward takes the new statistics
-        twin = copy.deepcopy(system).cast_(None, train=True)
-        print(f"   built the training system and its f32 twin in {time.time() - t0:.1f} s",
-              flush=True)
-        batch = _device_batch(system, batch_np)
-        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-        t = torch.randint(0, int(system.cfg.DIFFUSION_STEPS), (TRAIN_B,), generator=gen,
-                          device="cuda")
-        noise = torch.randn(TRAIN_B, TRAIN_T, 2 * system.nfeats, generator=gen, device="cuda")
-        drop = torch.zeros(TRAIN_B, 1, dtype=torch.bool, device="cuda")
-        drop[-1] = True
-
-        def side(sys_, mode, plain):
-            keys = GEN_MODULES if mode == "generator" else DISC_MODULES
-            params = trainable_params(sys_, keys)
-            for p in params:
-                p.requires_grad_(True)
-            try:
-                with ops.plain_versions() if plain else contextlib.nullcontext():
-                    cond = sys_.encode_cond(batch["tokens_inter"], batch["tokens_i1"],
-                                            batch["tokens_i2"])
-                    losses = sys_.compute_loss(batch["motions"], batch["motion_lens"], cond,
-                                               mode=mode, t=t, noise=noise, drop=drop,
-                                               dropout=False)
-                    grads = torch.autograd.grad(losses["total"], params)
-            finally:
-                for p in params:
-                    p.requires_grad_(False)
-            out, i = {}, 0
-            for k in keys:
-                n = len(list(sys_.get_submodule(k).parameters()))
-                out[k] = torch.cat([g.float().flatten() for g in grads[i:i + n]])
-                i += n
-            return {k: float(v) for k, v in losses.items()}, out
-
-        for mode in ("generator", "discriminator"):
-            lk, gk = side(system, mode, False)
-            lp, gp = side(system, mode, True)
-            lf, gf = side(twin, mode, True)
-            print(f"   {mode} step losses, kernels / plain / f32: "
-                  + ", ".join(f"{k} {lk[k]:.6g} / {lp[k]:.6g} / {lf[k]:.6g}" for k in lk),
-                  flush=True)
-            if not all(math.isfinite(v) for v in list(lk.values()) + list(lp.values())):
-                raise SmokeFailure(f"{mode} step losses are not finite")
-            for k in gk:
-                name = f"{mode} step, gradient of {k}"
-                _agree(name, gk[k], gp[k], GRAD_TOL, "fro")
-                gap_p = _agree(name, gp[k], gf[k], None, "fro", "plain vs f32")
-                _agree(name, gk[k], gf[k], WITNESS_RATIO * gap_p, "fro",
-                       f"kernels vs f32 (at most {WITNESS_RATIO} x plain vs f32)")
-        del system, twin
-        torch.cuda.empty_cache()
+        grad_check(seed, _fixture_normalizer(dataset), batch_np)
 
         # --- the training CLI, counted -----------------------------------------
         out_dir = os.path.join(tmp, "out")
@@ -2109,6 +2557,18 @@ PATH_KERNELS = {
     # The kernel experiments (mixermdm_tpu_torch.scripts.exp_kernels): the
     # one-launch SA blocks, beside the shipped composition.
     "exp_kernels": ("sa_block", "sa_block_i8x", "fused_sa_block", "fused_sa_block_q8"),
+    # The base models' CLIs (phase 5c), one request each: in2IN in bf16 (its
+    # configs leave QUANT off), its post-encoder heads on the f32 attention;
+    # MDM's encoder on the attention kernel without zero-attn and the GEMM
+    # routes, its embed_text in f32.
+    "in2in interaction": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
+                          "fused_attention", "fused_sa_block", "fused_ca_block",
+                          "fused_ffn_block"),
+    "in2in individual": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
+                         "fused_attention", "fused_sa_block", "fused_ffn_block"),
+    "in2in dual": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
+                   "fused_attention", "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
+    "mdm": (*GEMM_ROUTES, "attention", "fused_attention"),
 }
 # The path whose counts stand in a kernel's row: the shipped sampling path,
 # the bf16 one for the bf16 block forms, the training path for the kernels
@@ -2231,6 +2691,12 @@ def main(argv=None):
     torch.cuda.empty_cache()
     done(t0)
 
+    t0 = phase("5c. the base-model systems at full width: in2IN (interaction, individual, "
+               "DualMDM), MDM, InterGen; infer-in2in, infer-mdm; the mixer with MDM + InterGen")
+    base, base_counts = base_models_phase(args.seed, card)
+    counts.update(base_counts)
+    done(t0)
+
     t0 = phase("6. adversarial training at full width")
     counts["train"] = train_phase(args.seed)
     done(t0)
@@ -2244,6 +2710,9 @@ def main(argv=None):
         raise SmokeFailure("not launched in the main path: " + ", ".join(missing))
     done(t0)
     print(f"   inference surface (phase 5b): {json.dumps(surface)}", flush=True)
+    print("   base-model requests (phase 5c): " + json.dumps(
+        {k: {"s_per_request": v["s_per_request"], "launches": sum(v["launches"].values())}
+         for k, v in base.items()}), flush=True)
     print(f"   total seconds: {time.time() - t_start:.1f} (BUDGET_S {BUDGET_S})", flush=True)
     print(card)
     print(json.dumps(line))

@@ -5,6 +5,9 @@ import sys
 
 COMMANDS = {
     "infer-mixermdm": ("mixermdm_tpu_torch.cli.infer_mixermdm", "MixerMDM inference"),
+    "infer-in2in": ("mixermdm_tpu_torch.cli.infer_in2in",
+                    "in2IN inference (interaction / individual / dual = DualMDM)"),
+    "infer-mdm": ("mixermdm_tpu_torch.cli.infer_mdm", "MDM single-person inference"),
     "train-mixermdm": ("mixermdm_tpu_torch.cli.train_mixermdm", "MixerMDM adversarial training"),
     "serve": ("mixermdm_tpu_torch.cli.serve", "HTTP generation server (continuous batching)"),
 }

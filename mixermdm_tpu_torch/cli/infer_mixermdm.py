@@ -57,7 +57,7 @@ from ..eval.decompose import decompose_interaction_text
 from ..models.clip_text import ClipTextConfig
 from ..systems import apply_sampler_overrides
 from ..systems.in2in import In2INSystem
-from ..systems.mixermdm import MixerMDMSystem
+from ..systems.mixermdm import SUBMODEL, MixerMDMSystem
 from ..train.checkpoint import load_released_mixermdm
 from ..weights import init_params_
 
@@ -97,8 +97,8 @@ def build_system(model_cfg_path: Optional[str] = None, *, align: bool = True,
         cfg = Config.wrap(dict(cfg))
         cfg["QUANT_FROZEN"] = bool(quant_frozen)
     with torch.device(device):
-        m1 = In2INSystem(cfg1, mode="individual", clip_cfg=clip_cfg)
-        m2 = In2INSystem(cfg2, mode="interaction", clip_cfg=clip_cfg)
+        m1 = In2INSystem(cfg1, mode="individual", clip_cfg=clip_cfg, **SUBMODEL)
+        m2 = In2INSystem(cfg2, mode="interaction", clip_cfg=clip_cfg, **SUBMODEL)
         system = MixerMDMSystem(cfg, model1=m1, model2=m2, clip_cfg=clip_cfg, align=align,
                                 device=device, train=train)
     return init_params_(system, seed, zero_init_std)

@@ -144,7 +144,8 @@ def load_yaml(path: str) -> Config:
 
 # ---------------------------------------------------------------------------
 # Default architecture configs mirroring configs/models/{MixerMDM,in2IN,
-# individual}.yaml, so the package works without any files on disk.
+# individual}.yaml and the JAX package's MDM / InterGen defaults, so the
+# package works without any files on disk.
 # ---------------------------------------------------------------------------
 
 IN2IN_INTERACTION_DEFAULT = Config.wrap(
@@ -190,6 +191,32 @@ MIXERMDM_DEFAULT = Config.wrap(
         # W8A8 int8 projections for the frozen denoisers at sampling time, as
         # in the JAX package's default (systems/mixermdm.py).
         "QUANT_FROZEN": True,
+    }
+)
+
+# The base-model baselines (the JAX package's MDM_DEFAULT / INTERGEN_DEFAULT):
+# MDM, single person, on the ViT-B/32 tower; InterGen, two persons.
+MDM_DEFAULT = Config.wrap(
+    {
+        "NAME": "MDM",
+        "NUM_LAYERS": 8, "NUM_HEADS": 4, "DROPOUT": 0.1,
+        "INPUT_DIM": 262, "LATENT_DIM": 512, "FF_SIZE": 1024,
+        "ACTIVATION": "gelu", "CHECKPOINT": "checkpoints/mdm.ckpt",
+        "DIFFUSION_STEPS": 1000, "BETA_SCHEDULER": "cosine", "SAMPLER": "uniform",
+        "MOTION_REP": "global", "T_BAR": 700, "STRATEGY": "ddim50",
+        "CFG_WEIGHT": 2.5,
+    }
+)
+
+INTERGEN_DEFAULT = Config.wrap(
+    {
+        "NAME": "InterGen",
+        "NUM_LAYERS": 8, "NUM_HEADS": 8, "DROPOUT": 0.1,
+        "INPUT_DIM": 262, "LATENT_DIM": 1024, "FF_SIZE": 2048,
+        "ACTIVATION": "gelu", "CHECKPOINT": "checkpoints/intergen.ckpt",
+        "DIFFUSION_STEPS": 1000, "BETA_SCHEDULER": "cosine", "SAMPLER": "uniform",
+        "MOTION_REP": "global", "T_BAR": 700, "STRATEGY": "ddim50",
+        "CFG_WEIGHT": 3.5,
     }
 )
 

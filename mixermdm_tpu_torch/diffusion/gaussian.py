@@ -1,7 +1,18 @@
-"""The DDPM/DDIM pieces the dual-stream chain and the mixer's training use;
-counterpart of the matching functions of ``mixermdm_tpu/diffusion/gaussian.py``."""
+"""The DDPM/DDIM pieces of the sampling chains and the mixer's training;
+counterpart of the matching functions of ``mixermdm_tpu/diffusion/gaussian.py``.
+
+The single-stream chains (:func:`ddim_sample_loop`, :func:`dpmpp_sample_loop`)
+sample the base models (in2IN, DualMDM, MDM, InterGen); the dual-stream
+chains of :mod:`.mixer_diffusion` the mixer.  Both are Python loops whose
+step reads the schedule (and the DPM-Solver++ coefficients) by device
+gathers and makes no host sync; the JAX package compiles each into one
+``lax.scan``.  Only what the base models' configs take is ported: x0
+prediction (``MEAN_START_X``), fixed-small variance, no clipping, eta 0.
+"""
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -26,6 +37,24 @@ def q_sample(s: DiffusionSchedule, x_start, t, noise):
     nd = x_start.dim()
     return (extract(s.sqrt_alphas_cumprod, t, nd) * x_start
             + extract(s.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+
+def _initial_latents(s: DiffusionSchedule, shape: tuple, device, n_eff: int,
+                     noise: Optional[torch.Tensor], generator: Optional[torch.Generator],
+                     skip_timesteps: int, init_image: Optional[torch.Tensor]) -> torch.Tensor:
+    """The chain's starting latent (shared by both streams of the mixer's
+    chains): ``noise`` or a draw from ``generator``; for a warm start
+    (``skip_timesteps`` or ``init_image``), ``init_image`` (zeros if not
+    given) q-sampled to the first remaining timestep ``n_eff - 1`` with that
+    same draw as its noise (reference :1031-1038, :1854-1860)."""
+    img = noise if noise is not None else torch.randn(shape, generator=generator, device=device)
+    img = img.to(device=device, dtype=torch.float32)
+    if skip_timesteps and init_image is None:
+        init_image = torch.zeros(shape, device=device)
+    if init_image is not None:
+        t0 = torch.full((shape[0],), n_eff - 1, dtype=torch.long, device=device)
+        img = q_sample(s, init_image.to(device=device, dtype=torch.float32), t0, img)
+    return img
 
 
 def _apply_traj_control(img: torch.Tensor, x_start: torch.Tensor) -> torch.Tensor:
@@ -84,3 +113,69 @@ def dpmpp_coefficients(s: DiffusionSchedule, n_eff: int | None = None):
     c2[-1] = 0.0
     return tuple(torch.tensor(a, dtype=torch.float32, device=s.alphas_cumprod.device)
                  for a in (sig_ratio, alp_next, phi, c2))
+
+
+def ddim_step(s: DiffusionSchedule, x, t, pred_xstart) -> torch.Tensor:
+    """Deterministic (eta = 0) DDIM update, eq. 12 (reference :799-849)."""
+    nd = x.dim()
+    eps = predict_eps_from_xstart(s, x, t, pred_xstart)
+    alpha_bar_prev = extract(s.alphas_cumprod_prev, t, nd)
+    return pred_xstart * torch.sqrt(alpha_bar_prev) + torch.sqrt(1 - alpha_bar_prev) * eps
+
+
+def ddim_sample_loop(model_fn: Callable, s: DiffusionSchedule, shape: tuple, *,
+                     device=None, noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     traj_control: Optional[torch.Tensor] = None, skip_timesteps: int = 0,
+                     init_image: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Deterministic (eta = 0) DDIM chain (reference :946-1069; JAX
+    ``ddim_sample_loop``).  ``model_fn(x, t_orig)`` returns x0, called at the
+    original timestep ``s.timestep_map[t]`` and taken as it is (the x0 of
+    ``p_mean_variance``, :445-539, with no clipping).  Returns the last
+    step's x0.
+
+    The initial latent is ``noise`` or a draw from ``generator``; eta = 0
+    draws nothing else.  ``traj_control`` pins the root-trajectory dims
+    before every step; ``skip_timesteps`` / ``init_image`` warm-start the
+    chain at chain index ``num_timesteps - skip_timesteps - 1`` from the
+    init image q-sampled there (:func:`_initial_latents`).
+    """
+    device = torch.device(device) if device is not None else s.alphas_cumprod.device
+    n_eff = s.num_timesteps - int(skip_timesteps)
+    img = _initial_latents(s, shape, device, n_eff, noise, generator, skip_timesteps,
+                           init_image)
+    pred = None
+    for i in reversed(range(n_eff)):
+        if traj_control is not None:
+            img = _apply_traj_control(img, traj_control)
+        t = torch.full((shape[0],), i, dtype=torch.long, device=device)
+        pred = model_fn(img, s.timestep_map[t])
+        img = ddim_step(s, img, t, pred)
+    return pred
+
+
+def dpmpp_sample_loop(model_fn: Callable, s: DiffusionSchedule, shape: tuple, *,
+                      device=None, noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      traj_control: Optional[torch.Tensor] = None, skip_timesteps: int = 0,
+                      init_image: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DPM-Solver++(2M) chain in x0 form (JAX ``dpmpp_sample_loop``): the
+    model surface, trajectory pinning and warm start of
+    :func:`ddim_sample_loop`, the multistep update of
+    :func:`dpmpp_coefficients` (first order at the first and the last
+    step), its tables on the device and read by index.  Returns the last
+    step's x0."""
+    device = torch.device(device) if device is not None else s.alphas_cumprod.device
+    n = s.num_timesteps - int(skip_timesteps)
+    img = _initial_latents(s, shape, device, n, noise, generator, skip_timesteps, init_image)
+    sig_ratio, alp_next, phi, c2 = dpmpp_coefficients(s, n)
+    prev = torch.zeros_like(img)
+    for j in range(n):
+        if traj_control is not None:
+            img = _apply_traj_control(img, traj_control)
+        t = torch.full((shape[0],), n - 1 - j, dtype=torch.long, device=device)
+        x0 = model_fn(img, s.timestep_map[t])
+        d = (1.0 + c2[j]) * x0 - c2[j] * prev
+        img = sig_ratio[j] * img - alp_next[j] * phi[j] * d
+        prev = x0
+    return prev

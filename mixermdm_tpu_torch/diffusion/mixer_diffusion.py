@@ -22,7 +22,7 @@ import torch
 
 from ..utils.alignment import center_person_fast
 from ..utils.normalizer import Normalizer
-from .gaussian import _apply_traj_control, dpmpp_coefficients, extract, \
+from .gaussian import _apply_traj_control, _initial_latents, dpmpp_coefficients, extract, \
     predict_eps_from_xstart, q_sample
 from .schedule import DiffusionSchedule
 
@@ -46,24 +46,6 @@ def process_xstart_dual(mixed: torch.Tensor, last_step: bool, normalizer1: Norma
     ab = normalizer1.forward(centred)
     x2 = normalizer2.forward(mixed.reshape(B, T, 2, -1)).reshape(B, T, -1)
     return torch.cat([ab[:B], ab[B:]], dim=-1), x2
-
-
-def _initial_latents(s: DiffusionSchedule, shape: tuple, device, n_eff: int,
-                     noise: Optional[torch.Tensor], generator: Optional[torch.Generator],
-                     skip_timesteps: int, init_image: Optional[torch.Tensor]) -> torch.Tensor:
-    """The chain's starting latent, shared by both streams: ``noise`` or a
-    draw from ``generator``; for a warm start (``skip_timesteps`` or
-    ``init_image``), ``init_image`` (zeros if not given) q-sampled to the
-    first remaining timestep ``n_eff - 1`` with that same draw as its noise
-    (reference :1031-1038, :1854-1860)."""
-    img = noise if noise is not None else torch.randn(shape, generator=generator, device=device)
-    img = img.to(device=device, dtype=torch.float32)
-    if skip_timesteps and init_image is None:
-        init_image = torch.zeros(shape, device=device)
-    if init_image is not None:
-        t0 = torch.full((shape[0],), n_eff - 1, dtype=torch.long, device=device)
-        img = q_sample(s, init_image.to(device=device, dtype=torch.float32), t0, img)
-    return img
 
 
 def _mixed_x0(mixer_fn: Callable, s: DiffusionSchedule, img, img2, i: int, mask, cond,

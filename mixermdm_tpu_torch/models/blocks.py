@@ -1,6 +1,6 @@
 """Transformer blocks of the denoisers, the influence net and the
 discriminators; counterpart of ``mixermdm_tpu/models/blocks.py`` (reference
-blocks.py:30-89 and influence.py:6-48).  Every block is SA -> (CA) -> FFN
+blocks.py:3-89 and influence.py:6-48).  Every block is SA -> (CA) -> FFN
 with the residual adds inside the sub-layers (``residual=True``), fused into
 the output projection on the card where no gradient is recorded."""
 
@@ -9,6 +9,23 @@ from __future__ import annotations
 from torch import nn
 
 from .layers import FFN, VanillaCrossAttention, VanillaSelfAttention
+
+
+class TransformerBlock(nn.Module):
+    """InterGen block (reference blocks.py:3-28): SA, CA to the partner
+    stream and FFN, all three on the one embedding."""
+
+    def __init__(self, latent_dim: int = 512, num_heads: int = 8, ff_size: int = 1024,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.sa_block = VanillaSelfAttention(latent_dim, num_heads, dropout)
+        self.ca_block = VanillaCrossAttention(latent_dim, num_heads, dropout)
+        self.ffn = FFN(latent_dim, ff_size, dropout)
+
+    def forward(self, x, y, emb, key_padding_mask=None):
+        h = self.sa_block(x, emb, key_padding_mask, residual=True)
+        h = self.ca_block(h, y, emb, key_padding_mask, residual=True)
+        return self.ffn(h, emb, residual=True)
 
 
 class TransformerBlockDoubleCond(nn.Module):

@@ -1,8 +1,11 @@
 """CLIP text tower and tokenizers; counterpart of
-``mixermdm_tpu/models/clip_text.py`` (reference in2in.py:56-66,109-135).
+``mixermdm_tpu/models/clip_text.py`` (reference in2in.py:56-66,109-135,
+mdm.py:71-121).
 
 The tower is token embedding + causal pre-LN transformer + ``ln_final``; its
-pooled condition is the feature at the EOT token.  With no released weights
+pooled condition is the feature at the EOT token.  :class:`ClipTextEncoder`
+is CLIP's whole ``encode_text`` (the pooled feature times
+``text_projection``), which MDM conditions on.  With no released weights
 in the repository it runs with random weights.  The tokenizers are this
 package's own copies: :class:`ClipBPETokenizer` when a BPE merges file is
 given, else :class:`HashTokenizer`, a dependency-free stand-in with CLIP's
@@ -18,12 +21,13 @@ import html
 import os
 import re
 from functools import lru_cache
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..ops import linear
 from .layers import Linear, TorchMultiheadAttention
 from .torch_compat import LayerNormAffine
 
@@ -40,14 +44,19 @@ class ClipTextConfig:
     heads: int = 12
     vocab_size: int = VOCAB_SIZE
     context_length: int = CONTEXT_LENGTH
+    projection_dim: Optional[int] = None  # 768 for ViT-L/14, 512 for ViT-B/32
 
     @staticmethod
     def vit_l_14() -> "ClipTextConfig":
-        return ClipTextConfig(width=768, layers=12, heads=12)
+        return ClipTextConfig(width=768, layers=12, heads=12, projection_dim=768)
+
+    @staticmethod
+    def vit_b_32() -> "ClipTextConfig":
+        return ClipTextConfig(width=512, layers=12, heads=8, projection_dim=512)
 
     @staticmethod
     def tiny(width: int = 64, layers: int = 2, heads: int = 4) -> "ClipTextConfig":
-        return ClipTextConfig(width=width, layers=layers, heads=heads)
+        return ClipTextConfig(width=width, layers=layers, heads=heads, projection_dim=width)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -101,6 +110,26 @@ class ClipTextTransformer(nn.Module):
         for block in self.resblocks:
             x = block(x, causal)
         return self.ln_final(x)
+
+
+class ClipTextEncoder(nn.Module):
+    """CLIP's ``encode_text``: the tower, EOT pooling and the text projection
+    (B, 77) -> (B, projection_dim), as MDM uses it (JAX ``ClipTextEncoder``).
+    The projection is a bare matrix (width, projection_dim); its product
+    runs on the ``linear_epilogue`` kernel on the card, as every bf16 dense
+    layer does."""
+
+    def __init__(self, cfg: ClipTextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.transformer = ClipTextTransformer(cfg)
+        proj_dim = cfg.projection_dim or cfg.width
+        self.text_projection = nn.Parameter(torch.empty(cfg.width, proj_dim))
+        nn.init.normal_(self.text_projection, std=cfg.width ** -0.5)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        pooled = eot_pool(self.transformer(tokens), tokens)
+        return linear(pooled, self.text_projection.t().to(pooled.dtype))
 
 
 def eot_pool(feats: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -230,16 +259,21 @@ def default_tokenizer():
     return ClipBPETokenizer(BPE_PATH) if os.path.exists(BPE_PATH) else HashTokenizer()
 
 
-def tokenize(texts: List[str], tokenizer=None,
-             context_length: int = CONTEXT_LENGTH) -> np.ndarray:
-    """Batch-encode texts to int32 (B, context_length) with
+def tokenize(texts: List[str], tokenizer=None, context_length: int = CONTEXT_LENGTH,
+             truncate: bool = True, pad_to: Optional[int] = None) -> np.ndarray:
+    """Batch-encode texts to int32 (B, pad_to or context_length) with
     ``clip.tokenize`` semantics (SOT, ids, EOT, zero padding; long texts
-    truncated with EOT kept last)."""
+    truncated to ``context_length`` with EOT kept last, or refused with
+    ``truncate=False``).  MDM's layout is ``context_length=22, pad_to=77``:
+    22 tokens at most, zero-padded to the tower's 77 (reference
+    mdm.py:104-112)."""
     tokenizer = tokenizer or default_tokenizer()
-    result = np.zeros((len(texts), context_length), dtype=np.int32)
+    result = np.zeros((len(texts), pad_to or context_length), dtype=np.int32)
     for i, text in enumerate(texts):
         ids = [SOT_TOKEN] + tokenizer.encode(text) + [EOT_TOKEN]
         if len(ids) > context_length:
+            if not truncate:
+                raise ValueError(f"text too long: {text!r}")
             ids = ids[: context_length - 1] + [EOT_TOKEN]
         result[i, : len(ids)] = ids
     return result

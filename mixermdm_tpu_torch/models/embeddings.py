@@ -44,3 +44,16 @@ class TimestepEmbedder(nn.Module):
 
     def forward(self, timesteps: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         return self.time_embed(self.pe[timesteps].to(dtype))
+
+
+class IdentityEmbedder(nn.Module):
+    """:class:`TimestepEmbedder` whose output is (B, 1, D) (reference
+    utils.py:58-72; JAX ``IdentityEmbedder``, which no path of either package
+    calls)."""
+
+    def __init__(self, latent_dim: int):
+        super().__init__()
+        self.time_embed = TimestepEmbedder(latent_dim)
+
+    def forward(self, timesteps: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return self.time_embed(timesteps, dtype)[:, None, :]

@@ -1,6 +1,9 @@
-"""User-facing assemblies: :class:`MixerMDMSystem` and the in2IN parts it
-uses; :func:`apply_sampler_overrides` switches a built system's sampler and
-its number of steps (the CLIs' ``--sampler`` / ``--sample-steps``)."""
+"""User-facing assemblies: :class:`~.mixermdm.MixerMDMSystem` and its
+submodels, the base-model systems (:class:`~.in2in.In2INSystem` in its three
+modes, :class:`~.mdm.MDMSystem`, :class:`~.intergen.InterGenSystem`);
+:func:`apply_sampler_overrides` switches a built system's sampler and its
+number of steps (the CLIs' ``--sampler`` / ``--sample-steps``);
+:func:`load_dualmdm` builds the DualMDM baseline."""
 
 from __future__ import annotations
 
@@ -29,3 +32,13 @@ def apply_sampler_overrides(system, sampler: Optional[str] = None,
             system.cfg.BETA_SCHEDULER, int(system.cfg.DIFFUSION_STEPS),
             f"ddim{int(sample_steps)}", device=system.device)
     return system
+
+
+def load_dualmdm(cfg_interaction, cfg_individual=None, **kwargs):
+    """DualMDM baseline: in2IN in dual mode (reference dualmdm.py:4-17; JAX
+    ``load_dualmdm``), on the card in its compute dtype unless ``device``
+    says otherwise.  The two released files merge at load,
+    :func:`..train.checkpoint.load_released_in2in`."""
+    from .in2in import In2INSystem
+
+    return In2INSystem(cfg_interaction, mode="dual", **kwargs)

@@ -54,9 +54,10 @@ from ..diffusion.schedule import named_schedule, resolve_sampler_strategy
 from ..models.cfg import cfg_model_x2
 from ..models.clip_text import ClipTextConfig
 from ..models.discriminator import DiscriminatorTransformer
-from ..models.layers import Int8Block, w8a8_scope
+from ..models.layers import w8a8_scope
 from ..models.mixer import MixerConfig, MixerCore, make_mixer_forward
 from ..utils.normalizer import Normalizer, hml3d_normalizer, interhuman_normalizer
+from .base import cast_params_, resolve_compute_dtype
 from .in2in import In2INSystem, generate_src_mask
 from .text import TextPipeline
 
@@ -69,18 +70,77 @@ DISC_MODULES = ("disc_i", "disc_I")
 # Probability that a training sample's conds are all zeroed (classifier-free
 # guidance training; the JAX trainer's cond_mask_prob).
 COND_MASK_PROB = 0.1
+# How the mixer builds a submodel: as a part, inside its own ``torch.device``
+# context and in f32; the mixer moves and casts it with the rest.
+SUBMODEL = dict(device=None, compute_dtype=None)
 
 
-def resolve_compute_dtype(compute_dtype, device: torch.device) -> Optional[torch.dtype]:
-    """``"auto"``: bf16 on CUDA, f32 (None) elsewhere, as the JAX package
-    picks bf16 on TPU and f32 elsewhere."""
-    if compute_dtype == "auto":
-        return torch.bfloat16 if device.type == "cuda" else None
-    if compute_dtype in ("bf16", "bfloat16", torch.bfloat16):
-        return torch.bfloat16
-    if compute_dtype in (None, "f32", "float32", torch.float32):
-        return None
-    raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+class MDMAsIndividual(nn.Module):
+    """An :class:`~.mdm.MDMSystem` as the mixer's individual submodel (MODEL1,
+    reference mixermdm.py:32-35; JAX ``MDMAsIndividual``).  Its cond is
+    ``embed_text`` of the ViT-B/32 feature, ``text_dim`` = the MDM latent
+    (512), which sets the mixer's cond offsets.  It encodes the mixer's
+    77-token layout, as the JAX adapter does."""
+
+    def __init__(self, mdm):
+        super().__init__()
+        self.mdm = mdm
+        self.text_dim = int(mdm.cfg.LATENT_DIM)
+
+    def f32_heads(self) -> list:
+        return self.mdm.f32_heads()
+
+    def denoiser_apply(self, name: str):
+        return self.mdm.denoiser
+
+    def encode_tokens(self, tokens: torch.Tensor, head: str = "individual") -> torch.Tensor:
+        return self.mdm.encode_cond_tokens({"tokens": tokens})
+
+
+class InterGenAsInteraction(nn.Module):
+    """An :class:`~.intergen.InterGenSystem` as the mixer's interaction
+    submodel (MODEL2, reference mixermdm.py:37-40; JAX
+    ``InterGenAsInteraction``)."""
+
+    def __init__(self, intergen):
+        super().__init__()
+        self.intergen = intergen
+        self.text_dim = intergen.text_dim
+
+    @property
+    def text(self) -> TextPipeline:
+        return self.intergen.text
+
+    def f32_heads(self) -> list:
+        return self.intergen.f32_heads()
+
+    def denoiser_apply(self, name: str):
+        return self.intergen.denoiser
+
+    def encode_tokens(self, tokens: torch.Tensor, head: str = "interaction") -> torch.Tensor:
+        return self.text.encode(tokens, "interaction")
+
+
+def build_mixer_system(cfg, cfg_model1, cfg_model2, clip_cfg: Optional[ClipTextConfig] = None,
+                       device="cuda", **kwargs) -> "MixerMDMSystem":
+    """A MixerMDMSystem whose submodels follow the configs' ``NAME``
+    (reference mixermdm.py:32-40): MODEL1 "MDM" or in2IN individual, MODEL2
+    "InterGen" or in2IN interaction.  ``kwargs`` go to MixerMDMSystem."""
+    from .intergen import InterGenSystem
+    from .mdm import MDMSystem
+
+    with torch.device(device):
+        if cfg_model1.get("NAME", "in2INind") == "MDM":
+            model1 = MDMAsIndividual(MDMSystem(cfg_model1, clip_cfg=clip_cfg, **SUBMODEL))
+        else:
+            model1 = In2INSystem(cfg_model1, mode="individual", clip_cfg=clip_cfg, **SUBMODEL)
+        if cfg_model2.get("NAME", "in2IN") == "InterGen":
+            model2 = InterGenAsInteraction(InterGenSystem(cfg_model2, clip_cfg=clip_cfg,
+                                                          **SUBMODEL))
+        else:
+            model2 = In2INSystem(cfg_model2, mode="interaction", clip_cfg=clip_cfg, **SUBMODEL)
+        return MixerMDMSystem(cfg, model1=model1, model2=model2, clip_cfg=clip_cfg,
+                              device=device, **kwargs)
 
 
 class MixerMDMSystem(nn.Module):
@@ -107,9 +167,9 @@ class MixerMDMSystem(nn.Module):
 
         with torch.device(device):
             self.model1 = (model1 if model1 is not None
-                           else In2INSystem(mode="individual", clip_cfg=clip_cfg))
+                           else In2INSystem(mode="individual", clip_cfg=clip_cfg, **SUBMODEL))
             self.model2 = (model2 if model2 is not None
-                           else In2INSystem(mode="interaction", clip_cfg=clip_cfg))
+                           else In2INSystem(mode="interaction", clip_cfg=clip_cfg, **SUBMODEL))
             self.text_dim = (clip_cfg or self.model2.text.clip_cfg).width
             self.mixer_cfg = MixerConfig(
                 nfeats=self.nfeats, latent_dim=int(g.LATENT_DIM), ff_size=int(g.FF_SIZE),
@@ -147,32 +207,28 @@ class MixerMDMSystem(nn.Module):
         self.cast_(self.compute_dtype, train=train)
 
     def text_pipelines(self) -> tuple:
-        """The three text pipelines: in2IN-individual's, in2IN-interaction's
-        and the mixer's own."""
-        return self.model1.text, self.model2.text, self.text
+        """The text pipelines: the submodels' (in2IN-individual's,
+        in2IN-interaction's or InterGen's; an MDM submodel has none) and the
+        mixer's own."""
+        subs = tuple(m.text for m in (self.model1, self.model2)
+                     if isinstance(getattr(m, "text", None), TextPipeline))
+        return subs + (self.text,)
 
     def cast_(self, compute_dtype, train: bool = False) -> "MixerMDMSystem":
         """Run the networks in ``compute_dtype`` (None: f32) from now on,
         with the weights cast to it once.  The text post-encoder heads of
-        all three pipelines stay f32, as the JAX package runs them on its
-        f32 parameters; with ``train`` the trainable subtrees
+        all three pipelines (and an MDM submodel's ``embed_text``) stay f32,
+        as the JAX package runs them on its f32 parameters; with ``train`` the trainable subtrees
         (:data:`GEN_MODULES`, :data:`DISC_MODULES`) keep f32 master weights
         too.  Buffers (normalizer statistics, positional tables) stay f32.
         Under ``QUANT_FROZEN`` in bf16 (not ``train``) the blocks that will
         run as int8 quantise their weights here, from the bf16 values, as
         the JAX package quantises its bf16-cast tree."""
         self.compute_dtype = compute_dtype
-        f32 = [tp.post for tp in self.text_pipelines()]
+        f32 = self.model1.f32_heads() + self.model2.f32_heads() + [self.text.post]
         if train:
             f32 += [self.get_submodule(n) for n in GEN_MODULES + DISC_MODULES]
-        keep = {id(p) for m in f32 for p in m.parameters()}
-        for p in self.parameters():
-            p.data = p.data.to(torch.float32 if id(p) in keep else compute_dtype or torch.float32)
-        if self.quant_frozen and compute_dtype == torch.bfloat16 and not train:
-            with w8a8_scope():
-                for m in self.modules():
-                    if isinstance(m, Int8Block) and m.runs_int8(compute_dtype):
-                        m.int8_weights()
+        cast_params_(self, compute_dtype, f32, self.quant_frozen and not train)
         self._mixer_forward = make_mixer_forward(
             self.mixer_cfg, self.model1.denoiser_apply("individual"),
             self.model2.denoiser_apply("interaction"), self.core,

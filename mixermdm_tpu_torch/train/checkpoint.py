@@ -1,8 +1,9 @@
-"""Released checkpoints into the port's MixerMDMSystem; counterpart of
+"""Released checkpoints into the port's systems; counterpart of
 ``mixermdm_tpu/train/checkpoint.py`` (``load_torch_state_dict``,
-``convert_in2in_system``, ``convert_mixermdm_system``) and of
-``mixermdm_tpu/cli/convert.py --family mixermdm`` (the shape-checked merge
-and the list of leaves no file filled).
+``convert_in2in_system``, ``merge_dualmdm_state_dicts``,
+``convert_mixermdm_system``, ``convert_mdm_denoiser``) and of
+``mixermdm_tpu/cli/convert.py --family mixermdm / in2in / dualmdm / mdm``
+(the shape-checked merge and the list of leaves no file filled).
 
 The reference releases a MixerMDM as three PyTorch files:
 
@@ -21,11 +22,18 @@ file's into ``model1``, the interaction file's into ``model2``, the mixer
 file's into the mixer's own ``text``.  A tower that no file holds keeps its
 values and is listed as unfilled.
 
+The base models: an in2IN file of either mode into an In2INSystem
+(:func:`load_released_in2in`); for DualMDM the interaction file and the
+individual file merged as the reference merges them; an MDM file (denoiser
+under ``model.``, tower under ``clip_model.``, ``embed_text``) into an
+MDMSystem (:func:`load_released_mdm`).
+
 The JAX package's ``--checkpoint`` is an orbax directory, which the port
 cannot read: a JAX-trained system reaches the port as torch-named files,
-written by ``export_mixermdm_system`` / ``export_in2in_system``.  The port
-writes the same three files with :func:`..weights.released_mixermdm_state_dict`
-and :func:`..weights.released_in2in_state_dict`.
+written by the JAX exporters (``export_mixermdm_system``,
+``export_in2in_system``, ``export_mdm_system``).  The port writes the same
+files with the ``released_*_state_dict`` functions of :mod:`..weights` and
+:func:`save_released`.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..weights import MIXER_RENAMES, in2in_renames, rename, without_individual_cross_attention
+from ..weights import MDM_RENAMES, MIXER_RENAMES, in2in_renames, rename, \
+    without_individual_cross_attention
 
 
 # What a pickled numpy array needs beside tensors: ``torch.save`` of the JAX
@@ -97,7 +106,34 @@ def released_entries(ckpt: Optional[str] = None, ckpt_individual: Optional[str] 
     return entries
 
 
+def save_released(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Write ``state_dict`` as the reference's files are, a Lightning
+    checkpoint: ``{"state_dict": {"model.<key>": tensor}}``.  The loaders
+    strip that ``model.``."""
+    torch.save({"state_dict": {f"model.{k}": v for k, v in state_dict.items()}}, path)
+
+
 @torch.no_grad()
+def _copy_checked(system: nn.Module, entries: Dict[str, tuple], strict: bool) -> List[str]:
+    """Copy ``{parameter path: (file, tensor)}`` into ``system`` in place,
+    every shape checked before anything is copied; returns the parameters no
+    entry filled (``strict``: a ``ValueError`` instead)."""
+    params = dict(system.named_parameters())
+    for key, (path, value) in entries.items():
+        if key not in params:
+            raise KeyError(f"{path}: {key!r} is not a parameter of the system")
+        if tuple(value.shape) != tuple(params[key].shape):
+            raise ValueError(f"{path}: shape mismatch at {key}: checkpoint "
+                             f"{tuple(value.shape)} vs model {tuple(params[key].shape)}")
+    unfilled = sorted(set(params) - set(entries))
+    if strict and unfilled:
+        raise ValueError(f"strict: {len(unfilled)} parameters are in no checkpoint file "
+                         f"(first 10): {', '.join(unfilled[:10])}")
+    for key, (_, value) in entries.items():
+        params[key].copy_(value)
+    return unfilled
+
+
 def load_released_mixermdm(system: nn.Module, ckpt: Optional[str] = None,
                            ckpt_individual: Optional[str] = None,
                            ckpt_interaction: Optional[str] = None,
@@ -113,18 +149,50 @@ def load_released_mixermdm(system: nn.Module, ckpt: Optional[str] = None,
     ``strict`` those raise a ``ValueError`` before anything is copied.
     The copy moves each weight's version, so the int8 weights of the W8A8
     blocks quantise again from the loaded values at their next call."""
-    entries = released_entries(ckpt, ckpt_individual, ckpt_interaction)
-    params = dict(system.named_parameters())
-    for key, (path, value) in entries.items():
-        if key not in params:
-            raise KeyError(f"{path}: {key!r} is not a parameter of the system")
-        if tuple(value.shape) != tuple(params[key].shape):
-            raise ValueError(f"{path}: shape mismatch at {key}: checkpoint "
-                             f"{tuple(value.shape)} vs model {tuple(params[key].shape)}")
-    unfilled = sorted(set(params) - set(entries))
-    if strict and unfilled:
-        raise ValueError(f"strict: {len(unfilled)} parameters are in no checkpoint file "
-                         f"(first 10): {', '.join(unfilled[:10])}")
-    for key, (_, value) in entries.items():
-        params[key].copy_(value)
-    return unfilled
+    return _copy_checked(system, released_entries(ckpt, ckpt_individual, ckpt_interaction),
+                         strict)
+
+
+def _in2in_file_entries(path: str, mode: str, keep=None) -> Dict[str, tuple]:
+    sd = load_torch_state_dict(path)
+    if keep is not None:
+        sd = {k: v for k, v in sd.items() if k.startswith(keep)}
+    if mode != "interaction":
+        sd = without_individual_cross_attention(sd, "decoder.net_individual.")
+    return {k: (path, v) for k, v in rename(sd, in2in_renames(mode)).items()}
+
+
+# The individual file's keys that DualMDM merges into the interaction file's
+# (JAX merge_dualmdm_state_dicts, reference dualmdm.py:4-17).
+DUAL_INDIVIDUAL_KEYS = ("decoder.net_individual", "clipTransEncoder_individual",
+                        "clip_ln_individual")
+
+
+def load_released_in2in(system: nn.Module, ckpt: Optional[str] = None,
+                        ckpt_individual: Optional[str] = None,
+                        strict: bool = False) -> List[str]:
+    """Load a released in2IN file into an In2INSystem of its mode, as
+    :func:`load_released_mixermdm` loads (shape-checked, in place, the
+    unfilled parameters returned).  In dual mode ``ckpt`` is the interaction
+    file and ``ckpt_individual`` the individual one, merged as the JAX
+    package's ``merge_dualmdm_state_dicts`` merges them: everything of the
+    interaction file, and the individual file's denoiser and head.  An
+    individual denoiser's cross-attention, which it does not have but
+    reference files carry, is left out."""
+    mode = system.mode
+    entries: Dict[str, tuple] = {}
+    if ckpt is not None:
+        entries.update(_in2in_file_entries(ckpt, mode))
+    if ckpt_individual is not None:
+        if mode != "dual":
+            raise ValueError("--ckpt-individual is the second file of the dual mode")
+        entries.update(_in2in_file_entries(ckpt_individual, mode, keep=DUAL_INDIVIDUAL_KEYS))
+    return _copy_checked(system, entries, strict)
+
+
+def load_released_mdm(system: nn.Module, ckpt: str, strict: bool = False) -> List[str]:
+    """Load a released MDM file (the denoiser under ``model.``, the tower
+    under ``clip_model.``, ``embed_text``; reference mdm.py:71-82) into an
+    MDMSystem, as :func:`load_released_mixermdm` loads."""
+    entries = {k: (ckpt, v) for k, v in rename(load_torch_state_dict(ckpt), MDM_RENAMES).items()}
+    return _copy_checked(system, entries, strict)

@@ -3,15 +3,16 @@ package's parameters converted into the port's state dicts.
 
 The conversion is this package's own copy of the mapping in
 ``mixermdm_tpu/train/checkpoint.py`` (``export_in2in_system``,
-``export_mixermdm_system`` and their helpers, lines 380-580): a tree of
-numpy arrays in the flax layout becomes a flat state dict with the reference
-PyTorch repository's key names, which :func:`load_mixermdm_params` renames
-onto this package's modules and loads strictly.  The way back,
-:func:`released_mixermdm_state_dict` and :func:`released_in2in_state_dict`,
-writes a system in the three released files' layout (the keys
-``export_mixermdm_system`` and ``export_in2in_system`` write), which the JAX
-package's ``convert_mixermdm_system`` / ``convert_in2in_system`` and this
-package's :func:`..train.checkpoint.load_released_mixermdm` read.
+``export_mixermdm_system``, ``export_mdm_system`` and their helpers, lines
+380-620): a tree of numpy arrays in the flax layout becomes a flat state
+dict with the reference PyTorch repository's key names, which the
+``load_*_params`` functions rename onto this package's modules and load
+strictly.  The way back, the ``released_*_state_dict`` functions, writes a
+system in the released files' layout (the keys the JAX exporters write),
+which the JAX package's converters and this package's
+:mod:`..train.checkpoint` loaders read.  InterGen has no released layout in
+either package (no converter); its mapping goes straight from the JAX tree
+to the port's modules.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.clip_text import ClipTextTransformer
+from .models.clip_text import ClipTextEncoder, ClipTextTransformer
 from .models.layers import Linear, TorchMultiheadAttention
 from .models.torch_compat import LayerNormAffine
 
@@ -71,6 +72,8 @@ def init_params_(module: nn.Module, seed: int, zero_init_std: float = 0.0) -> nn
         elif isinstance(m, ClipTextTransformer):
             m.token_embedding.weight.normal_(0.0, 0.02, generator=gen)
             m.positional_embedding.normal_(0.0, 0.01, generator=gen)
+        elif isinstance(m, ClipTextEncoder):
+            m.text_projection.normal_(0.0, m.cfg.width ** -0.5, generator=gen)
     return module
 
 
@@ -221,6 +224,38 @@ def export_in2in_system(params: Mapping, mode: str) -> StateDict:
     return sd
 
 
+def export_mdm_system(params: Mapping) -> StateDict:
+    """An MDMSystem param tree -> the reference MDM layout (denoiser under
+    ``model.``, CLIP tower whole under ``clip_model.`` with its projection,
+    ``embed_text``; reference mdm.py:71-82).  Released files hold these keys
+    under one more ``model.`` (a Lightning module's)."""
+    sd: StateDict = {}
+    dn = params["denoiser"]
+    export_timestep_embedder(dn["embed_timestep"], "model.embed_timestep", sd)
+    export_linear(dn["input_process"], "model.input_process.poseEmbedding", sd)
+    export_linear(dn["output_process"], "model.output_process.poseFinal", sd)
+    export_torch_encoder(dn["seqTransEncoder"], "model.seqTransEncoder", sd)
+    export_linear(params["embed_text"], "embed_text", sd)
+    if "clip" in params:
+        export_clip_text(params["clip"]["transformer"], sd, prefix="clip_model")
+        sd["clip_model.text_projection"] = _np(params["clip"]["text_projection"])
+    return sd
+
+
+def export_intergen_system(params: Mapping) -> StateDict:
+    """An InterGenSystem param tree -> a flat state dict in this package's
+    own layout for it: the CLIP tower as in2IN's, the denoiser (an
+    ``InterDenoiser`` tree, stacked ``blocks/block`` or unrolled
+    ``blocks_{i}``) under ``denoiser.``, the post-encoder head as
+    ``clipTransEncoder.`` / ``clip_ln.``."""
+    sd: StateDict = {}
+    if "clip" in params.get("text", {}):
+        export_clip_text(params["text"]["clip"], sd, transformer_name="clip_transformer")
+    sd.update(export_in2in_denoiser(params["denoiser"], "denoiser"))
+    export_clip_post_encoder(params["text"]["post_interaction"], "clipTransEncoder", "clip_ln", sd)
+    return sd
+
+
 def export_influence(params: Mapping, prefix: str, out: StateDict):
     export_linear(params["out"], f"{prefix}.out", out)
     for i, bp in enumerate(_layer_list(params, "blocks", "block", "blocks")):
@@ -270,11 +305,37 @@ _CLIP_RENAMES = (
 
 
 def in2in_renames(mode: str) -> tuple:
-    return _CLIP_RENAMES + (
-        (f"decoder.net_{mode}.", f"denoisers.{mode}."),
-        (f"clipTransEncoder_{mode}.", f"text.post.{mode}.encoder."),
-        (f"clip_ln_{mode}.", f"text.post.{mode}.ln."),
-    )
+    """The renames of an in2IN system of ``mode``; "dual" has both
+    denoisers and both heads."""
+    names = ("interaction", "individual") if mode == "dual" else (mode,)
+    return _CLIP_RENAMES + tuple(r for name in names for r in (
+        (f"decoder.net_{name}.", f"denoisers.{name}."),
+        (f"clipTransEncoder_{name}.", f"text.post.{name}.encoder."),
+        (f"clip_ln_{name}.", f"text.post.{name}.ln."),
+    ))
+
+
+_MDM_CLIP_RENAMES = (
+    ("clip_model.transformer.resblocks.", "clip.transformer.resblocks."),
+    ("clip_model.token_embedding.", "clip.transformer.token_embedding."),
+    ("clip_model.positional_embedding", "clip.transformer.positional_embedding"),
+    ("clip_model.ln_final.", "clip.transformer.ln_final."),
+    ("clip_model.text_projection", "clip.text_projection"),
+)
+
+MDM_RENAMES = _MDM_CLIP_RENAMES + (
+    ("model.embed_timestep.", "denoiser.embed_timestep."),
+    ("model.input_process.poseEmbedding.", "denoiser.input_process."),
+    ("model.output_process.poseFinal.", "denoiser.output_process."),
+    ("model.seqTransEncoder.", "denoiser.seqTransEncoder."),
+    ("embed_text.", "embed_text."),
+)
+
+INTERGEN_RENAMES = _CLIP_RENAMES + (
+    ("denoiser.", "denoiser."),
+    ("clipTransEncoder.", "text.post.interaction.encoder."),
+    ("clip_ln.", "text.post.interaction.ln."),
+)
 
 
 MIXER_RENAMES = _CLIP_RENAMES + (
@@ -300,25 +361,57 @@ def rename(sd: StateDict, renames: tuple) -> StateDict:
     return out
 
 
-def mixermdm_state_dict(params: Mapping) -> StateDict:
+def in2in_state_dict(params: Mapping, mode: str) -> StateDict:
+    """A JAX In2INSystem param tree of ``mode`` -> this package's
+    In2INSystem state dict."""
+    return rename(export_in2in_system(params, mode), in2in_renames(mode))
+
+
+def mdm_state_dict(params: Mapping) -> StateDict:
+    """A JAX MDMSystem param tree -> this package's MDMSystem state dict."""
+    return rename(export_mdm_system(params), MDM_RENAMES)
+
+
+def intergen_state_dict(params: Mapping) -> StateDict:
+    """A JAX InterGenSystem param tree -> this package's InterGenSystem
+    state dict."""
+    return rename(export_intergen_system(params), INTERGEN_RENAMES)
+
+
+def _submodel_state_dict(params: Mapping, kind: str) -> StateDict:
+    """The mixer's submodel tree (JAX ``model1`` / ``model2``) of ``kind``
+    -> its state dict under this package's adapter or in2IN system."""
+    if kind == "mdm":  # JAX MDMAsIndividual's tree
+        tree = {"denoiser": params["denoiser_individual"], "clip": params["clip"],
+                "embed_text": params["embed_text"]}
+        return {f"mdm.{k}": v for k, v in mdm_state_dict(tree).items()}
+    if kind == "intergen":  # JAX InterGenAsInteraction's tree
+        tree = {"denoiser": params["denoiser_interaction"], "text": params["text"]}
+        return {f"intergen.{k}": v for k, v in intergen_state_dict(tree).items()}
+    return in2in_state_dict(params, kind)
+
+
+def mixermdm_state_dict(params: Mapping, model1: str = "individual",
+                        model2: str = "interaction") -> StateDict:
     """A whole JAX MixerMDMSystem param tree -> this package's
-    MixerMDMSystem state dict (both denoisers, the mixer core, both
-    discriminators, the three text pipelines)."""
+    MixerMDMSystem state dict (both submodels, the mixer core, both
+    discriminators, the mixer's text pipeline).  ``model1`` is
+    "individual" (in2IN) or "mdm", ``model2`` "interaction" (in2IN) or
+    "intergen"."""
     sd: StateDict = {}
-    for name, mode in (("model1", "individual"), ("model2", "interaction")):
-        part = rename(export_in2in_system(params[name], mode), in2in_renames(mode))
-        sd.update({f"{name}.{k}": v for k, v in part.items()})
+    for name, kind in (("model1", model1), ("model2", model2)):
+        sd.update({f"{name}.{k}": v for k, v in _submodel_state_dict(params[name], kind).items()})
     sd.update(rename(export_mixermdm_system(params), MIXER_RENAMES))
     return sd
 
 
 def _released(state_dict: Mapping[str, torch.Tensor], renames: tuple,
-              with_clip: bool) -> Dict[str, torch.Tensor]:
+              with_clip: bool, clip_renames: tuple = _CLIP_RENAMES) -> Dict[str, torch.Tensor]:
     """The entries of a port state dict that ``renames`` maps, under their
     released names, as f32 CPU tensors; ``with_clip=False`` leaves the CLIP
-    tower out."""
+    tower (``clip_renames``) out."""
     if not with_clip:
-        renames = renames[len(_CLIP_RENAMES):]
+        renames = tuple(r for r in renames if r not in clip_renames)
     out = {}
     for key, value in state_dict.items():
         for ref, port in renames:
@@ -348,8 +441,19 @@ def released_in2in_state_dict(in2in_system: nn.Module, mode: str,
     top level (unless ``with_clip`` is off), as f32 CPU tensors.  With
     :func:`released_mixermdm_state_dict` a MixerMDMSystem writes all three
     released files (``system.model1`` individual, ``system.model2``
-    interaction)."""
+    interaction).  A dual (DualMDM) system writes its two files as the
+    reference ships them, ``mode`` "interaction" and "individual" (each
+    with the parts of that name); "dual" writes both parts in one dict."""
     return _released(in2in_system.state_dict(), in2in_renames(mode), with_clip)
+
+
+def released_mdm_state_dict(mdm_system: nn.Module,
+                            with_clip: bool = True) -> Dict[str, torch.Tensor]:
+    """An MDMSystem in the reference MDM layout (the keys the JAX package's
+    ``export_mdm_system`` writes), as f32 CPU tensors; save it as a
+    Lightning checkpoint (:func:`..train.checkpoint.save_released`), whose
+    ``model.`` the loaders strip."""
+    return _released(mdm_system.state_dict(), MDM_RENAMES, with_clip, _MDM_CLIP_RENAMES)
 
 
 def without_individual_cross_attention(sd: Mapping, prefix: str = "") -> dict:
@@ -369,8 +473,25 @@ def load_state_dict_np(module: nn.Module, sd: StateDict, strict: bool = True) ->
 
 def load_mixermdm_params(system: nn.Module, params: Mapping) -> nn.Module:
     """Load a JAX MixerMDMSystem param tree (numpy leaves) into a
-    :class:`~mixermdm_tpu_torch.systems.mixermdm.MixerMDMSystem`."""
-    return load_state_dict_np(system, mixermdm_state_dict(params))
+    :class:`~mixermdm_tpu_torch.systems.mixermdm.MixerMDMSystem`, its
+    submodels in2IN systems or the MDM / InterGen adapters."""
+    kinds = ("mdm" if hasattr(system.model1, "mdm") else "individual",
+             "intergen" if hasattr(system.model2, "intergen") else "interaction")
+    return load_state_dict_np(system, mixermdm_state_dict(params, *kinds))
+
+
+def load_in2in_params(system: nn.Module, params: Mapping) -> nn.Module:
+    """Load a JAX In2INSystem param tree into an In2INSystem of the same
+    mode."""
+    return load_state_dict_np(system, in2in_state_dict(params, system.mode))
+
+
+def load_mdm_params(system: nn.Module, params: Mapping) -> nn.Module:
+    return load_state_dict_np(system, mdm_state_dict(params))
+
+
+def load_intergen_params(system: nn.Module, params: Mapping) -> nn.Module:
+    return load_state_dict_np(system, intergen_state_dict(params))
 
 
 def load_denoiser_params(denoiser: nn.Module, params: Mapping) -> nn.Module:

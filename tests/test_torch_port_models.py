@@ -86,8 +86,8 @@ def port_tiny_system():
     (m1, s1), (m2, s2) = normalizer_stats()
     return MixerMDMSystem(
         Config.wrap(mixer_cfg_dict()),
-        model1=In2INSystem(c, mode="individual", clip_cfg=clip),
-        model2=In2INSystem(c, mode="interaction", clip_cfg=clip), clip_cfg=clip,
+        model1=In2INSystem(c, mode="individual", clip_cfg=clip, device="cpu"),
+        model2=In2INSystem(c, mode="interaction", clip_cfg=clip, device="cpu"), clip_cfg=clip,
         normalizer1=Normalizer(torch.from_numpy(m1), torch.from_numpy(s1)),
         normalizer2=Normalizer(torch.from_numpy(m2), torch.from_numpy(s2)), device="cpu")
 

@@ -309,8 +309,8 @@ def q8_systems():
     c = tiny_config(latent=SL, layers=SNL, heads=SNH, diffusion_steps=20)
     clip = ClipTextConfig.tiny()
     tsys = MixerMDMSystem(Config.wrap(_tiny_cfg()),
-                          model1=In2INSystem(c, mode="individual", clip_cfg=clip),
-                          model2=In2INSystem(c, mode="interaction", clip_cfg=clip),
+                          model1=In2INSystem(c, mode="individual", clip_cfg=clip, device="cpu"),
+                          model2=In2INSystem(c, mode="interaction", clip_cfg=clip, device="cpu"),
                           clip_cfg=clip,
                           normalizer1=Normalizer(torch.from_numpy(m1), torch.from_numpy(s1)),
                           normalizer2=Normalizer(torch.from_numpy(m2), torch.from_numpy(s2)),
