@@ -74,13 +74,31 @@ Phases, each printing its wall-clock seconds:
    synthetic InterHuman fixture with the launch counts of that run, the
    frozen networks bitwise unchanged, and seconds per fit step with the
    differentiated attention on the kernels and on the plain versions;
+6b. the rest of training at full width: (a) per base model (in2IN
+   interaction and individual, 1024-d on ViT-L/14; MDM, 512-d on
+   ViT-B/32; B 4, T 300, synthetic InterHuman / HumanML3D fixtures) one
+   step's gradients at dropout 0 on the kernels against the plain versions
+   and f32, then ``train-in2in`` for 2 steps per mode at the shipped
+   dropout, counted; (b) ``QUANT_TRAIN`` (the frozen denoisers as int8):
+   phase 6's gradient check of a G and a D step with the frozen outputs
+   shared, and those outputs against f32, the int8 launches of each
+   step against the frozen denoisers' modules (none of the mixer core's),
+   the frozen denoisers' int8 outputs against the int8 plain versions,
+   seconds per fit step against bf16; (c) ``train-mixermdm`` for 2 steps,
+   then ``--resume auto`` for 2 more from its ``final_state``, the restored
+   state bitwise the saved one and steps 3-4 against phase 6's 4 unbroken
+   steps, then ``--resume auto --quant-train`` for 2 more, its int8
+   launches counted; ``train-finetuned`` for one step from a released
+   individual file,
+   every ``sa_block`` bitwise unchanged and every ``ca_block`` trained;
 7. one JSON line per kernel and entry point, then the result line.
 
 Any failure exits nonzero and prints no result line.  The script imports
 nothing of JAX or of the JAX package.
 
-``python -m mixermdm_tpu_torch.scripts.grad_seeds`` runs phase 6's
-gradient check at several seeds, with a diagnosis of its gaps.
+``python -m mixermdm_tpu_torch.scripts.grad_seeds [--quant-train]`` runs
+phase 6's (or 6b (b)'s) gradient check at several seeds, with a diagnosis
+of its gaps.
 """
 
 from __future__ import annotations
@@ -444,6 +462,11 @@ def kernel_checks(gen):
         if rows == 16:
             results.append(ca_case(rows, T_IN2IN, 1024, 8, True, label=label))
         results.append(ffn_case(rows, T_IN2IN, 1024, 2048, True, label=label))
+    # The rest of training (phase 6b), drawn after every earlier check: the
+    # attention backward at the base models' training shapes, and the W8A8
+    # kernels at the rows QUANT_TRAIN gives the frozen denoisers.
+    results += base_bwd_checks(gen)
+    results += quant_train_q8_checks(gen, compare, block_params, rnd)
     _lib.reset_launch_counts()  # comparison launches do not count
     return results
 
@@ -467,6 +490,131 @@ def _bf16_ulps(got, want):
 Q8_INT8_ERR = 1
 Q8_DIFFER_SHARE = 1e-4
 Q8_SCALE_REL = 2.0 ** -7
+
+
+# --- linear_q8: f32 out to 1e-5 of max |plain|, bf16 out within one bf16
+# rounding per element ------------------------------------------------------
+def _q8_linear_case(gen, rnd, M, name, K, N, act=None, res=False):
+    """A ``linear_q8`` product at M rows against its plain version, timed."""
+    import torch
+
+    from mixermdm_tpu_torch import ops
+
+    x8, xs = ops.quant_rows(torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16))
+    w8, ws = ops.quantize_weight(rnd(N, K, std=K ** -0.5))
+    b = rnd(N, std=0.1)
+    r = rnd(M, N) if res else None
+    run = lambda: ops.linear_q8(x8, xs, w8, ws, b, activation=act, residual=r)  # noqa: E731
+    plain = lambda: ops.linear_q8_plain(x8, xs, w8, ws, b, activation=act,  # noqa: E731
+                                        residual=r)
+    out_k = run()
+    torch.cuda.synchronize()
+    out_p = plain()
+    max_abs = (out_k.float() - out_p.float()).abs().max().item()
+    rel = max_abs / max(out_p.float().abs().max().item(), 1e-6)
+    if act == "gelu":
+        ok, tol = rel <= 1e-5, "1e-5 of max |plain|"
+    else:
+        ulps = _bf16_ulps(out_k, out_p)
+        ok, tol = ulps <= 1.0, f"one bf16 rounding per element (read {ulps:.3g})"
+    out_bytes = M * N * (4 if act == "gelu" else 2)
+    n_bytes = M * K + N * K + 4 * (M + N) + 2 * N + out_bytes + (2 * M * N if res else 0)
+    b_ms, b_by = bound_ms(n_bytes, 2 * M * N * K, H100_INT8_OPS)
+    w8t = w8.t()
+    try:  # the library's int8 product (no dequantisation), a yardstick only
+        library_ms = graph_timed(lambda: torch._int_mm(x8, w8t))
+    except RuntimeError as e:
+        print(f"   torch._int_mm at M={M} K={K} N={N} not timed: {e}", flush=True)
+        library_ms = None
+    result = {
+        "check": name, "kind": "linear_q8",
+        "shape": {"M": M, "K": K, "N": N, "activation": act, "residual": res},
+        "max_abs_err": max_abs, "max_rel_err": rel, "tol": tol, "ok": bool(ok),
+        "ms": graph_timed(run), "plain_ms": graph_timed(plain),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms, "eager_ms": timed(run), "host_us": host_us(run),
+    }
+    print("   " + json.dumps(result), flush=True)
+    return result
+
+
+# --- the three q8 entry points ---------------------------------------------
+def _q8w(p, *names):
+    from mixermdm_tpu_torch import ops
+
+    return [t for n in names for t in (*ops.quantize_weight(p["w" + n]), p["b" + n])]
+
+
+def _q8_eq_ops(B, T, E, F_=None):
+    """int8 GEMM ops counted at half a bf16 op (the int8 peak is twice the
+    bf16 one), plus the bf16 attention ops."""
+    if F_:
+        return 2 * B * T * E * F_
+    return B * T * E * 4 * E + 4 * B * T * T * E
+
+
+def _sa_q8(compare, block_params, rnd, B, T, E, H, residual, kpm_tail=False, label=""):
+    import torch
+
+    from mixermdm_tpu_torch import ops
+
+    x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
+    p = block_params(E)
+    kpm = None
+    if kpm_tail:
+        kpm = torch.zeros(B, T, dtype=torch.bool, device="cuda")
+        kpm[:, T - T // 4:] = True
+    args = (x, sc, sh, *_q8w(p, "_qkv", "_o"), kpm)
+    kw = dict(n_heads=H, residual=residual)
+    n_bytes = 2 * 2 * B * T * E + 2 * 2 * B * E + 4 * E * E + 4 * 4 * E + 2 * 4 * E
+    return compare(f"fused_sa_block_q8 E={E} T={T} residual={residual}{label}",
+                   lambda: ops.fused_sa_block_q8(*args, **kw),
+                   lambda: ops.fused_sa_block_q8_plain(*args, **kw), 3e-2, n_bytes,
+                   _q8_eq_ops(B, T, E), kind="fused_sa_block_q8", B=B, T=T, E=E, H=H,
+                   residual=residual, key_padding=kpm_tail)
+
+
+def _ca_q8(compare, block_params, rnd, B, T, E, H, residual, label=""):
+    from mixermdm_tpu_torch import ops
+
+    x, xf = rnd(B, T, E), rnd(B, T, E)
+    mods = [rnd(B, E, std=0.2) for _ in range(4)]
+    p = block_params(E)
+    args = (x, xf, *mods, *_q8w(p, "_qkv", "_o"), None)
+    kw = dict(n_heads=H, residual=residual)
+    n_bytes = 2 * 3 * B * T * E + 2 * 4 * B * E + 4 * E * E + 4 * 4 * E + 2 * 4 * E
+    return compare(f"fused_ca_block_q8 E={E} T={T} residual={residual}{label}",
+                   lambda: ops.fused_ca_block_q8(*args, **kw),
+                   lambda: ops.fused_ca_block_q8_plain(*args, **kw), 3e-2, n_bytes,
+                   _q8_eq_ops(B, T, E), kind="fused_ca_block_q8", B=B, T=T, E=E, H=H,
+                   residual=residual)
+
+
+def _ffn_q8(compare, block_params, rnd, B, T, E, F_, residual, label=""):
+    from mixermdm_tpu_torch import ops
+
+    x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
+    p = block_params(E, F_)
+    args = (x, sc, sh, *_q8w(p, "1", "2"))
+    n_bytes = 2 * 2 * B * T * E + 2 * 2 * B * E + 2 * E * F_ + 6 * (F_ + E)
+    return compare(f"fused_ffn_block_q8 E={E} F={F_} residual={residual}{label}",
+                   lambda: ops.fused_ffn_block_q8(*args, residual=residual),
+                   lambda: ops.fused_ffn_block_q8_plain(*args, residual=residual), 3e-2,
+                   n_bytes, _q8_eq_ops(B, T, E, F_), kind="fused_ffn_block_q8",
+                   B=B, T=T, E=E, F=F_, residual=residual)
+
+
+def quant_train_q8_checks(gen, compare, block_params, rnd):
+    """The W8A8 kernels at the rows ``QUANT_TRAIN`` gives the frozen
+    denoisers in a fit step of phase 6b (2 x 8 person-stacked sequences of
+    300 frames): the QKV product and the three blocks of the 1024-d
+    denoisers, against their plain versions."""
+    B, T = 2 * TRAIN_B, TRAIN_T
+    label = f" B={B} training rows"
+    return [_q8_linear_case(gen, rnd, B * T, "linear_q8 QKV E=1024" + label, 1024, 3072),
+            _sa_q8(compare, block_params, rnd, B, T, 1024, 8, True, kpm_tail=True, label=label),
+            _ca_q8(compare, block_params, rnd, B, T, 1024, 8, True, label=label),
+            _ffn_q8(compare, block_params, rnd, B, T, 1024, 2048, True, label=label)]
 
 
 def q8_checks(gen, compare, block_params, rnd):
@@ -550,54 +698,15 @@ def q8_checks(gen, compare, block_params, rnd):
         print("   " + json.dumps(res), flush=True)
         results.append(res)
 
-    # --- linear_q8: f32 out to 1e-5 of max |plain|, bf16 out within one
-    # bf16 rounding per element --------------------------------------------
-    def q8_case(name, K, N, act=None, res=False):
-        x8, xs = ops.quant_rows(torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16))
-        w8, ws = ops.quantize_weight(rnd(N, K, std=K ** -0.5))
-        b = rnd(N, std=0.1)
-        r = rnd(M, N) if res else None
-        run = lambda: ops.linear_q8(x8, xs, w8, ws, b, activation=act, residual=r)  # noqa: E731
-        plain = lambda: ops.linear_q8_plain(x8, xs, w8, ws, b, activation=act,  # noqa: E731
-                                            residual=r)
-        out_k = run()
-        torch.cuda.synchronize()
-        out_p = plain()
-        max_abs = (out_k.float() - out_p.float()).abs().max().item()
-        rel = max_abs / max(out_p.float().abs().max().item(), 1e-6)
-        if act == "gelu":
-            ok, tol = rel <= 1e-5, "1e-5 of max |plain|"
-        else:
-            ulps = _bf16_ulps(out_k, out_p)
-            ok, tol = ulps <= 1.0, f"one bf16 rounding per element (read {ulps:.3g})"
-        out_bytes = M * N * (4 if act == "gelu" else 2)
-        n_bytes = M * K + N * K + 4 * (M + N) + 2 * N + out_bytes + (2 * M * N if res else 0)
-        b_ms, b_by = bound_ms(n_bytes, 2 * M * N * K, H100_INT8_OPS)
-        w8t = w8.t()
-        try:  # the library's int8 product (no dequantisation), a yardstick only
-            library_ms = graph_timed(lambda: torch._int_mm(x8, w8t))
-        except RuntimeError as e:
-            print(f"   torch._int_mm at M={M} K={K} N={N} not timed: {e}", flush=True)
-            library_ms = None
-        result = {
-            "check": name, "kind": "linear_q8",
-            "shape": {"M": M, "K": K, "N": N, "activation": act, "residual": res},
-            "max_abs_err": max_abs, "max_rel_err": rel, "tol": tol, "ok": bool(ok),
-            "ms": graph_timed(run), "plain_ms": graph_timed(plain),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms, "eager_ms": timed(run), "host_us": host_us(run),
-        }
-        print("   " + json.dumps(result), flush=True)
-        return result
-
-    results.append(q8_case("linear_q8 QKV E=1024", 1024, 3072))
-    results.append(q8_case("linear_q8 FFN1 gelu f32 E=1024", 1024, 2048, act="gelu"))
-    results.append(q8_case("linear_q8 FFN2 +residual E=1024", 2048, 1024, res=True))
-    results.append(q8_case("linear_q8 out-proj +residual E=1024", 1024, 1024, res=True))
-    results.append(q8_case("linear_q8 QKV E=512", 512, 1536))
-    results.append(q8_case("linear_q8 out-proj +residual E=512", 512, 512, res=True))
-    results.append(q8_case("linear_q8 FFN1 gelu f32 E=512", 512, 1024, act="gelu"))
-    results.append(q8_case("linear_q8 FFN2 +residual E=512", 1024, 512, res=True))
+    for name, K, N, kw in (("QKV E=1024", 1024, 3072, {}),
+                           ("FFN1 gelu f32 E=1024", 1024, 2048, {"act": "gelu"}),
+                           ("FFN2 +residual E=1024", 2048, 1024, {"res": True}),
+                           ("out-proj +residual E=1024", 1024, 1024, {"res": True}),
+                           ("QKV E=512", 512, 1536, {}),
+                           ("out-proj +residual E=512", 512, 512, {"res": True}),
+                           ("FFN1 gelu f32 E=512", 512, 1024, {"act": "gelu"}),
+                           ("FFN2 +residual E=512", 1024, 512, {"res": True})):
+        results.append(_q8_linear_case(gen, rnd, M, "linear_q8 " + name, K, N, **kw))
     results += fused_q8_checks(gen, rnd)
 
     # --- attention, f32 output (the W8A8 self-attention block) --------------
@@ -612,64 +721,13 @@ def q8_checks(gen, compare, block_params, rnd):
             2e-2, 2 * 3 * 8 * 8 * 299 * D + 4 * 8 * 8 * 299 * D, 4 * 8 * 8 * 299 * 299 * D,
             kind="attention", B=8, H=8, Tq=299, Tk=299, D=D, zero_attn=True, out="f32"))
 
-    # --- the three q8 entry points -------------------------------------------
-    def q8w(p, *names):
-        return [t for n in names for t in (*ops.quantize_weight(p["w" + n]), p["b" + n])]
-
-    def eq_ops(B, T, E, F_=None):
-        """int8 GEMM ops counted at half a bf16 op (the int8 peak is twice
-        the bf16 one), plus the bf16 attention ops."""
-        if F_:
-            return 2 * B * T * E * F_
-        return B * T * E * 4 * E + 4 * B * T * T * E
-
-    def sa_q8(B, T, E, H, residual, kpm_tail=False):
-        x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
-        p = block_params(E)
-        kpm = None
-        if kpm_tail:
-            kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
-            kpm[:, T - T // 4:] = True
-        args = (x, sc, sh, *q8w(p, "_qkv", "_o"), kpm)
-        kw = dict(n_heads=H, residual=residual)
-        n_bytes = 2 * 2 * B * T * E + 2 * 2 * B * E + 4 * E * E + 4 * 4 * E + 2 * 4 * E
-        return compare(f"fused_sa_block_q8 E={E} T={T} residual={residual}",
-                       lambda: ops.fused_sa_block_q8(*args, **kw),
-                       lambda: ops.fused_sa_block_q8_plain(*args, **kw), 3e-2, n_bytes,
-                       eq_ops(B, T, E), kind="fused_sa_block_q8", B=B, T=T, E=E, H=H,
-                       residual=residual, key_padding=kpm_tail)
-
-    def ca_q8(B, T, E, H, residual):
-        x, xf = rnd(B, T, E), rnd(B, T, E)
-        mods = [rnd(B, E, std=0.2) for _ in range(4)]
-        p = block_params(E)
-        args = (x, xf, *mods, *q8w(p, "_qkv", "_o"), None)
-        kw = dict(n_heads=H, residual=residual)
-        n_bytes = 2 * 3 * B * T * E + 2 * 4 * B * E + 4 * E * E + 4 * 4 * E + 2 * 4 * E
-        return compare(f"fused_ca_block_q8 E={E} T={T} residual={residual}",
-                       lambda: ops.fused_ca_block_q8(*args, **kw),
-                       lambda: ops.fused_ca_block_q8_plain(*args, **kw), 3e-2, n_bytes,
-                       eq_ops(B, T, E), kind="fused_ca_block_q8", B=B, T=T, E=E, H=H,
-                       residual=residual)
-
-    def ffn_q8(B, T, E, F_, residual):
-        x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
-        p = block_params(E, F_)
-        args = (x, sc, sh, *q8w(p, "1", "2"))
-        n_bytes = 2 * 2 * B * T * E + 2 * 2 * B * E + 2 * E * F_ + 6 * (F_ + E)
-        return compare(f"fused_ffn_block_q8 E={E} F={F_} residual={residual}",
-                       lambda: ops.fused_ffn_block_q8(*args, residual=residual),
-                       lambda: ops.fused_ffn_block_q8_plain(*args, residual=residual), 3e-2,
-                       n_bytes, eq_ops(B, T, E, F_), kind="fused_ffn_block_q8",
-                       B=B, T=T, E=E, F=F_, residual=residual)
-
-    results.append(sa_q8(8, 299, 1024, 8, True))
-    results.append(sa_q8(8, 299, 1024, 8, False, kpm_tail=True))
-    results.append(sa_q8(8, 299, 512, 8, True))
-    results.append(ca_q8(8, 299, 1024, 8, True))
-    results.append(ca_q8(8, 299, 512, 8, True))
-    results.append(ffn_q8(8, 299, 1024, 2048, True))
-    results.append(ffn_q8(8, 299, 512, 1024, True))
+    results.append(_sa_q8(compare, block_params, rnd, 8, 299, 1024, 8, True))
+    results.append(_sa_q8(compare, block_params, rnd, 8, 299, 1024, 8, False, kpm_tail=True))
+    results.append(_sa_q8(compare, block_params, rnd, 8, 299, 512, 8, True))
+    results.append(_ca_q8(compare, block_params, rnd, 8, 299, 1024, 8, True))
+    results.append(_ca_q8(compare, block_params, rnd, 8, 299, 512, 8, True))
+    results.append(_ffn_q8(compare, block_params, rnd, 8, 299, 1024, 2048, True))
+    results.append(_ffn_q8(compare, block_params, rnd, 8, 299, 512, 1024, True))
     return results
 
 
@@ -842,6 +900,124 @@ BWD_BF16_TOL = 1e-2
 STATS_TOL = 1e-5
 
 
+# --- attention_bwd -------------------------------------------------------
+# What autograd runs (ops.FusedAttention): the forward that also writes
+# the row statistics, then the backward from them and the forward's
+# output.  The row's ms times that pair, against SDPA forward + backward;
+# the backward alone stands beside it.
+def _bwd_case(gen, name, dt, B, H, T, D, zero_attn, kpm_tail, masked_rows=(), time_it=True):
+    import torch
+    import torch.nn.functional as F
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import attention as attn_mod
+
+    dev = torch.device("cuda")
+    q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device=dev).to(dt) for _ in range(4))
+    kpm = None
+    if kpm_tail or masked_rows:
+        kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
+        if kpm_tail:
+            kpm[:, T - T // 5:] = True
+        for r in masked_rows:
+            kpm[r] = True                      # every key of one sequence masked
+    out, stats = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True)
+    kern = lambda: ops.attention_bwd(q, k, v, kpm, g, zero_attn, stats, out)  # noqa: E731
+    plain = lambda: ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn, stats,  # noqa: E731
+                                            out)
+
+    def pair():
+        o, st = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True)
+        return ops.attention_bwd(q, k, v, kpm, g, zero_attn, st, o)
+
+    def plain_pair():
+        o = ops.fused_attention_plain(q, k, v, kpm, None, zero_attn)
+        st = attn_mod.attention_stats_plain(q, k, kpm, None, zero_attn)
+        return ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn, st, o)
+
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    # The forward's statistics against their plain version (f32 logits).
+    stats_p = attn_mod.attention_stats_plain(q, k, kpm, None, zero_attn)
+    stats_err = max(((stats[i] - stats_p[i]).abs().max()
+                     / stats_p[i].abs().max().clamp_min(1e-30)).item() for i in range(2))
+    # The f32 truth: torch.autograd.grad through the plain forward on the
+    # inputs widened to f32 (no custom backward involved).
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    out_f = ops.fused_attention_plain(*leaves, kpm, None, zero_attn)
+    want_f = torch.autograd.grad(out_f, leaves, g.float())
+    # The JAX kernel's dsum = rowsum(dp * p) with p recomputed: a reading
+    # of what the identity rowsum(g * o) moves.
+    exact = ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    f32 = dt == torch.float32
+    errs = {n: {"vs_plain": rel(a, b), "vs_f32_autograd": rel(a, c),
+                "plain_vs_f32_autograd": rel(b, c), "vs_plain_recomputed": rel(a, x)}
+            for n, a, b, c, x in zip(("dq", "dk", "dv"), got, want, want_f, exact)}
+    tol = F32_TOL if f32 else BWD_BF16_TOL
+    ok = all(e["vs_plain"] <= tol for e in errs.values()) and stats_err <= STATS_TOL
+    if f32:
+        ok = ok and all(e["vs_f32_autograd"] <= tol for e in errs.values())
+    else:  # witness: no farther from the f32 gradients than the plain version
+        ok = ok and all(
+            e["vs_f32_autograd"] <= WITNESS_RATIO * max(e["plain_vs_f32_autograd"], 1e-6)
+            for e in errs.values())
+    ok = ok and all(bool(torch.isfinite(t.float()).all()) for t in got)
+    # The pair's bound: q, k, v read and o written by the forward (and
+    # the statistics); q, k, v, g, o read and dq, dk, dv written by the
+    # backward; 2 + 5 products of 2 * B*H*T*T*D operations.
+    e = q.element_size()
+    pair_bytes = 12 * B * H * T * D * e + 8 * B * H * T + (2 * B * T if kpm is not None else 0)
+    b_ms, b_by = bound_ms(pair_bytes, 7 * 2 * B * H * T * T * D,
+                          H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
+    bwd_b_ms, _ = bound_ms(8 * B * H * T * D * e + 8 * B * H * T,
+                           5 * 2 * B * H * T * T * D,
+                           H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
+    res = {
+        "check": name, "kind": "attention_bwd",
+        "shape": {"B": B, "H": H, "Tq": T, "Tk": T, "D": D, "dtype": str(dt)[6:],
+                  "zero_attn": zero_attn, "key_padding": kpm_tail,
+                  "masked_rows": list(masked_rows)},
+        "max_abs_err": max(((a.float() - b.float()).abs().max().item())
+                           for a, b in zip(got, want)),
+        "max_rel_err": max(e["vs_plain"] for e in errs.values()),
+        "errors": errs, "tol_rel": tol, "stats_rel_err": stats_err, "stats_tol": STATS_TOL,
+        "witness": None if f32 else
+        f"vs_f32_autograd <= {WITNESS_RATIO} x plain_vs_f32_autograd",
+        "ok": bool(ok),
+    }
+    if time_it:
+        kz = torch.cat([k, k.new_zeros(B, H, 1, D)], 2) if zero_attn else k
+        vz = torch.cat([v, v.new_zeros(B, H, 1, D)], 2) if zero_attn else v
+        bias = torch.zeros(B, 1, T, kz.shape[2], device=dev, dtype=dt)
+        if kpm is not None:
+            bias[..., :T] += ops.attention.key_bias(kpm)[:, None, None, :].to(dt)
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, kz, vz))
+
+        def library():  # SDPA forward + backward with the zero key appended
+            o = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias)
+            return torch.autograd.grad(o, (lq, lk, lv), g)
+
+        res.update({
+            "ms": graph_timed(pair), "timing": "forward with statistics + backward",
+            "bwd_ms": graph_timed(kern), "plain_ms": graph_timed(plain_pair),
+            "bound_ms": b_ms, "bound_by": b_by, "bwd_bound_ms": bwd_b_ms,
+            # The yardstick read as every other row's is (captured in a
+            # CUDA graph after a warm-up on a side stream, then
+            # replayed), and eager beside it.
+            "library_ms": graph_timed(library),
+            "library_timing": "CUDA-graph replay (autograd)",
+            "library_eager_ms": timed(library), "eager_ms": timed(pair),
+            "host_us": host_us(kern), "pair_host_us": host_us(pair),
+        })
+    print("   " + json.dumps(res), flush=True)
+    return res
+
+
 def train_kernel_checks(gen, compare):
     """The kernels of the training path: the f32-input ``attention`` (the
     text heads) and ``attention_bwd`` (G step: discriminators in bf16, the
@@ -850,7 +1026,6 @@ def train_kernel_checks(gen, compare):
     import torch.nn.functional as F
 
     from mixermdm_tpu_torch import ops
-    from mixermdm_tpu_torch.ops import attention as attn_mod
 
     dev = torch.device("cuda")
     results = []
@@ -858,9 +1033,10 @@ def train_kernel_checks(gen, compare):
     def rnd(*shape, dt=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dt)
 
-    # --- attention, f32 inputs ----------------------------------------------
-    for name, (B, H, T, D, causal) in (("attention f32 post-encoder D=96", (2, 8, 77, 96, False)),
-                                        ("attention f32 clip tower D=64", (2, 12, 77, 64, True))):
+    # --- attention, f32 inputs ---------------------------------------------
+    f32_cases = (("attention f32 post-encoder D=96", (2, 8, 77, 96, False)),
+                 ("attention f32 clip tower D=64", (2, 12, 77, 64, True)))
+    for name, (B, H, T, D, causal) in f32_cases:
         q, k, v = rnd(B, H, T, D), rnd(B, H, T, D), rnd(B, H, T, D)
         am = torch.triu(torch.full((T, T), float("-inf"), device=dev), 1) if causal else None
         n_bytes = 4 * 4 * B * H * T * D + (4 * T * T if causal else 0)
@@ -872,130 +1048,34 @@ def train_kernel_checks(gen, compare):
             kind="attention_f32", peak=H100_F32_FLOPS, B=B, H=H, Tq=T, Tk=T, D=D,
             zero_attn=False, causal=causal))
 
-    # --- attention_bwd -------------------------------------------------------
-    # What autograd runs (ops.FusedAttention): the forward that also writes
-    # the row statistics, then the backward from them and the forward's
-    # output.  The row's ms times that pair, against SDPA forward + backward;
-    # the backward alone stands beside it.
-    def bwd_case(name, dt, B, H, T, D, zero_attn, kpm_tail, masked_rows=(), time_it=True):
-        q, k, v, g = (rnd(B, H, T, D, dt=dt) for _ in range(4))
-        kpm = None
-        if kpm_tail or masked_rows:
-            kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
-            if kpm_tail:
-                kpm[:, T - T // 5:] = True
-            for r in masked_rows:
-                kpm[r] = True                      # every key of one sequence masked
-        out, stats = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True)
-        kern = lambda: ops.attention_bwd(q, k, v, kpm, g, zero_attn, stats, out)  # noqa: E731
-        plain = lambda: ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn, stats,  # noqa: E731
-                                                out)
-
-        def pair():
-            o, st = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True)
-            return ops.attention_bwd(q, k, v, kpm, g, zero_attn, st, o)
-
-        def plain_pair():
-            o = ops.fused_attention_plain(q, k, v, kpm, None, zero_attn)
-            st = attn_mod.attention_stats_plain(q, k, kpm, None, zero_attn)
-            return ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn, st, o)
-
-        got = kern()
-        torch.cuda.synchronize()
-        want = plain()
-        # The forward's statistics against their plain version (f32 logits).
-        stats_p = attn_mod.attention_stats_plain(q, k, kpm, None, zero_attn)
-        stats_err = max(((stats[i] - stats_p[i]).abs().max()
-                         / stats_p[i].abs().max().clamp_min(1e-30)).item() for i in range(2))
-        # The f32 truth: torch.autograd.grad through the plain forward on the
-        # inputs widened to f32 (no custom backward involved).
-        leaves = [t.float().requires_grad_() for t in (q, k, v)]
-        out_f = ops.fused_attention_plain(*leaves, kpm, None, zero_attn)
-        want_f = torch.autograd.grad(out_f, leaves, g.float())
-        # The JAX kernel's dsum = rowsum(dp * p) with p recomputed: a reading
-        # of what the identity rowsum(g * o) moves.
-        exact = ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn)
-
-        def rel(a, b):
-            return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
-
-        f32 = dt == torch.float32
-        errs = {n: {"vs_plain": rel(a, b), "vs_f32_autograd": rel(a, c),
-                    "plain_vs_f32_autograd": rel(b, c), "vs_plain_recomputed": rel(a, x)}
-                for n, a, b, c, x in zip(("dq", "dk", "dv"), got, want, want_f, exact)}
-        tol = F32_TOL if f32 else BWD_BF16_TOL
-        ok = all(e["vs_plain"] <= tol for e in errs.values()) and stats_err <= STATS_TOL
-        if f32:
-            ok = ok and all(e["vs_f32_autograd"] <= tol for e in errs.values())
-        else:  # witness: no farther from the f32 gradients than the plain version
-            ok = ok and all(
-                e["vs_f32_autograd"] <= WITNESS_RATIO * max(e["plain_vs_f32_autograd"], 1e-6)
-                for e in errs.values())
-        ok = ok and all(bool(torch.isfinite(t.float()).all()) for t in got)
-        # The pair's bound: q, k, v read and o written by the forward (and
-        # the statistics); q, k, v, g, o read and dq, dk, dv written by the
-        # backward; 2 + 5 products of 2 * B*H*T*T*D operations.
-        e = q.element_size()
-        pair_bytes = 12 * B * H * T * D * e + 8 * B * H * T + (2 * B * T if kpm is not None else 0)
-        b_ms, b_by = bound_ms(pair_bytes, 7 * 2 * B * H * T * T * D,
-                              H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
-        bwd_b_ms, _ = bound_ms(8 * B * H * T * D * e + 8 * B * H * T,
-                               5 * 2 * B * H * T * T * D,
-                               H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
-        res = {
-            "check": name, "kind": "attention_bwd",
-            "shape": {"B": B, "H": H, "Tq": T, "Tk": T, "D": D, "dtype": str(dt)[6:],
-                      "zero_attn": zero_attn, "key_padding": kpm_tail,
-                      "masked_rows": list(masked_rows)},
-            "max_abs_err": max(((a.float() - b.float()).abs().max().item())
-                               for a, b in zip(got, want)),
-            "max_rel_err": max(e["vs_plain"] for e in errs.values()),
-            "errors": errs, "tol_rel": tol, "stats_rel_err": stats_err, "stats_tol": STATS_TOL,
-            "witness": None if f32 else
-            f"vs_f32_autograd <= {WITNESS_RATIO} x plain_vs_f32_autograd",
-            "ok": bool(ok),
-        }
-        if time_it:
-            kz = torch.cat([k, k.new_zeros(B, H, 1, D)], 2) if zero_attn else k
-            vz = torch.cat([v, v.new_zeros(B, H, 1, D)], 2) if zero_attn else v
-            bias = torch.zeros(B, 1, T, kz.shape[2], device=dev, dtype=dt)
-            if kpm is not None:
-                bias[..., :T] += ops.attention.key_bias(kpm)[:, None, None, :].to(dt)
-            lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, kz, vz))
-
-            def library():  # SDPA forward + backward with the zero key appended
-                o = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias)
-                return torch.autograd.grad(o, (lq, lk, lv), g)
-
-            res.update({
-                "ms": graph_timed(pair), "timing": "forward with statistics + backward",
-                "bwd_ms": graph_timed(kern), "plain_ms": graph_timed(plain_pair),
-                "bound_ms": b_ms, "bound_by": b_by, "bwd_bound_ms": bwd_b_ms,
-                # The yardstick read as every other row's is (captured in a
-                # CUDA graph after a warm-up on a side stream, then
-                # replayed), and eager beside it.
-                "library_ms": graph_timed(library),
-                "library_timing": "CUDA-graph replay (autograd)",
-                "library_eager_ms": timed(library), "eager_ms": timed(pair),
-                "host_us": host_us(kern), "pair_host_us": host_us(pair),
-            })
-        print("   " + json.dumps(res), flush=True)
-        return res
-
     # G step: the discriminators' attention (bf16, 4 heads of 64, T = 300,
     # zero-attn, key padding) and the mixer head's (f32, 8 heads of 96).
-    results.append(bwd_case("attention_bwd bf16 discriminator", torch.bfloat16, 8, 4, 300, 64,
-                            True, True))
-    results.append(bwd_case("attention_bwd f32 post-encoder", torch.float32, 8, 8, 77, 96,
-                            False, False))
+    results.append(_bwd_case(gen, "attention_bwd bf16 discriminator", torch.bfloat16, 8, 4,
+                             300, 64, True, True))
+    results.append(_bwd_case(gen, "attention_bwd f32 post-encoder", torch.float32, 8, 8, 77,
+                             96, False, False))
     # A sequence whose keys are all masked, with and without the zero key,
     # in both dtypes (small: checks, not timed).
     for dt, D in ((torch.bfloat16, 64), (torch.float32, 96)):
         for zero_attn in (True, False):
-            results.append(bwd_case(
-                f"attention_bwd {str(dt)[6:]} fully masked row zero_attn={zero_attn}", dt,
+            results.append(_bwd_case(
+                gen, f"attention_bwd {str(dt)[6:]} fully masked row zero_attn={zero_attn}", dt,
                 3, 2, 45, D, zero_attn, True, masked_rows=(1,), time_it=False))
     return results
+
+
+def base_bwd_checks(gen):
+    """``attention_bwd`` at the base models' training shapes (phase 6b's
+    denoisers at dropout 0: in2IN's 8 heads of 128 over 300 frames and the
+    zero key, MDM's 4 heads of 128 over the cond token + 300 frames without
+    it; both under a key mask, B 4), against its plain version."""
+    import torch
+
+    # in2IN stacks the two persons: 2 x B rows.
+    return [_bwd_case(gen, "attention_bwd bf16 in2IN denoiser D=128", torch.bfloat16,
+                      2 * BASE_TRAIN_B, 8, TRAIN_T, 128, True, True),
+            _bwd_case(gen, "attention_bwd bf16 MDM encoder D=128", torch.bfloat16, BASE_TRAIN_B,
+                      4, TRAIN_T + 1, 128, False, True)]
 
 
 # --------------------------------------------------------------------------
@@ -2285,12 +2365,14 @@ def _device_batch(system, batch):
             **system.tokenize_batch(batch)}
 
 
-def _grad_step(seed, normalizer, batch_np):
+def _grad_step(seed, normalizer, batch_np, quant_train=False):
     """The full-width training system at ``seed`` with ``normalizer`` (the
     fixture's statistics, :func:`_fixture_normalizer`), its f32 twin, and
     ``side(sys_, mode, plain) -> (losses, {subtree: flat gradient})``: one
     G or D step's gradients of the trained subtrees, on the kernels or
-    (``plain``) the plain versions."""
+    (``plain``) the plain versions.  ``quant_train``: the system's frozen
+    denoisers run as int8 inside the loss (``QUANT_TRAIN``); the f32 twin
+    runs them in f32, where nothing quantises."""
     import torch
 
     from mixermdm_tpu_torch import ops
@@ -2299,7 +2381,8 @@ def _grad_step(seed, normalizer, batch_np):
     from mixermdm_tpu_torch.train.trainer import trainable_params
 
     t0 = time.time()
-    system = build_system(MODEL_CFG, device="cuda", seed=seed, zero_init_std=0.02, train=True)
+    system = build_system(MODEL_CFG, device="cuda", seed=seed, zero_init_std=0.02, train=True,
+                          quant_train=quant_train or None)
     system.normalizer1 = system.normalizer2 = normalizer
     system.cast_(system.compute_dtype, train=True)  # the forward takes the new statistics
     twin = copy.deepcopy(system).cast_(None, train=True)
@@ -2379,14 +2462,126 @@ def grad_check(seed, normalizer, batch_np):
     return gaps
 
 
-def train_phase(seed):
+# The frozen denoisers of the mixer, (submodel, denoiser name).
+FROZEN = (("model1", "individual"), ("model2", "interaction"))
+
+
+@contextlib.contextmanager
+def _frozen_outputs(system, edit):
+    """Inside the block, each call of a frozen denoiser returns
+    ``edit((name, i), out)`` (``i`` its call index in the block) where that
+    is not None."""
+    calls = collections.Counter()
+
+    def hook(name):
+        def fn(module, args, out):
+            key = (name, calls[name])
+            calls[name] += 1
+            return edit(key, out)
+        return fn
+
+    handles = [getattr(system, sub).denoisers[name].register_forward_hook(hook(name))
+               for sub, name in FROZEN]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def quant_grad_check(seed, normalizer, batch_np):
+    """Phase 6's gradient check under ``QUANT_TRAIN``: one G and one D step
+    with the frozen denoisers as int8 on the kernels and on the plain
+    versions (the f32 twin runs them in f32, without int8).  int8 rounds a
+    value on a boundary one step either way, so the two int8 frozen outputs
+    differ by about as much as either differs from f32, and at random
+    weights ``center_person`` amplifies any such difference into the G
+    gradient (ROADMAP Queue 3 item 3; scripts/grad_seeds.py --quant-train).
+    So the int8 part is held at its outputs, and the trained part with
+    those outputs shared:
+
+    - each frozen output: kernels vs plain on NET_TOL (rel max, as phase 4
+      holds its networks), kernels vs f32 at most WITNESS_RATIO x plain vs
+      f32 (the int8 kernels no farther from f32 than their plain versions);
+    - each trained subtree's gradient of the plain and the f32 step fed the
+      kernels' frozen outputs: kernels vs that plain step on GRAD_TOL, and
+      the witness against that f32 step, as phase 6 holds them.
+
+    The gaps of the steps each on its own frozen outputs are printed, a
+    reading.  Every gap is printed before any is held.  Returns {name:
+    (k-p, p-f, k-f) with own outputs, then the same with shared ones}."""
+    import torch
+
+    system, twin, side = _grad_step(seed, normalizer, batch_np, quant_train=True)
+
+    def run(sys_, mode, plain, edit):
+        with _frozen_outputs(sys_, edit):
+            return side(sys_, mode, plain)
+
+    def capture(store):
+        def edit(key, o):
+            store[key] = o.detach()
+        return edit
+
+    outputs, grads = [], []  # (what, kernels, plain, f32)
+    for mode in ("generator", "discriminator"):
+        ok, op, of = {}, {}, {}
+        lk, gk = run(system, mode, False, capture(ok))
+        lp, gp = run(system, mode, True, capture(op))
+        lf, gf = run(twin, mode, True, capture(of))
+        fed = lambda key, o: ok[key].to(o.dtype)  # noqa: E731
+        (ls, gs), (lsf, gsf) = run(system, mode, True, fed), run(twin, mode, True, fed)
+        print(f"   (b) QUANT_TRAIN {mode} step losses, kernels / plain / f32 / plain and f32 fed "
+              f"the kernels' frozen outputs: " + ", ".join(
+                  f"{k} {lk[k]:.6g} / {lp[k]:.6g} / {lf[k]:.6g} / {ls[k]:.6g} / {lsf[k]:.6g}"
+                  for k in lk), flush=True)
+        if not all(math.isfinite(v) for d in (lk, lp, lf, ls, lsf) for v in d.values()):
+            raise SmokeFailure(f"QUANT_TRAIN {mode} step losses are not finite")
+        outputs += [(f"(b) QUANT_TRAIN {mode} step, frozen {key[0]} denoiser output", ok[key],
+                     op[key], of[key]) for key in ok]
+        grads += [(f"{mode}.{k}", (gk[k], gp[k], gf[k]), (gk[k], gs[k], gsf[k])) for k in gk]
+    del system, twin
+    torch.cuda.empty_cache()
+
+    def three(k_, p_, f_):
+        return _gaps(k_, p_)[2], _gaps(p_, f_)[2], _gaps(k_, f_)[2]
+
+    for what, *kpf in outputs:
+        kp, pf, kf = three(*kpf)
+        print(f"   {what}, rel(fro): kernels vs plain {kp:.5g}, plain vs f32 {pf:.5g}, kernels "
+              f"vs f32 {kf:.5g} (witness ratio {kf / max(pf, 1e-12):.4g})", flush=True)
+    gaps = {}
+    for name, own, fed in grads:
+        gaps[name] = three(*own) + three(*fed)
+        g = gaps[name]
+        print(f"   (b) QUANT_TRAIN seed {seed}, {name} gradient, rel(fro), each step on its own "
+              f"frozen outputs: kernels vs plain {g[0]:.5g}, plain vs f32 {g[1]:.5g}, kernels vs "
+              f"f32 {g[2]:.5g} (witness ratio {g[2] / max(g[1], 1e-12):.4g}), a reading; plain "
+              f"and f32 fed the kernels' frozen outputs: {g[3]:.5g}, {g[4]:.5g}, {g[5]:.5g} "
+              f"(witness ratio {g[5] / max(g[4], 1e-12):.4g})", flush=True)
+    held = outputs + [(f"(b) QUANT_TRAIN {name.split('.')[0]} step, gradient of "
+                       f"{name.split('.', 1)[1]}, frozen outputs shared", *fed)
+                      for name, _, fed in grads]
+    for what, k_, p_, f_ in held:
+        if "shared" in what:
+            _agree(what, k_, p_, GRAD_TOL, "fro")
+        else:  # held as phase 4 holds its networks' outputs
+            _agree(what, k_, p_, NET_TOL, "max")
+        gap_p = _agree(what, p_, f_, None, "fro", "plain vs f32")
+        _agree(what, k_, f_, WITNESS_RATIO * gap_p, "fro",
+               f"kernels vs f32 (at most {WITNESS_RATIO} x plain vs f32)")
+    return gaps
+
+
+def train_phase(seed, tmp):
     """Gradient check of one G and one D step (kernels vs plain versions vs
     f32), the training CLI on a synthetic fixture with its launch counts,
     and seconds per fit step with the differentiated attention on the
-    kernels and on the plain versions."""
+    kernels and on the plain versions.  The fixture and the training run's
+    files stay under ``tmp`` for phase 6b.  Returns (launches of the
+    training run, {"argv", "records", "state", "data", and the gradient
+    check's "batch_np" and "normalizer"})."""
     import os
-    import shutil
-    import tempfile
 
     import torch
 
@@ -2397,7 +2592,6 @@ def train_phase(seed):
     from mixermdm_tpu_torch.data.loader import collate
     from mixermdm_tpu_torch.models import layers
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         data = os.path.join(tmp, "data")
         _fixture(data, seed)
@@ -2407,7 +2601,8 @@ def train_phase(seed):
               f"{batch_np['motion_lens'].tolist()} of T = {batch_np['motions'].shape[1]}",
               flush=True)
 
-        grad_check(seed, _fixture_normalizer(dataset), batch_np)
+        normalizer = _fixture_normalizer(dataset)
+        grad_check(seed, normalizer, batch_np)
 
         # --- the training CLI, counted -----------------------------------------
         out_dir = os.path.join(tmp, "out")
@@ -2465,10 +2660,424 @@ def train_phase(seed):
         print("   s per fit step (G + D step, eager, two turns each): "
               + json.dumps({k: [round(v, 4) for v in vs] for k, vs in readings.items()}),
               flush=True)
-        return counts
+        return counts, {"argv": argv, "records": out["records"], "state": out["state"],
+                        "data": data, "batch_np": batch_np, "normalizer": normalizer}
     finally:
         layers.set_train_attention("kernel")
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# Phase 6b: the rest of training at full width
+# --------------------------------------------------------------------------
+
+# The base models' training batch: B sequences of TRAIN_T frames (in2IN
+# interaction stacks the two persons, 2 x B rows).
+BASE_TRAIN_B = 4
+BASE_MODES = ("interaction", "individual", "mdm")
+# The int8 kernels QUANT_TRAIN launches, all from the frozen denoisers.
+QUANT_TRAIN_Q8 = ("adaln_modulate_q8", "linear_q8", "attention_q8", "linear_q8_gelu_q8")
+# A resumed run against the unbroken one (steps 3-4): the losses and the
+# trained parameters, rel(fro), where they are not bitwise.
+RESUME_TOL = 1e-3
+
+
+def _hml3d_fixture(root, seed):
+    """A synthetic HumanML3D dataset: 8 clips, two longer than 300 frames
+    (cropped), the rest shorter, so the encoder sees key padding."""
+    from mixermdm_tpu_torch.data.synthetic import make_hml3d_fixture
+
+    make_hml3d_fixture(root, n_clips=8, n_frames=[340, 301, 280, 240, 200, 150, 100, 60],
+                       seed=seed)
+
+
+def _frames_normalizer(dataset, keys):
+    """Per-feature mean and std (floored at 1e-2) of the valid frames of
+    ``dataset``'s ``keys`` (the persons), as :func:`_fixture_normalizer`."""
+    import numpy as np
+    import torch
+
+    from mixermdm_tpu_torch.utils.normalizer import Normalizer
+
+    frames = np.concatenate([it[k][:it["motion_lens"]] for it in
+                             (dataset[i] for i in range(len(dataset))) for k in keys])
+    return Normalizer(torch.from_numpy(frames.mean(0).astype(np.float32)).cuda(),
+                      torch.from_numpy(np.maximum(frames.std(0), 1e-2).astype(np.float32)).cuda())
+
+
+def base_grad_check(mode, seed, normalizer, batch_np):
+    """One base-model training step of ``mode`` at full width, dropout 0,
+    the timesteps, noise and (no) cond drop injected: the loss and the
+    gradient of every trained subtree on the kernels, on the plain versions
+    and on the f32 twin (plain versions); every gap printed first, then
+    each gradient held on GRAD_TOL (kernels vs plain) and the witness.
+    Returns {subtree: (k-p, p-f, k-f)}, the losses' gaps beside."""
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli import train_in2in
+    from mixermdm_tpu_torch.train.trainer import subtree_state
+
+    t0 = time.time()
+    system = train_in2in.build_system(mode, device="cuda", seed=seed, zero_init_std=0.02,
+                                      normalizer=normalizer)
+    twin = copy.deepcopy(system).cast_(None, train=True)
+    print(f"   (a) {mode}: built the training system and its f32 twin in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    dev = system.device
+    motions = torch.from_numpy(batch_np["motions"]).float().to(dev)
+    lens = torch.from_numpy(batch_np["motion_lens"]).long().to(dev)
+    tokens = train_in2in.batch_tokens(system, mode, batch_np)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    t = torch.randint(0, system.train_schedule.num_timesteps, (motions.shape[0],),
+                      generator=gen, device="cuda")
+    noise = torch.randn(motions.shape, generator=gen, device="cuda")
+    drop = torch.zeros(motions.shape[0], 1, dtype=torch.bool, device="cuda")
+    keys = system.TRAIN_MODULES
+
+    def side(sys_, plain):
+        named = subtree_state(sys_, keys)
+        for p in named.values():
+            p.requires_grad_(True)
+        try:
+            with ops.plain_versions() if plain else contextlib.nullcontext():
+                cond = sys_.encode_cond_tokens(tokens)
+                losses = sys_.compute_loss(motions, lens, cond, t=t, noise=noise, drop=drop,
+                                           dropout=False)
+                grads = torch.autograd.grad(losses["total"], list(named.values()))
+        finally:
+            for p in named.values():
+                p.requires_grad_(False)
+        flat = {k: torch.cat([g.float().flatten() for n, g in zip(named, grads)
+                              if n.startswith(k + ".")]) for k in keys}
+        return float(losses["total"]), flat
+
+    ops.reset_launch_counts()
+    lk, gk = side(system, False)
+    torch.cuda.synchronize()
+    print(f"   (a) {mode}: launches of one step at dropout 0 on the kernels: "
+          f"{json.dumps(dict(sorted(ops.launches.items())))}", flush=True)
+    (lp, gp), (lf, gf) = side(system, True), side(twin, True)
+    print(f"   (a) {mode} loss, kernels / plain / f32: {lk:.6g} / {lp:.6g} / {lf:.6g} (t "
+          f"{t.tolist()}); kernels vs plain {abs(lk - lp) / abs(lp):.4g}, plain vs f32 "
+          f"{abs(lp - lf) / abs(lf):.4g} relative", flush=True)
+    if not all(math.isfinite(v) for v in (lk, lp, lf)):
+        raise SmokeFailure(f"{mode}: training losses are not finite")
+    gaps = {k: (_gaps(gk[k], gp[k])[2], _gaps(gp[k], gf[k])[2], _gaps(gk[k], gf[k])[2])
+            for k in keys}
+    for k, (kp, pf, kf) in gaps.items():
+        print(f"   (a) seed {seed}, {mode}, gradient of {k}, rel(fro): kernels vs plain "
+              f"{kp:.5g}, plain vs f32 {pf:.5g}, kernels vs f32 {kf:.5g} (witness ratio "
+              f"{kf / max(pf, 1e-12):.4g})", flush=True)
+    for k in keys:
+        what = f"(a) {mode} step, gradient of {k}"
+        _agree(what, gk[k], gp[k], GRAD_TOL, "fro")
+        gap_p = _agree(what, gp[k], gf[k], None, "fro", "plain vs f32")
+        _agree(what, gk[k], gf[k], WITNESS_RATIO * gap_p, "fro",
+               f"kernels vs f32 (at most {WITNESS_RATIO} x plain vs f32)")
+    del system, twin
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def _cli_run(label, run, argv):
+    """A training CLI's ``run(argv)`` in-process, counted: its launches per
+    kernel, the plain versions it chose (none allowed); returns (its result,
+    the launches)."""
+    import io
+
+    import torch
+
+    from mixermdm_tpu_torch import ops
+
+    text = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    with _plain_calls() as plain, contextlib.redirect_stdout(text):
+        out = run(argv)
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    for line in text.getvalue().splitlines():
+        print(f"   | {line}", flush=True)
+    print(f"   {label}: {time.time() - t0:.1f} s (system build included), plain versions "
+          f"chosen: {plain[0]}; launches: {json.dumps(counts, sort_keys=True)}", flush=True)
+    if plain[0]:
+        raise SmokeFailure(f"{label}: a plain version was chosen on the card")
+    return out, counts
+
+
+def _sample_trained(mode, out_dir):
+    """``infer-in2in`` (``infer-mdm`` for MDM) in-process from the
+    ``final.ckpt`` that ``train-in2in --mode mode`` wrote to ``out_dir``,
+    ``--strict``, two DDIM steps: every parameter loaded, the sample finite,
+    no plain version chosen."""
+    import io
+    import os
+
+    import numpy as np
+
+    from mixermdm_tpu_torch.cli import infer_in2in, infer_mdm
+
+    argv = ["--name", mode, "--text", PROMPTS[0][1], "--num-samples", "1", "--sample-steps", "2",
+            "--checkpoint", os.path.join(out_dir, "final.ckpt"), "--strict", "--out-dir",
+            os.path.join(out_dir, "sampled")]
+    text = io.StringIO()
+    with _plain_calls() as plain, contextlib.redirect_stdout(text):
+        (infer_mdm.main if mode == "mdm" else infer_in2in.main)(
+            argv + ([] if mode == "mdm" else ["--mode", mode]))
+    loaded = [ln.split()[1] for ln in text.getvalue().splitlines() if ln.startswith("loaded ")]
+    motion = np.load(os.path.join(out_dir, "sampled", f"{mode}_motion.npy"))
+    ok = (plain[0] == 0 and len(loaded) == 1 and loaded[0].split("/")[0] == loaded[0].split("/")[1]
+          and bool(np.isfinite(motion).all()))
+    command = "infer-mdm" if mode == "mdm" else f"infer-in2in --mode {mode}"
+    print(f"   (a) {command} --strict from train-in2in's final.ckpt: parameters loaded "
+          f"{loaded}, sample {motion.shape} finite: {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure(f"{command}: train-in2in's final.ckpt did not load or sample")
+
+
+def _state_gaps(a, b):
+    """(bitwise, largest rel(fro)) of two trainer state dicts' tensors."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        same = a.dtype == b.dtype and torch.equal(a, b)
+        return same, 0.0 if same else _gaps(a, b)[2]
+    if isinstance(a, dict):
+        parts = [_state_gaps(a[k], b[k]) for k in a] + [(sorted(a) == sorted(b), 0.0)]
+    elif isinstance(a, (list, tuple)):
+        parts = [_state_gaps(x, y) for x, y in zip(a, b)] + [(len(a) == len(b), 0.0)]
+    else:
+        return a == b, 0.0 if a == b else math.inf
+    return all(p[0] for p in parts), max((p[1] for p in parts), default=0.0)
+
+
+def rest_of_training_phase(seed, tmp, phase6):
+    """(a) Base-model training at full width: per mode (in2IN interaction
+    and individual, 1024-d on ViT-L/14; MDM, 512-d on ViT-B/32) one step's
+    gradients on the kernels against the plain versions and f32, then
+    ``train-in2in`` for 2 steps at the shipped dropout, counted.  (b)
+    ``QUANT_TRAIN``, the frozen denoisers as int8: one G and one D step's
+    frozen outputs and gradients (:func:`quant_grad_check`), the int8 launches of each side step
+    against the denoisers' modules, the frozen outputs against the int8
+    plain versions, seconds per fit step against bf16.  (c) Resume:
+    ``train-mixermdm`` for 2 steps, then a fresh system restored from its
+    ``final_state`` for 2 more, against phase 6's 4 unbroken steps; then
+    ``train-mixermdm --resume auto --quant-train`` for 2 more, its int8
+    launches counted; ``train-finetuned`` for one step from a released
+    individual file, every ``sa_block`` bitwise unchanged.  Returns
+    (launches per path, readings)."""
+    import os
+
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli import train_finetuned, train_in2in, train_mixermdm
+    from mixermdm_tpu_torch.cli.infer_mixermdm import build_system
+    from mixermdm_tpu_torch.data.humanml3d import HumanML3DDataset
+    from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
+    from mixermdm_tpu_torch.data.loader import collate
+    from mixermdm_tpu_torch.train import checkpoint as ck
+    from mixermdm_tpu_torch.train.trainer import MixerTrainer
+    from mixermdm_tpu_torch.weights import released_in2in_state_dict
+
+    counts, readings = {}, {}
+    seconds = {}
+    inter_data, hml_data = phase6["data"], os.path.join(tmp, "hml3d")
+    _hml3d_fixture(hml_data, seed)
+    datasets = {"interaction": InterHumanDataset(inter_data, mode="train"),
+                "individual": HumanML3DDataset(hml_data, mode="train")}
+    norms = {"interaction": _fixture_normalizer(datasets["interaction"]),
+             "individual": _frames_normalizer(datasets["individual"], ("motion1",))}
+
+    # --- (a) base-model training ------------------------------------------------
+    t_part = time.time()
+    for mode in BASE_MODES:
+        data_mode = "interaction" if mode == "interaction" else "individual"
+        batch_np = collate([datasets[data_mode][i] for i in range(BASE_TRAIN_B)])
+        readings[f"grad {mode}"] = base_grad_check(mode, seed, norms[data_mode], batch_np)
+    for mode in BASE_MODES:
+        data = inter_data if mode == "interaction" else hml_data
+        argv = ["--mode", mode, "--data-root", data, "--out-dir", os.path.join(tmp, mode),
+                "--batch-size", str(BASE_TRAIN_B), "--max-steps", "2", "--seed", str(seed),
+                "--init-std", "0.02"]
+        out, c = _cli_run(f"(a) train-in2in {' '.join(argv)}", train_in2in.run, argv)
+        recs = out["records"]
+        if len(recs) != 2 or not all(math.isfinite(r["total"]) for r in recs):
+            raise SmokeFailure(f"train-in2in {mode}: losses missing or not finite")
+        counts[f"train-in2in {mode}"] = c
+        readings[f"s/step {mode}"] = recs[-1]["dt_s"]
+        print(f"   (a) train-in2in {mode}: losses {[r['total'] for r in recs]}, s per step "
+              f"{[round(r['dt_s'], 4) for r in recs]} (the first with warm-up); launches per "
+              f"step: {json.dumps({k: v / 2 for k, v in sorted(c.items())})}", flush=True)
+        if mode == "individual":
+            individual = out["system"]
+        else:
+            del out
+        torch.cuda.empty_cache()
+        _sample_trained(mode, os.path.join(tmp, mode))
+    seconds["(a)"] = time.time() - t_part
+
+    # --- (b) QUANT_TRAIN ---------------------------------------------------------
+    t_part = time.time()
+    # one G and one D step's frozen outputs and gradients at phase 6's
+    # inputs, int8 on the kernels and on the plain versions, the f32 twin
+    # without int8
+    batch_np, normalizer = phase6["batch_np"], phase6["normalizer"]
+    readings["grad quant_train"] = quant_grad_check(seed, normalizer, batch_np)
+    system = build_system(MODEL_CFG, device="cuda", seed=seed, zero_init_std=0.02, train=True,
+                          quant_train=True)
+    system.normalizer1 = system.normalizer2 = normalizer
+    system.cast_(system.compute_dtype, train=True)
+    trainer = MixerTrainer(system, grad_acc_steps=1)
+    batch = _device_batch(system, batch_np)
+    dens = [system.model1.denoiser_apply("individual"),
+            system.model2.denoiser_apply("interaction")]
+    want = _expected_launches(dens, "W8A8")
+    q8_side = {k: want[k] for k in QUANT_TRAIN_Q8}
+    for mode in ("generator", "discriminator"):
+        ops.reset_launch_counts()
+        losses = trainer.side_step(mode, batch, torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        got = {k: int(ops.launches.get(k, 0)) for k in QUANT_TRAIN_Q8}
+        core_bf16 = int(ops.launches.get("fused_sa_block", 0))
+        ok = got == q8_side and math.isfinite(float(losses["total"]))
+        print(f"   (b) QUANT_TRAIN {mode} step: loss {float(losses['total']):.6g}; int8 launches "
+              f"{json.dumps(got)}, the two frozen denoisers' modules give "
+              f"{json.dumps(q8_side)}; the core's bf16 fused SA blocks {core_bf16}: "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SmokeFailure(f"QUANT_TRAIN {mode} step: int8 launches not the denoisers' alone")
+        counts[f"quant_train {mode}"] = dict(ops.launches)
+    # seconds per fit step, QUANT_TRAIN against bf16
+    step_s = {}
+    for quant in (True, False, True, False):
+        system.quant_train = quant
+        system.cast_(system.compute_dtype, train=True)
+        step_gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+        trainer.fit_step(batch, step_gen, 0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(2):
+            trainer.fit_step(batch, step_gen, 0)
+        torch.cuda.synchronize()
+        step_s.setdefault("QUANT_TRAIN" if quant else "bf16", []).append((time.time() - t0) / 2)
+    print(f"   (b) s per fit step at B {TRAIN_B} (G + D, eager, two turns each): "
+          f"{json.dumps({k: [round(v, 4) for v in vs] for k, vs in step_s.items()})}", flush=True)
+    readings["quant_train s/step"] = step_s
+    del system, trainer
+    torch.cuda.empty_cache()
+    seconds["(b)"] = time.time() - t_part
+
+    # --- (c) resume, then the fine-tune -------------------------------------------
+    t_part = time.time()
+    out_dir = os.path.join(tmp, "resume")
+    argv = [a for a in phase6["argv"]]
+    argv[argv.index("--out-dir") + 1] = out_dir
+    argv[argv.index("--max-steps") + 1] = "2"
+    argv = [a for i, a in enumerate(argv) if a != "--log-jsonl" and
+            (i == 0 or argv[i - 1] != "--log-jsonl")]
+    first, _ = _cli_run("(c) train-mixermdm, steps 1-2", train_mixermdm.run, argv)
+    saved = torch.load(first["state"], map_location="cuda", weights_only=True)
+    del first
+    torch.cuda.empty_cache()
+    restored = {}
+    real_restore = train_mixermdm.restore_train_state
+
+    def restore(path, trainer):
+        real_restore(path, trainer)
+        restored["state"] = trainer.state_dict()
+
+    argv[argv.index("--max-steps") + 1] = "4"
+    train_mixermdm.restore_train_state = restore
+    try:
+        rest, _ = _cli_run("(c) train-mixermdm --resume auto, steps 3-4", train_mixermdm.run,
+                           argv + ["--resume", "auto"])
+    finally:
+        train_mixermdm.restore_train_state = real_restore
+    same, gap = _state_gaps(restored["state"], saved)
+    print(f"   (c) the restored state against the saved one (parameters, both AdamW states, the "
+          f"step): {'bitwise' if same else f'NOT bitwise (rel(fro) {gap:.4g})'}", flush=True)
+    if not same:
+        raise SmokeFailure("the restored train state differs from the saved one")
+    want_state = torch.load(phase6["state"], map_location="cuda", weights_only=True)
+    got_state = rest["trainer"].state_dict()
+    losses_got = [(r["g_total"], r["d_total"]) for r in rest["records"]]
+    losses_want = [(r["g_total"], r["d_total"]) for r in phase6["records"][2:]]
+    same_params, gap_params = _state_gaps(got_state["params"], want_state["params"])
+    same_all, gap_all = _state_gaps(got_state, want_state)
+    loss_gap = max(abs(a - b) / max(abs(b), 1e-12) for g, w in zip(losses_got, losses_want)
+                   for a, b in zip(g, w))
+    print(f"   (c) steps 3-4 resumed against phase 6's unbroken run: losses {losses_got} vs "
+          f"{losses_want} ({'bitwise' if losses_got == losses_want else f'rel {loss_gap:.4g}'}); "
+          f"trained parameters {'bitwise' if same_params else f'rel(fro) {gap_params:.4g}'}; "
+          f"whole state {'bitwise' if same_all else f'rel(fro) up to {gap_all:.4g}'}", flush=True)
+    readings["resume"] = {"losses_bitwise": losses_got == losses_want, "loss_rel": loss_gap,
+                          "params_bitwise": same_params, "params_rel_fro": gap_params}
+    if len(losses_got) != 2 or loss_gap > RESUME_TOL or gap_params > RESUME_TOL:
+        raise SmokeFailure("the resumed run departs from the unbroken one")
+    del rest, saved, want_state, got_state
+    torch.cuda.empty_cache()
+    # --quant-train through the CLI: steps 5-6 resumed from steps 3-4's
+    # final_state, the frozen denoisers as int8 in both side steps of each
+    argv[argv.index("--max-steps") + 1] = "6"
+    quant, c = _cli_run("(c) train-mixermdm --resume auto --quant-train, steps 5-6",
+                        train_mixermdm.run, argv + ["--resume", "auto", "--quant-train"])
+    recs = quant["records"]
+    sides = sum(1 + (r["d_total"] is not None) for r in recs)
+    got = {k: int(c.get(k, 0)) for k in QUANT_TRAIN_Q8}
+    ok = ([r["step"] for r in recs] == [4, 5] and got == {k: sides * v for k, v in q8_side.items()}
+          and all(math.isfinite(r["g_total"]) and math.isfinite(r["d_total"]) for r in recs))
+    print(f"   (c) --quant-train: losses {[(r['g_total'], r['d_total']) for r in recs]}, s per "
+          f"step {[round(r['dt_s'], 4) for r in recs]}; int8 launches {json.dumps(got)} in {sides} "
+          f"side steps, the frozen denoisers' {json.dumps(q8_side)} each: "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure("train-mixermdm --quant-train: steps, losses or int8 launches wrong")
+    counts["train-mixermdm quant"] = c
+    readings["s/step train-mixermdm --quant-train"] = recs[-1]["dt_s"]
+    del quant
+    torch.cuda.empty_cache()
+
+    # the fine-tune from the individual file train-in2in's system writes
+    ind_file = os.path.join(tmp, "individual_released.ckpt")
+    ck.save_released(ind_file, released_in2in_state_dict(individual, "individual"))
+    fresh = {}
+    real_transfer = train_finetuned.individual_to_interaction
+
+    def transfer(src, dst):
+        kept = real_transfer(src, dst)
+        fresh.update({k: v.detach().clone() for k, v in dst.named_parameters()})
+        return kept
+
+    argv = ["--individual-checkpoint", ind_file, "--data-root", inter_data, "--out-dir",
+            os.path.join(tmp, "finetuned"), "--batch-size", str(BASE_TRAIN_B), "--max-steps", "1",
+            "--seed", str(seed)]
+    train_finetuned.individual_to_interaction = transfer
+    try:
+        ft, _ = _cli_run(f"(c) train-finetuned {' '.join(argv)}", train_finetuned.run, argv)
+    finally:
+        train_finetuned.individual_to_interaction = real_transfer
+    after = dict(ft["system"].denoisers["interaction"].named_parameters())
+    src = dict(individual.denoisers["individual"].named_parameters())
+    sa = [k for k in after if ".sa_block." in k]
+    ca = [k for k in after if ".ca_block." in k]
+    sa_same = all(torch.equal(after[k], src[k]) and torch.equal(after[k], fresh[k]) for k in sa)
+    ca_moved = sum(not torch.equal(after[k], fresh[k]) for k in ca)
+    ok = (sa_same and ca_moved == len(ca) and len(ft["records"]) == 1
+          and math.isfinite(ft["records"][0]["total"]))
+    print(f"   (c) train-finetuned: loss {ft['records'][0]['total']:.6g}; {len(sa)} sa_block "
+          f"tensors bitwise the individual file's: {sa_same}; {ca_moved}/{len(ca)} ca_block "
+          f"tensors trained: {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure("train-finetuned: sa_block moved or a ca_block did not train")
+    counts["train-finetuned"] = dict(ops.launches)
+    del ft, individual
+    torch.cuda.empty_cache()
+    seconds["(c)"] = time.time() - t_part
+    print("   phase 6b seconds by part: "
+          + json.dumps({k: round(v, 1) for k, v in seconds.items()}), flush=True)
+    readings["seconds"] = seconds
+    return counts, readings
 
 
 # --------------------------------------------------------------------------
@@ -2569,6 +3178,29 @@ PATH_KERNELS = {
     "in2in dual": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
                    "fused_attention", "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
     "mdm": (*GEMM_ROUTES, "attention", "fused_attention"),
+    # The rest of training (phase 6b).  train-in2in at the shipped dropout:
+    # the frozen tower on the attention kernel and the GEMM routes; the
+    # trained post-encoder head (in2IN) on the f32 attention and its
+    # backward; the denoiser's attention with dropout on the plain math
+    # with dropout, as the JAX package takes XLA there.
+    "train-in2in interaction": ("linear_epilogue", "attention", "attention_f32",
+                                "attention_bwd", "fused_attention"),
+    "train-in2in individual": ("linear_epilogue", "attention", "attention_f32",
+                               "attention_bwd", "fused_attention"),
+    "train-in2in mdm": ("linear_epilogue", "attention", "fused_attention"),
+    # QUANT_TRAIN: the frozen denoisers on the W8A8 kernels in both steps,
+    # each step alone and train-mixermdm --quant-train.
+    "quant_train generator": ("adaln_modulate_q8", "linear_q8", "attention_q8",
+                              "linear_q8_gelu_q8", "fused_sa_block_q8", "fused_ca_block_q8",
+                              "fused_ffn_block_q8", "attention_bwd"),
+    "quant_train discriminator": ("adaln_modulate_q8", "linear_q8", "attention_q8",
+                                  "linear_q8_gelu_q8", "fused_sa_block_q8",
+                                  "fused_ca_block_q8", "fused_ffn_block_q8"),
+    "train-mixermdm quant": ("adaln_modulate_q8", "linear_q8", "attention_q8",
+                             "linear_q8_gelu_q8", "fused_sa_block_q8", "fused_ca_block_q8",
+                             "fused_ffn_block_q8", "attention_bwd"),
+    "train-finetuned": ("linear_epilogue", "attention", "attention_f32", "attention_bwd",
+                        "fused_attention"),
 }
 # The path whose counts stand in a kernel's row: the shipped sampling path,
 # the bf16 one for the bf16 block forms, the training path for the kernels
@@ -2697,9 +3329,22 @@ def main(argv=None):
     counts.update(base_counts)
     done(t0)
 
-    t0 = phase("6. adversarial training at full width")
-    counts["train"] = train_phase(args.seed)
-    done(t0)
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = phase("6. adversarial training at full width")
+        counts["train"], phase6 = train_phase(args.seed, tmp)
+        done(t0)
+
+        t0 = phase("6b. the rest of training at full width: base models (train-in2in), "
+                   "QUANT_TRAIN, --resume, train-finetuned")
+        rest_counts, rest = rest_of_training_phase(args.seed, tmp, phase6)
+        counts.update(rest_counts)
+        done(t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     t0 = phase("7. summary")
     counts["exp_kernels"] = sa_counts
@@ -2710,6 +3355,8 @@ def main(argv=None):
         raise SmokeFailure("not launched in the main path: " + ", ".join(missing))
     done(t0)
     print(f"   inference surface (phase 5b): {json.dumps(surface)}", flush=True)
+    print("   the rest of training (phase 6b): " + json.dumps(
+        {k: v for k, v in rest.items() if not k.startswith("grad ")}), flush=True)
     print("   base-model requests (phase 5c): " + json.dumps(
         {k: {"s_per_request": v["s_per_request"], "launches": sum(v["launches"].values())}
          for k, v in base.items()}), flush=True)

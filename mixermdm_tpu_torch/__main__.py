@@ -9,6 +9,10 @@ COMMANDS = {
                     "in2IN inference (interaction / individual / dual = DualMDM)"),
     "infer-mdm": ("mixermdm_tpu_torch.cli.infer_mdm", "MDM single-person inference"),
     "train-mixermdm": ("mixermdm_tpu_torch.cli.train_mixermdm", "MixerMDM adversarial training"),
+    "train-in2in": ("mixermdm_tpu_torch.cli.train_in2in",
+                    "base-model training (in2IN interaction / individual, MDM)"),
+    "train-finetuned": ("mixermdm_tpu_torch.cli.train_finetuned",
+                        "fine-tune an interaction in2IN model from an individual one"),
     "serve": ("mixermdm_tpu_torch.cli.serve", "HTTP generation server (continuous batching)"),
 }
 

@@ -77,14 +77,14 @@ def tiny_configs():
 
 def build_system(model_cfg_path: Optional[str] = None, *, align: bool = True,
                  tiny: bool = False, device="cuda", quant_frozen: Optional[bool] = None,
-                 seed: int = 0, zero_init_std: float = 0.0,
-                 train: bool = False) -> MixerMDMSystem:
+                 seed: int = 0, zero_init_std: float = 0.0, train: bool = False,
+                 quant_train: Optional[bool] = None) -> MixerMDMSystem:
     """The MixerMDM system of a config file (default: the shipped
     architecture), built on ``device`` with random weights from ``seed``
     (under QUANT_FROZEN the int8 blocks quantise them at their first
-    call).  ``quant_frozen``
-    overrides the config's QUANT_FROZEN; ``train`` keeps f32 master weights
-    in the trained subtrees."""
+    call).  ``quant_frozen`` / ``quant_train`` override the config's
+    QUANT_FROZEN / QUANT_TRAIN; ``train`` keeps f32 master weights in the
+    trained subtrees."""
     if tiny:
         cfg, cfg1, clip_cfg = tiny_configs()
         cfg2 = cfg1
@@ -93,9 +93,10 @@ def build_system(model_cfg_path: Optional[str] = None, *, align: bool = True,
         cfg1 = load_yaml(cfg["MODEL1"]) if "MODEL1" in cfg else IN2IN_INDIVIDUAL_DEFAULT
         cfg2 = load_yaml(cfg["MODEL2"]) if "MODEL2" in cfg else IN2IN_INTERACTION_DEFAULT
         clip_cfg = ClipTextConfig.vit_l_14()
-    if quant_frozen is not None:
-        cfg = Config.wrap(dict(cfg))
-        cfg["QUANT_FROZEN"] = bool(quant_frozen)
+    for key, value in (("QUANT_FROZEN", quant_frozen), ("QUANT_TRAIN", quant_train)):
+        if value is not None:
+            cfg = Config.wrap(dict(cfg))
+            cfg[key] = bool(value)
     with torch.device(device):
         m1 = In2INSystem(cfg1, mode="individual", clip_cfg=clip_cfg, **SUBMODEL)
         m2 = In2INSystem(cfg2, mode="interaction", clip_cfg=clip_cfg, **SUBMODEL)

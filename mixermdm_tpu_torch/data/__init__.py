@@ -1,2 +1,2 @@
-"""Training data: the InterHuman dataset, a synthetic fixture in its layout,
-and a batching loader (numpy, on the host)."""
+"""Training data: the InterHuman and HumanML3D datasets, synthetic fixtures
+in their layouts, and a batching loader (numpy, on the host)."""

@@ -1,9 +1,11 @@
-"""A synthetic dataset in the InterHuman on-disk layout
+"""Synthetic datasets in the InterHuman on-disk layout
 (``motions_processed/person{1,2}``, ``annots``, ``annots_individual``,
-``split/*.txt``; reference datasets/interhuman.py:37-94): this package's own
-copy of ``mixermdm_tpu/data/synthetic.py:make_interhuman_fixture``, for
-smoke runs with no real data.  ``n_frames`` may be a list, one length per
-clip, so that a batch holds clips shorter than the padded length."""
+``split/*.txt``; reference datasets/interhuman.py:37-94) and the HumanML3D
+one (``joints_vec``, ``texts``, ``train.txt``; humanml3d.py:38-74): this
+package's own copy of ``mixermdm_tpu/data/synthetic.py``
+(``make_interhuman_fixture``, ``make_hml3d_fixture``), for smoke runs with
+no real data.  ``n_frames`` may be a list, one length per clip, so that a
+batch holds clips shorter than the padded length."""
 
 from __future__ import annotations
 
@@ -52,4 +54,26 @@ def make_interhuman_fixture(root: str, n_clips: int = 4,
     for split, sel in (("train", names), ("val", names[:1]), ("test", names[-2:])):
         with open(pjoin(root, "split", f"{split}.txt"), "w") as f:
             f.write("\n".join(sel) + "\n")
+    return names
+
+
+def make_hml3d_fixture(root: str, n_clips: int = 4,
+                       n_frames: Union[int, Sequence[int]] = 40, seed: int = 1) -> list:
+    """``n_clips`` single-person clips of (T, 262) N(0, 0.1) features and one
+    caption each, every clip in every split (JAX ``make_hml3d_fixture``)."""
+    rng = np.random.default_rng(seed)
+    lengths = [n_frames] * n_clips if isinstance(n_frames, int) else list(n_frames)
+    os.makedirs(pjoin(root, "joints_vec"), exist_ok=True)
+    os.makedirs(pjoin(root, "texts"), exist_ok=True)
+    names = []
+    for i, T in enumerate(lengths):
+        name = f"hml{i:03d}"
+        names.append(name)
+        np.save(pjoin(root, "joints_vec", f"{name}.npy"),
+                rng.standard_normal((T, 262)).astype(np.float32) * 0.1)
+        with open(pjoin(root, "texts", f"{name}.txt"), "w") as f:
+            f.write("a person does something#0.0#0.0\n")
+    for split in ("train", "val", "test"):
+        with open(pjoin(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
     return names

@@ -179,3 +179,26 @@ def dpmpp_sample_loop(model_fn: Callable, s: DiffusionSchedule, shape: tuple, *,
         img = sig_ratio[j] * img - alp_next[j] * phi[j] * d
         prev = x0
     return prev
+
+
+def mse_training_losses(model_fn: Callable, s: DiffusionSchedule, x_start, t, *,
+                        noise: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None,
+                        learned_variance: bool = False) -> dict:
+    """The base MSE diffusion loss (reference ``training_losses``
+    :1106-1187; JAX ``mse_training_losses``) for x0 prediction:
+    ``model_fn(x_t, t_orig)`` on ``x_t`` q-sampled from ``x_start`` with
+    ``noise`` (or a draw from ``generator``).  Returns the per-sample
+    ``mse`` (B,), ``target`` (= x_start), ``pred``, ``x_t`` and ``loss``.
+
+    The learned-variance branch (the VLB term ``vb``) is not ported (ROADMAP
+    Queue 1 item 7, ``vlb.py``); no shipped config learns the variance."""
+    if learned_variance:
+        raise NotImplementedError("learned-variance training (the vb term of vlb.py) is not "
+                                  "ported; see ROADMAP Queue 1 item 7")
+    if noise is None:
+        noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
+    x_t = q_sample(s, x_start, t, noise.to(x_start.dtype))
+    pred = model_fn(x_t, s.timestep_map[t])
+    mse = ((x_start - pred) ** 2).reshape(x_start.shape[0], -1).mean(dim=-1)
+    return {"mse": mse, "target": x_start, "pred": pred, "x_t": x_t, "loss": mse}

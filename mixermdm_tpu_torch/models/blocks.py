@@ -33,12 +33,12 @@ class TransformerBlockDoubleCond(nn.Module):
     stream on the interaction cond; individual mode has no CA."""
 
     def __init__(self, mode: str, latent_dim: int = 512, num_heads: int = 8,
-                 ff_size: int = 1024):
+                 ff_size: int = 1024, dropout: float = 0.0):
         super().__init__()
-        self.sa_block = VanillaSelfAttention(latent_dim, num_heads)
-        self.ca_block = (VanillaCrossAttention(latent_dim, num_heads)
+        self.sa_block = VanillaSelfAttention(latent_dim, num_heads, dropout)
+        self.ca_block = (VanillaCrossAttention(latent_dim, num_heads, dropout)
                          if self.has_cross_attention(mode) else None)
-        self.ffn = FFN(latent_dim, ff_size)
+        self.ffn = FFN(latent_dim, ff_size, dropout)
 
     @staticmethod
     def has_cross_attention(mode: str) -> bool:

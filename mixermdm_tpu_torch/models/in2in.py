@@ -34,11 +34,14 @@ class In2INDenoiser(nn.Module):
                             b's stream is never carried from block to block,
                             so it is only the LAST block applied to its raw
                             embedding, while person a runs the whole stack.
+
+    ``dropout`` acts in training mode only (attention probabilities and the
+    FFN hidden layer, as the JAX package's ``train=True``).
     """
 
     def __init__(self, input_feats: int, mode: str, latent_dim: int = 512,
                  ff_size: int = 1024, num_layers: int = 8, num_heads: int = 8,
-                 text_dim: int = 768):
+                 text_dim: int = 768, dropout: float = 0.0):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"unknown In2INDenoiser mode {mode!r} (have {MODES})")
@@ -48,7 +51,7 @@ class In2INDenoiser(nn.Module):
         self.motion_embed = Linear(input_feats, latent_dim)
         self.sequence_pos_encoder = PositionalEncoding(latent_dim)
         self.blocks = nn.ModuleList(
-            TransformerBlockDoubleCond(mode, latent_dim, num_heads, ff_size)
+            TransformerBlockDoubleCond(mode, latent_dim, num_heads, ff_size, dropout)
             for _ in range(num_layers))
         self.out = FinalLayer(latent_dim, input_feats)
 

@@ -21,7 +21,7 @@ from ..utils.alignment import align_persons_fast
 from ..utils.normalizer import Normalizer
 from .embeddings import PositionalEncoding, TimestepEmbedder
 from .influence import Influence, expand_influence
-from .layers import Linear
+from .layers import Linear, w8a8_scope
 
 
 class MixerCore(nn.Module):
@@ -91,8 +91,8 @@ def make_mixer_forward(cfg: MixerConfig, denoiser1: Callable, denoiser2: Callabl
                        core: Callable, normalizer1: Normalizer, normalizer2: Normalizer,
                        compute_dtype: Optional[torch.dtype] = None):
     """The per-step Mixer pipeline as a function
-    ``forward(x1, t, cond, mask=None, x2=None, force_influence_val=None)``
-    returning ``(out_influenced, out1, out2, (infl1, infl2))``.
+    ``forward(x1, t, cond, mask=None, x2=None, force_influence_val=None,
+    quant_denoisers=False)`` returning ``(out_influenced, out1, out2, (infl1, infl2))``.
 
     ``denoiser1(x, t, mask, cond)`` -> (B, T, 262), ``denoiser2`` -> (B, T,
     524), ``core`` a :class:`MixerCore`.  With ``compute_dtype`` the
@@ -101,6 +101,10 @@ def make_mixer_forward(cfg: MixerConfig, denoiser1: Callable, denoiser2: Callabl
     package's ``stop_gradient`` on their cond slices and
     ``fused_scope(frozen)``), so no gradient reaches them and they take the
     fused kernels in training too; the core's conds keep their gradient.
+    ``quant_denoisers=True`` runs the two denoisers' calls, and nothing else,
+    inside :func:`..models.layers.w8a8_scope` (``QUANT_TRAIN``: the JAX
+    package's ``_loss_impl`` scope, which reaches only the frozen fused
+    blocks).
     """
     sl = cfg.cond_slices()
     F = cfg.nfeats
@@ -109,14 +113,15 @@ def make_mixer_forward(cfg: MixerConfig, denoiser1: Callable, denoiser2: Callabl
         a, b = sl[name]
         return cond[:, a:b]
 
-    def forward(x1, t, cond, mask=None, x2=None, force_influence_val=None):
+    def forward(x1, t, cond, mask=None, x2=None, force_influence_val=None,
+                quant_denoisers=False):
         B, T = x1.shape[:2]
         cd = compute_dtype or x1.dtype
         x1_both = torch.cat([x1[..., :F], x1[..., F:]], 0).to(cd)
         cond1_both = torch.cat([cut(cond, "cond1_1"), cut(cond, "cond1_2")], 0).to(cd)
         t2 = torch.cat([t, t], 0)
         mask2 = None if mask is None else torch.cat([mask, mask], 0)
-        with torch.no_grad():
+        with torch.no_grad(), w8a8_scope(quant_denoisers):
             out1_both = denoiser1(x1_both, t2, mask2, cond1_both).float()
             out2 = denoiser2(x2.to(cd), t, mask, cut(cond, "cond2").to(cd)).float()
 

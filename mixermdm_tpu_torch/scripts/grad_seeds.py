@@ -2,7 +2,8 @@
 its gaps are made of.  Run from the repository root on a machine with one
 GPU::
 
-    python -m mixermdm_tpu_torch.scripts.grad_seeds --seeds 0,1,2,3,4 [--draws 16]
+    python -m mixermdm_tpu_torch.scripts.grad_seeds --seeds 0,1,2,3,4 [--draws 16] \
+        [--quant-train]
 
 Each seed makes the fixture, the training system and the step's inputs that
 ``python3 chip_smoke.py --seed N`` makes (``chip_smoke._grad_step``), and
@@ -32,6 +33,11 @@ reads:
    gradient's spread from f32 under one bf16 rounding of those outputs, and
    where plain vs f32 and kernels vs f32 fall in it.
 
+``--quant-train`` reads the same with the frozen denoisers as int8 inside
+the loss (``QUANT_TRAIN``): on the kernels and on the plain versions, the
+f32 twin without int8, and runs phase 6b (b)'s check
+(``chip_smoke.quant_grad_check``) in place of phase 6's.
+
 Prints the readings, one JSON line per seed and the card's name and power
 limit; exits 1 if any seed failed phase 6's gates.  The per-call check
 replaces the entry points named in ``per_call`` by name while it runs.
@@ -52,7 +58,6 @@ import time
 import torch
 
 STEPS = {"generator": ("core", "text.post.mixer"), "discriminator": ("disc_i", "disc_I")}
-FROZEN = (("model1", "individual"), ("model2", "interaction"))
 
 
 def rel(a, b) -> float:
@@ -63,29 +68,6 @@ def rel(a, b) -> float:
 def rank(value: float, spread: list) -> float:
     """The share of ``spread`` below ``value``."""
     return sum(v < value for v in spread) / len(spread)
-
-
-@contextlib.contextmanager
-def frozen_outputs(system, edit):
-    """Inside the block, each call of a frozen denoiser returns
-    ``edit((name, i), out)`` (``i`` its call index in the block) where that
-    is not None."""
-    calls = collections.Counter()
-
-    def hook(name):
-        def fn(module, args, out):
-            key = (name, calls[name])
-            calls[name] += 1
-            return edit(key, out)
-        return fn
-
-    handles = [getattr(system, sub).denoisers[name].register_forward_hook(hook(name))
-               for sub, name in FROZEN]
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
 
 
 @contextlib.contextmanager
@@ -162,15 +144,15 @@ def per_call(system, side) -> dict:
     return kinds
 
 
-def diagnose(seed, normalizer, batch_np, draws) -> dict:
+def diagnose(seed, normalizer, batch_np, draws, quant_train=False) -> dict:
     """Readings 2-6 at ``seed``."""
     import chip_smoke
 
-    system, twin, side = chip_smoke._grad_step(seed, normalizer, batch_np)
+    system, twin, side = chip_smoke._grad_step(seed, normalizer, batch_np, quant_train)
     out = {"per_call": per_call(system, side)}
 
     def run(sys_, plain, edit):
-        with frozen_outputs(sys_, edit):
+        with chip_smoke._frozen_outputs(sys_, edit):
             return {m: side(sys_, m, plain)[1] for m in STEPS}
 
     def capture(store):
@@ -258,6 +240,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seeds", default="0,1,2,3,4")
     parser.add_argument("--draws", type=int, default=16)
+    parser.add_argument("--quant-train", action="store_true",
+                        help="the frozen denoisers as int8 inside the loss (QUANT_TRAIN)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("grad_seeds: no CUDA device visible; this script needs one GPU", file=sys.stderr)
@@ -285,15 +269,17 @@ def main(argv=None) -> int:
             # Read once: each read of the fixture draws its crops anew.
             normalizer = chip_smoke._fixture_normalizer(dataset)
             try:
-                chip_smoke.grad_check(seed, normalizer, batch_np)
+                check = chip_smoke.quant_grad_check if args.quant_train else chip_smoke.grad_check
+                check(seed, normalizer, batch_np)
             except chip_smoke.SmokeFailure as e:
                 failed.append(seed)
                 print(f"   seed {seed}: phase 6 FAILS ({e})", flush=True)
-            d = diagnose(seed, normalizer, batch_np, args.draws)
+            d = diagnose(seed, normalizer, batch_np, args.draws, args.quant_train)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         report(seed, d)
-        print(json.dumps({"seed": seed, "phase6_ok": seed not in failed, **d}), flush=True)
+        print(json.dumps({"seed": seed, "quant_train": args.quant_train,
+                          "phase6_ok": seed not in failed, **d}), flush=True)
         print(f"   seed {seed}: {time.time() - t0:.1f} s", flush=True)
     print(f"   failed seeds: {failed}")
     print(smi.stdout.strip())

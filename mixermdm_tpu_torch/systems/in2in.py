@@ -1,7 +1,8 @@
 """in2IN system: text pipeline, denoiser(s) and CFG sampling in the modes
 ``individual``, ``interaction`` and ``dual`` (the DualMDM baseline);
 counterpart of ``mixermdm_tpu/systems/in2in.py`` (reference
-in2in.py:11-356) without training (``compute_loss``).
+in2in.py:11-356), training (``compute_loss``, :class:`~.base.BaseModelSystem`)
+included.
 
 The mixer uses an individual and an interaction system as its frozen
 submodels (``denoiser_apply``, ``encode_tokens``); standalone, a system
@@ -10,7 +11,10 @@ samples through :meth:`In2INSystem.build_cond` and :meth:`In2INSystem.sample`
 compute dtype (bf16 on the card), the post-encoder heads in f32, the
 diffusion arithmetic in f32; with the config's ``QUANT`` the denoisers'
 blocks run their projections as int8 at sampling time (W8A8, as the JAX
-package's ``denoiser_apply(quant=True)``).
+package's ``denoiser_apply(quant=True)``).  Built with ``train=True`` the
+denoiser(s) and the post-encoder heads keep f32 master weights for a base
+trainer; the denoisers drop out (the config's ``DROPOUT``) in training
+mode only.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from ..models.cfg import cfg_dual_mdm, cfg_model, cfg_model_multiple
 from ..models.clip_text import ClipTextConfig
 from ..models.in2in import In2INDenoiser
 from ..utils.normalizer import Normalizer, hml3d_normalizer, interhuman_normalizer
-from .base import BaseModelSystem
+from .base import BaseModelSystem, generate_src_mask  # noqa: F401 (re-exported)
 from .text import TextPipeline
 
 # Denoiser name -> denoiser mode, per system mode (JAX In2INSystem.__init__).
@@ -44,12 +48,12 @@ class In2INSystem(BaseModelSystem):
     :class:`~.base.BaseModelSystem`) and casts it itself.  ``normalizer``
     defaults to the mode's statistics under ``data_root``: InterHuman's for
     ``interaction``, HumanML3D's otherwise (identity where the files are
-    missing)."""
+    missing).  ``train``: f32 master weights in :attr:`TRAIN_MODULES`."""
 
     def __init__(self, cfg: Optional[Config] = None, mode: str = "interaction",
                  clip_cfg: Optional[ClipTextConfig] = None,
                  normalizer: Optional[Normalizer] = None, data_root: str = "./data",
-                 device="cuda", compute_dtype="auto"):
+                 device="cuda", compute_dtype="auto", train: bool = False):
         super().__init__()
         if mode not in DENOISER_MODES:
             raise ValueError(f"unknown In2INSystem mode {mode!r} (have {tuple(DENOISER_MODES)})")
@@ -62,15 +66,23 @@ class In2INSystem(BaseModelSystem):
         self.denoisers = torch.nn.ModuleDict({name: In2INDenoiser(
             input_feats=self.nfeats, mode=dmode, latent_dim=self.latent_dim,
             ff_size=int(self.cfg.FF_SIZE), num_layers=int(self.cfg.NUM_LAYERS),
-            num_heads=int(self.cfg.NUM_HEADS), text_dim=self.text_dim)
+            num_heads=int(self.cfg.NUM_HEADS), text_dim=self.text_dim,
+            dropout=float(self.cfg.get("DROPOUT", 0.0)))
             for name, dmode in DENOISER_MODES[mode].items()})
         if normalizer is None:
             normalizer = (interhuman_normalizer(data_root) if mode == "interaction"
                           else hml3d_normalizer(data_root))
-        self._finish_init(self.cfg, normalizer, device, compute_dtype)
+        self.loss_mode = "individual" if mode == "individual" else "interaction"
+        self.TRAIN_MODULES = tuple(f"denoisers.{n}" for n in self.denoisers) + ("text.post",)
+        self._finish_init(self.cfg, normalizer, device, compute_dtype, train)
 
     def f32_heads(self) -> list:
         return [self.text.post]
+
+    def train_denoiser(self):
+        """The denoiser the loss trains: the interaction one outside the
+        individual mode (JAX ``compute_loss``)."""
+        return self.denoisers[self.loss_mode]
 
     def denoiser_apply(self, name: str):
         """``apply(x, t, mask, cond)`` of the named denoiser."""
@@ -159,9 +171,3 @@ class In2INSystem(BaseModelSystem):
         return self.sample(self.build_cond(batch), int(batch["motion_lens"][0]),
                            generator=generator, noise=noise)
 
-
-def generate_src_mask(T: int, lengths, B: int, device="cpu") -> torch.Tensor:
-    """(B, T, 2) float mask, zero after each sequence's length."""
-    lengths = torch.as_tensor(lengths, device=device)
-    frame = torch.arange(T, device=device)[None, :] < lengths[:, None]
-    return frame[..., None].float().expand(B, T, 2).contiguous()

@@ -1,8 +1,9 @@
 """InterGen system, the two-person baseline: CLIP ViT-L/14 with a 2-layer
 post-encoder head, the InterGen denoiser and CFG sampling; counterpart of
-``mixermdm_tpu/systems/intergen.py`` (reference intergen.py:20-213) without
-training (``compute_loss``).  Neither package has an InterGen checkpoint
-converter, so no InterGen file is read."""
+``mixermdm_tpu/systems/intergen.py`` (reference intergen.py:20-213),
+training (``compute_loss``, :class:`~.base.BaseModelSystem`) included; no
+CLI trains it, as in the JAX package.  Neither package has an InterGen
+checkpoint converter, so no InterGen file is read."""
 
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from .text import TextPipeline
 class InterGenSystem(BaseModelSystem):
     def __init__(self, cfg: Optional[Config] = None, clip_cfg: Optional[ClipTextConfig] = None,
                  normalizer: Optional[Normalizer] = None, data_root: str = "./data",
-                 device="cuda", compute_dtype="auto"):
+                 device="cuda", compute_dtype="auto", train: bool = False):
         super().__init__()
         self.cfg = cfg or INTERGEN_DEFAULT
         self.nfeats = int(self.cfg.INPUT_DIM)
@@ -34,10 +35,16 @@ class InterGenSystem(BaseModelSystem):
             num_heads=int(self.cfg.NUM_HEADS), text_dim=self.text_dim,
             dropout=float(self.cfg.get("DROPOUT", 0.0)))
         self._finish_init(self.cfg, normalizer if normalizer is not None
-                          else interhuman_normalizer(data_root), device, compute_dtype)
+                          else interhuman_normalizer(data_root), device, compute_dtype, train)
+
+    TRAIN_MODULES = ("denoiser", "text.post")
+    loss_mode = "interaction"
 
     def f32_heads(self) -> list:
         return [self.text.post]
+
+    def train_denoiser(self):
+        return self.denoiser
 
     def encode_cond_tokens(self, batch_tokens: dict) -> torch.Tensor:
         return self.text.encode(batch_tokens["tokens"], "interaction")

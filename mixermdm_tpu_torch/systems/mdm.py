@@ -1,7 +1,8 @@
 """MDM system, the single-person baseline: CLIP ViT-B/32 ``encode_text``,
 ``embed_text`` (512 -> latent), the MDM denoiser and CFG sampling;
-counterpart of ``mixermdm_tpu/systems/mdm.py`` (reference mdm.py:9-231)
-without training (``compute_loss``).
+counterpart of ``mixermdm_tpu/systems/mdm.py`` (reference mdm.py:9-231),
+training (``compute_loss``, :class:`~.base.BaseModelSystem`) included:
+``train=True`` keeps f32 master weights in the denoiser and ``embed_text``.
 
 The tower runs in the compute dtype (bf16 on the card) and ``embed_text`` in
 f32 on f32 weights, as the post-encoder heads of the other systems; the
@@ -30,7 +31,7 @@ MDM_CONTEXT, MDM_PAD_TO = 22, 77
 class MDMSystem(BaseModelSystem):
     def __init__(self, cfg: Optional[Config] = None, clip_cfg: Optional[ClipTextConfig] = None,
                  normalizer: Optional[Normalizer] = None, data_root: str = "./data",
-                 device="cuda", compute_dtype="auto"):
+                 device="cuda", compute_dtype="auto", train: bool = False):
         super().__init__()
         self.cfg = cfg or MDM_DEFAULT
         self.nfeats = int(self.cfg.INPUT_DIM)
@@ -44,10 +45,15 @@ class MDMSystem(BaseModelSystem):
             num_heads=int(self.cfg.NUM_HEADS), dropout=float(self.cfg.get("DROPOUT", 0.0)))
         self.tokenizer = default_tokenizer()
         self._finish_init(self.cfg, normalizer if normalizer is not None
-                          else hml3d_normalizer(data_root), device, compute_dtype)
+                          else hml3d_normalizer(data_root), device, compute_dtype, train)
+
+    TRAIN_MODULES = ("denoiser", "embed_text")
 
     def f32_heads(self) -> list:
         return [self.embed_text]
+
+    def train_denoiser(self):
+        return self.denoiser
 
     def tokenize(self, texts) -> torch.Tensor:
         """MDM's 22-token context zero-padded to 77."""

@@ -24,8 +24,13 @@ bf16, the post-encoder heads in f32).
 Training (``compute_loss``, the JAX ``compute_loss`` / ``_loss_body``): the
 two discriminators, the adversarial losses of
 :func:`..diffusion.mixer_diffusion.mixer_training_losses`, the frozen
-denoisers under ``torch.no_grad()`` on their fused bf16 kernels (never int8:
-``QUANT_FROZEN`` gates sampling only, and ``QUANT_TRAIN`` is not ported).
+denoisers under ``torch.no_grad()`` on their fused bf16 kernels
+(``QUANT_FROZEN`` gates sampling only).  Under ``QUANT_TRAIN`` (the JAX
+``_loss_impl`` with ``_maybe_quant``) the two frozen denoisers' calls, and
+only they, run inside the W8A8 scope: their SA, CA and FFN blocks run as
+int8 in both side steps, while the mixer core and the discriminators stay
+bf16 even where they take the fused route (the core in the discriminator
+step, which records no gradient through it).
 Every parameter starts frozen (``requires_grad`` off) and every module in
 eval mode; the trainer turns on the side it trains.  Built with
 ``train=True``, the trainable subtrees (``core``, ``text.post.mixer``,
@@ -41,6 +46,7 @@ checkpoints load through :func:`..train.checkpoint.load_released_mixermdm`.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -57,8 +63,9 @@ from ..models.discriminator import DiscriminatorTransformer
 from ..models.layers import w8a8_scope
 from ..models.mixer import MixerConfig, MixerCore, make_mixer_forward
 from ..utils.normalizer import Normalizer, hml3d_normalizer, interhuman_normalizer
-from .base import cast_params_, resolve_compute_dtype
-from .in2in import In2INSystem, generate_src_mask
+from .base import COND_MASK_PROB, cast_params_, generate_src_mask, quantise_blocks_, \
+    resolve_compute_dtype
+from .in2in import In2INSystem
 from .text import TextPipeline
 
 # The subtrees each side of the adversarial training updates (the JAX
@@ -67,9 +74,6 @@ from .text import TextPipeline
 # train.
 GEN_MODULES = ("core", "text.post.mixer")
 DISC_MODULES = ("disc_i", "disc_I")
-# Probability that a training sample's conds are all zeroed (classifier-free
-# guidance training; the JAX trainer's cond_mask_prob).
-COND_MASK_PROB = 0.1
 # How the mixer builds a submodel: as a part, inside its own ``torch.device``
 # context and in f32; the mixer moves and casts it with the rest.
 SUBMODEL = dict(device=None, compute_dtype=None)
@@ -223,12 +227,16 @@ class MixerMDMSystem(nn.Module):
         too.  Buffers (normalizer statistics, positional tables) stay f32.
         Under ``QUANT_FROZEN`` in bf16 (not ``train``) the blocks that will
         run as int8 quantise their weights here, from the bf16 values, as
-        the JAX package quantises its bf16-cast tree."""
+        the JAX package quantises its bf16-cast tree; with ``train`` under
+        ``QUANT_TRAIN`` the two denoisers' blocks do."""
         self.compute_dtype = compute_dtype
         f32 = self.model1.f32_heads() + self.model2.f32_heads() + [self.text.post]
         if train:
             f32 += [self.get_submodule(n) for n in GEN_MODULES + DISC_MODULES]
         cast_params_(self, compute_dtype, f32, self.quant_frozen and not train)
+        if train and self.quant_train:
+            for m in (self.model1, self.model2):
+                quantise_blocks_(m, compute_dtype)
         self._mixer_forward = make_mixer_forward(
             self.mixer_cfg, self.model1.denoiser_apply("individual"),
             self.model2.denoiser_apply("interaction"), self.core,
@@ -292,9 +300,6 @@ class MixerMDMSystem(nn.Module):
         module in eval mode (no dropout anywhere).  Returns the loss dict
         with ``total``.
         """
-        if self.quant_train:
-            raise NotImplementedError("QUANT_TRAIN (int8 frozen denoisers inside the loss) is "
-                                      "not ported; run with it off")
         dev = self.device
         motions = motions.to(dev, torch.float32)
         B, T = motions.shape[:2]
@@ -307,7 +312,8 @@ class MixerMDMSystem(nn.Module):
         self.set_train_modes(mode if dropout else None)
         try:
             return mixer_training_losses(
-                self._mixer_forward, self.disc_i, self.disc_I, self.train_schedule, motions,
+                functools.partial(self._mixer_forward, quant_denoisers=self.quant_train),
+                self.disc_i, self.disc_I, self.train_schedule, motions,
                 t.to(dev), cond, seq_mask, mode=mode, i_loss_factor=i_loss_factor,
                 I_loss_factor=I_loss_factor, l1=l1, align=self.align,
                 normalizer1=self.normalizer1, normalizer2=self.normalizer2,

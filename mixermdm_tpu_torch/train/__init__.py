@@ -1,1 +1,2 @@
-"""Adversarial mixer training: the optimizer and the trainer."""
+"""Training: the optimizer, the mixer and base-model trainers, train-state
+and released checkpoints, the fine-tune, the CLIs' epoch loop."""

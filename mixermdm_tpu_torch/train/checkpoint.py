@@ -28,6 +28,11 @@ individual file merged as the reference merges them; an MDM file (denoiser
 under ``model.``, tower under ``clip_model.``, ``embed_text``) into an
 MDMSystem (:func:`load_released_mdm`).
 
+Train states (:func:`save_train_state`, :func:`restore_train_state`,
+:func:`latest_train_state_path`; JAX ``train/checkpoint.py:43-94``) are
+native ``torch.save`` files of a trainer's ``state_dict``: the trained
+parameters, every optimizer's state, the step and the sampler history.
+
 The JAX package's ``--checkpoint`` is an orbax directory, which the port
 cannot read: a JAX-trained system reaches the port as torch-named files,
 written by the JAX exporters (``export_mixermdm_system``,
@@ -38,7 +43,10 @@ files with the ``released_*_state_dict`` functions of :mod:`..weights` and
 
 from __future__ import annotations
 
+import glob
+import os
 import pickle
+import re
 import sys
 from typing import Dict, List, Optional
 
@@ -196,3 +204,45 @@ def load_released_mdm(system: nn.Module, ckpt: str, strict: bool = False) -> Lis
     MDMSystem, as :func:`load_released_mixermdm` loads."""
     entries = {k: (ckpt, v) for k, v in rename(load_torch_state_dict(ckpt), MDM_RENAMES).items()}
     return _copy_checked(system, entries, strict)
+
+
+# ---------------------------------------------------------------------------
+# Train states (--resume)
+# ---------------------------------------------------------------------------
+
+def save_train_state(path: str, trainer) -> None:
+    """Write ``trainer.state_dict()`` (a :class:`..train.trainer.MixerTrainer`
+    or :class:`..train.trainer.BaseTrainer`) to ``path``, through a
+    temporary file renamed into place, so an interrupted save leaves the
+    previous file whole."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(trainer.state_dict(), tmp)
+    os.replace(tmp, path)
+
+
+def restore_train_state(path: str, trainer) -> None:
+    """Load a file of :func:`save_train_state` into ``trainer`` (built as
+    the one that saved it: the same system and options), every parameter,
+    moment, counter and the sampler history copied in place.  The file is
+    read with ``weights_only=True``."""
+    trainer.load_state_dict(torch.load(path, map_location=trainer.system.device,
+                                       weights_only=True))
+
+
+def latest_train_state_path(out_dir: str) -> Optional[str]:
+    """The newest ``*_state`` file under ``out_dir`` (``--resume auto``),
+    ranked by modification time, not by the epoch in the name: a run that
+    resumed and stopped again may have left a higher-numbered but older
+    file.  Ties break toward ``final_state``, then the higher epoch (JAX
+    ``latest_train_state_path``)."""
+    cands = [p for p in glob.glob(os.path.join(out_dir, "*_state")) if os.path.isfile(p)]
+
+    def rank(p):
+        if p.endswith("final_state"):
+            name_rank = (2, 0)
+        else:
+            m = re.search(r"epoch_(\d+)_state$", p)
+            name_rank = (1, int(m.group(1))) if m else (0, 0)
+        return (os.path.getmtime(p), *name_rank)
+
+    return max(cands, key=rank) if cands else None

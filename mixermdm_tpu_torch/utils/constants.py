@@ -1,5 +1,6 @@
-"""Skeleton / motion-representation constants (the subset the sampling path
-and the training data read), copied from ``mixermdm_tpu/utils/constants.py``.
+"""Skeleton / motion-representation constants (the subset the sampling path,
+the training data and the base models' losses read), copied from
+``mixermdm_tpu/utils/constants.py``.
 
 The 262-d InterHuman feature layout::
 
@@ -19,6 +20,9 @@ FACE_JOINT_INDX = (2, 1, 17, 16)
 # Foot joints for contact detection: (ankle, toe) right and left.
 FID_R = (8, 11)
 FID_L = (7, 10)
+# The feet the geometric foot-contact loss reads (l ankle, l toe, r ankle,
+# r toe).
+GEOMETRIC_LOSS_FIDS = (7, 10, 8, 11)
 
 # HumanML3D kinematic chains (the skeleton the plots draw).
 HML_KINEMATIC_CHAIN = (

@@ -216,8 +216,13 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     QUANT_FROZEN on in bf16 (the card's dtype) with the width gate at the
     tiny width, so that its blocks take the W8A8 path, then two steps of the
     training CLI (``python -m mixermdm_tpu_torch train-mixermdm --tiny
-    --device cpu --max-steps 2``).  The JAX package's ``scripts/`` is
-    blocked too, and the port's copy of its kernel experiments
+    --device cpu --max-steps 2``) and one more with ``--resume auto
+    --quant-train``, ``train-in2in --tiny`` in its three modes and
+    ``train-finetuned --tiny`` from the individual file it wrote, and
+    ``infer-in2in`` / ``infer-mdm --strict`` from each file ``train-in2in``
+    wrote; the JAX package's converters then read those files too.  The JAX
+    package's ``scripts/`` is blocked too, and the port's copy of its kernel
+    experiments
     (``mixermdm_tpu_torch.scripts.exp_kernels``) runs its check on the CPU.
     The inference CLI also samples from a released-layout checkpoint triple
     with DPM-Solver++, trajectory control, a warm start and decomposed
@@ -287,6 +292,29 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
         sys.argv = ["mixermdm_tpu_torch", "train-mixermdm", "--tiny", "--device", "cpu",
                     "--max-steps", "2", "--out-dir", {str(tmp_path / "train")!r}]
         assert cli() == 0
+        # the rest of training: --resume auto (one more step from final_state)
+        # with QUANT_TRAIN, the base models' three modes, the fine-tune
+        sys.argv[-4:-2] = ["--max-steps", "3"]
+        sys.argv += ["--resume", "auto", "--quant-train"]
+        assert cli() == 0
+        for mode in ("interaction", "individual", "mdm"):
+            sys.argv = ["mixermdm_tpu_torch", "train-in2in", "--tiny", "--device", "cpu",
+                        "--mode", mode, "--max-steps", "2",
+                        "--out-dir", {str(tmp_path / "base")!r} + "/" + mode]
+            assert cli() == 0
+            # what it wrote, sampled by the mode's CLI with every parameter loaded
+            out = {str(tmp_path / "base")!r} + "/" + mode
+            sys.argv = ["mixermdm_tpu_torch", "infer-mdm" if mode == "mdm" else "infer-in2in",
+                        "--tiny", "--device", "cpu", "--name", mode, "--text", "one waves",
+                        "--num-samples", "1", "--sample-steps", "2", "--strict",
+                        "--checkpoint", out + "/final.ckpt", "--out-dir", out + "/sampled"]
+            sys.argv += [] if mode == "mdm" else ["--mode", mode]
+            assert not cli()
+        sys.argv = ["mixermdm_tpu_torch", "train-finetuned", "--tiny", "--device", "cpu",
+                    "--max-steps", "1", "--individual-checkpoint",
+                    {str(tmp_path / "base")!r} + "/individual/final.ckpt",
+                    "--out-dir", {str(tmp_path / "ft")!r}]
+        assert cli() == 0
         bad = [k for k, v in sys.modules.items() if v is not None and
                k.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml", "mixermdm_tpu",
                                     "scripts")]
@@ -303,6 +331,28 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     assert np.load(tmp_path / "g_influence_i1.npy").shape == (4, 2, 16, F)
     assert "training done: 2 steps" in res.stdout
     assert (tmp_path / "train" / "MixerMDM.ckpt").is_file()
+    assert "resumed " in res.stdout and "final_state at step 2" in res.stdout
+    assert "training done: 1 steps" in res.stdout
+    assert "finetune done: 1 steps" in res.stdout
+    for mode, width in (("interaction", 2 * F), ("individual", F), ("mdm", F)):
+        sampled = np.load(tmp_path / "base" / mode / "sampled" / f"{mode}_motion.npy")
+        assert sampled.shape == (1, 16, width) and np.isfinite(sampled).all(), mode
+    # what train-in2in wrote, read by the JAX package's converters
+    from mixermdm_tpu.train import checkpoint as jck
+
+    from mixermdm_tpu_torch.models.clip_text import ClipTextConfig
+
+    clip_layers = ClipTextConfig.tiny().layers
+    for mode in ("interaction", "individual"):
+        sd = jck.load_torch_state_dict(str(tmp_path / "base" / mode / "final.ckpt"))
+        params = jck.convert_in2in_system(sd, mode, num_layers=2, clip_layers=clip_layers)
+        kernel = np.asarray(params[f"denoiser_{mode}"]["motion_embed"]["kernel"])
+        np.testing.assert_array_equal(kernel.T, sd[f"decoder.net_{mode}.motion_embed.weight"])
+        assert np.isfinite(kernel).all()
+    sd = jck.load_torch_state_dict(str(tmp_path / "base" / "mdm" / "final.ckpt"))
+    den = jck.convert_mdm_denoiser(sd, num_layers=2)
+    np.testing.assert_array_equal(np.asarray(den["input_process"]["kernel"]).T,
+                                  sd["model.input_process.poseEmbedding.weight"])
     motion = np.load(tmp_path / "d_motion.npy")
     assert motion.shape == (2, 16, 2 * F) and np.isfinite(motion).all() and np.abs(motion).max() > 0
     assert np.load(tmp_path / "d_influence_i2.npy").shape == (3, 2, 16, F)  # 4 steps, 1 skipped

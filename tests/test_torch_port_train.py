@@ -19,6 +19,7 @@ numpy seed, as in tests/test_torch_port_models.py); inputs from numpy seeds.
 """
 
 import copy
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -350,24 +351,41 @@ def _train_inputs(seed=21):
     return x, lens, t, noise, drop
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_sides_program(systems):
+    """Start :func:`_jax_sides` on a worker thread as the module starts, so
+    that its trace and compile overlap the tests before the first one that
+    reads it (none of which touches the JAX system)."""
+    with ThreadPoolExecutor(1) as pool:
+        yield pool.submit(_jax_sides, systems)
+
+
 @pytest.fixture(scope="module")
-def jax_sides(systems):
-    """Both sides' JAX losses and gradients, traced and compiled as one
-    program (the two share the frozen denoisers' forward)."""
+def jax_sides(_jax_sides_program):
+    return _jax_sides_program.result()
+
+
+def _jax_sides(systems):
+    """Both sides' JAX losses and gradients, one jitted program a side: the
+    generator's compiles on a second thread while the discriminator's is
+    traced."""
     jsys, params, _ = systems
     toks = jsys.tokenize_batch(texts())
     toks = [toks[k] for k in ("tokens_inter", "tokens_i1", "tokens_i2")]
 
-    def run():
-        # The conds and the tower features the mixer's head encodes are
-        # constants of the loss (the JAX package stop-gradients the frozen
-        # conds and the tower).
-        text = (jsys._encode_cond_impl(params, *toks),
-                [jsys.text.clip_features(params["text"], tok) for tok in toks], toks)
-        return {mode: _jax_loss_and_grads(jsys, params, text, mode, SIDES[mode][0])
-                for mode in SIDES}
+    def program(mode):
+        def run():
+            # The conds and the tower features the mixer's head encodes are
+            # constants of the loss (the JAX package stop-gradients the
+            # frozen conds and the tower).
+            text = (jsys._encode_cond_impl(params, *toks),
+                    [jsys.text.clip_features(params["text"], tok) for tok in toks], toks)
+            return _jax_loss_and_grads(jsys, params, text, mode, SIDES[mode][0])
+        return jax.jit(run).lower()
 
-    return jax.jit(run)()
+    with ThreadPoolExecutor(len(SIDES)) as pool:
+        runs = {mode: pool.submit(lambda low=program(mode): low.compile()()) for mode in SIDES}
+        return {mode: run.result() for mode, run in runs.items()}
 
 
 def _jax_loss_and_grads(jsys, params, text, mode, keys):
