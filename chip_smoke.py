@@ -24,6 +24,12 @@ Phases, each printing its wall-clock seconds:
    unfused kernel's output, beside the unfused pair and with every
    warpgroup count of their plans), the eager time and
    the host's microseconds per call, and the card's bound for the same work;
+   the evaluator's f32 attention (the InterCLIP motion tower (96, 8, 301,
+   128) under a key mask, the text tower (96, 8, 77, 96)) and its backward
+   at train-evaluator's batch of 32; every kernel of the W8A8 sampling
+   chain, and its blocks, at the rows the protocol's generation batches
+   give them (96 prompts x 4 sequences x 299 frames, 32 x 4 x 300), and
+   eval-base's bf16 blocks at its largest batch (96 x 8 sequences);
 3b. the one-launch SA blocks of the kernel experiments (``sa_block``:
    ``sa_variant`` rows 1 / 2 with and without the reciprocal softmax,
    ``sa_headbatch``, ``sa_ablate``'s five skip sets, bf16 and W8A8;
@@ -66,6 +72,19 @@ Phases, each printing its wall-clock seconds:
    trajectory control and a warm start) and ``infer-mdm`` (B 2, T 196)
    in-process on them, counted, no plain version chosen; one CFG mixer step
    of ``build_mixer_system`` with MDM as MODEL1 and InterGen as MODEL2;
+5d. evaluation at full width (InterCLIP: 1024-d, 8 layers, 8 heads, FF
+   2048; text 768 x 8 layers) on synthetic InterHuman (96 clips) and
+   HumanML3D (32 clips) sets of differing lengths: both evaluators written
+   in the reference's file layout and read back ``--strict``; both towers'
+   embeddings of one protocol batch, and the metrics computed from them, on
+   the kernels against the plain versions; a mixer with its zero-init
+   layers drawn from N(0, 0.02): one CFG step at the batch of 96 prompts on
+   the kernels against the plain versions and f32, its released files;
+   ``eval-mixermdm --datasets both`` through its entry point on those files
+   (one replication, batches of 96 and 32, MultiModality 2 x 15, DDIM-50
+   W8A8), each side's generation and scoring seconds and its launches,
+   every shape its generation batches launched a kernel at held in phase
+   3; ``eval-base`` in each mode, counted;
 6. adversarial training at full width (``configs/models/MixerMDM.yaml``,
    ``configs/train/MixerMDM.yaml``, B = 8, T = 300): the gradients of one G
    and one D step on the kernels against the plain versions (and against
@@ -91,6 +110,10 @@ Phases, each printing its wall-clock seconds:
    launches counted; ``train-finetuned`` for one step from a released
    individual file,
    every ``sa_block`` bitwise unchanged and every ``ca_block`` trained;
+6c. ``train-evaluator`` at full width: one step's loss and gradients (B
+   32) on the kernels against the plain versions, the CLI for 3 steps,
+   counted, and its file read by ``eval-mixermdm --evaluator-checkpoint
+   --strict``;
 7. one JSON line per kernel and entry point, then the result line.
 
 Any failure exits nonzero and prints no result line.  The script imports
@@ -205,6 +228,13 @@ def graph_timed(fn, reps=10, replays=5):
     return _events_ms(graph.replay, replays) / reps
 
 
+def light_timed(fn):
+    """:func:`graph_timed` with few calls, for the large shapes of the
+    protocol's batches (phase 3's eval-rows checks): a reading, not a
+    tuned mean."""
+    return graph_timed(fn, reps=2, replays=3)
+
+
 def bound_ms(n_bytes, flops, peak_flops=H100_BF16_FLOPS):
     t_bytes = n_bytes / H100_BYTES_PER_S
     t_ops = flops / peak_flops
@@ -230,7 +260,7 @@ def kernel_checks(gen):
         return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf)
 
     def compare(name, kernel, plain, tol, n_bytes, flops, library=None, kind=None,
-                peak=H100_BF16_FLOPS, **shape):
+                peak=H100_BF16_FLOPS, light=False, **shape):
         out_k = kernel()
         torch.cuda.synchronize()
         out_p = plain()
@@ -240,13 +270,15 @@ def kernel_checks(gen):
         finite = bool(torch.isfinite(out_k.float()).all().item())
         ok = finite and max_abs <= tol * ref_scale
         b_ms, b_by = bound_ms(n_bytes, flops, peak)
+        dev_ms = light_timed if light else graph_timed
         res = {
             "check": name, "kind": kind, "shape": shape, "max_abs_err": max_abs,
             "max_rel_err": max_abs / ref_scale, "tol_rel": tol, "ok": ok,
-            "ms": graph_timed(kernel), "plain_ms": graph_timed(plain),
+            "ms": dev_ms(kernel), "plain_ms": dev_ms(plain),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if library is None else graph_timed(library),
-            "eager_ms": timed(kernel), "host_us": host_us(kernel),
+            "library_ms": None if library is None else dev_ms(library),
+            "eager_ms": None if light else timed(kernel),
+            "host_us": None if light else host_us(kernel),
         }
         print("   " + json.dumps(res), flush=True)
         return res
@@ -259,7 +291,7 @@ def kernel_checks(gen):
 
     # --- attention kernel, through the fused_attention entry point ---------
     def attn_case(name, B, H, Tq, Tk, D, zero_attn, causal=False, kpm_rows=(), tol=2e-2,
-                  kpm_tail=False):
+                  kpm_tail=False, light=False):
         q, k, v = rnd(B, H, Tq, D), rnd(B, H, Tk, D), rnd(B, H, Tk, D)
         kpm = None
         if kpm_rows or kpm_tail:
@@ -284,7 +316,7 @@ def kernel_checks(gen):
             lambda: ops.fused_attention_plain(q, k, v, kpm, amask, zero_attn),
             tol, n_bytes, flops,
             library=lambda: F.scaled_dot_product_attention(q, kz, vz, attn_mask=bias),
-            kind="attention", B=B, H=H, Tq=Tq, Tk=Tk, D=D, zero_attn=zero_attn,
+            kind="attention", light=light, B=B, H=H, Tq=Tq, Tk=Tk, D=D, zero_attn=zero_attn,
             causal=causal, masked_rows=list(kpm_rows))
 
     results = []
@@ -306,14 +338,17 @@ def kernel_checks(gen):
     # --- adaln_modulate ---------------------------------------------------
     # scale and shift as the blocks pass them: the two halves of the
     # modulation's (B, 2E) output.
-    for B, T, E in ((8, 299, 1024), (8, 299, 512), (3, 131, 1024)):
+    def adaln_case(B, T, E, label="", light=False):
         x = rnd(B, T, E)
         sc, sh = rnd(B, 2 * E, std=0.2).chunk(2, dim=-1)
-        results.append(compare(
-            f"adaln_modulate E={E} T={T}", lambda: ops.adaln_modulate(x, sc, sh),
+        return compare(
+            f"adaln_modulate E={E} T={T}{label}", lambda: ops.adaln_modulate(x, sc, sh),
             lambda: ops.adaln_modulate_plain(x, sc, sh), 2e-2,
             2 * (2 * B * T * E + 2 * B * E), 8 * B * T * E, kind="adaln_modulate",
-            peak=H100_F32_FLOPS, B=B, T=T, E=E))
+            peak=H100_F32_FLOPS, light=light, B=B, T=T, E=E)
+
+    for B, T, E in ((8, 299, 1024), (8, 299, 512), (3, 131, 1024)):
+        results.append(adaln_case(B, T, E))
 
     # --- linear_epilogue, each route at its main-path shapes ---------------
     # The yardstick is one F.linear call (the product and the bias, not the
@@ -321,7 +356,7 @@ def kernel_checks(gen):
     # the port.
     from mixermdm_tpu_torch.ops.linear import gemm_plan, tma_describable
 
-    def lin_case(name, M, K, N, act=None, res=False, tol=2e-2, ldx=None):
+    def lin_case(name, M, K, N, act=None, res=False, tol=2e-2, ldx=None, light=False):
         # ldx: x is the view x[:, :K] of an (M, ldx) tensor.
         x = rnd(M, ldx or K)[:, :K]
         w, b = rnd(N, K, std=K ** -0.5), rnd(N, std=0.1)
@@ -334,7 +369,7 @@ def kernel_checks(gen):
         return compare(
             name, lambda: ops.linear(x, w, b, activation=act, residual=r),
             lambda: ops.linear_plain(x, w, b, activation=act, residual=r), tol,
-            n_bytes, 2 * M * N * K, library=lambda: F.linear(x, w, b), kind=route,
+            n_bytes, 2 * M * N * K, library=lambda: F.linear(x, w, b), kind=route, light=light,
             M=M, K=K, N=N, activation=act, residual=res, tile=plan.bn or None,
             row_bytes=2 * x.stride(0))
 
@@ -380,7 +415,7 @@ def kernel_checks(gen):
                      w2=rnd(E, F_, std=F_ ** -0.5), b2=rnd(E, std=0.1))
         return p
 
-    def sa_case(B, T, E, H, residual, kpm_tail=False, label=""):
+    def sa_case(B, T, E, H, residual, kpm_tail=False, label="", light=False):
         x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
         p = block_params(E)
         kpm = None
@@ -394,10 +429,10 @@ def kernel_checks(gen):
         return compare(f"fused_sa_block E={E} T={T} residual={residual}{label}",
                        lambda: ops.fused_sa_block(*args, **kw),
                        lambda: ops.fused_sa_block_plain(*args, **kw), 3e-2, n_bytes, flops,
-                       kind="fused_sa_block", B=B, T=T, E=E, H=H, residual=residual,
-                       key_padding=kpm_tail)
+                       kind="fused_sa_block", light=light, B=B, T=T, E=E, H=H,
+                       residual=residual, key_padding=kpm_tail)
 
-    def ca_case(B, T, E, H, residual, label=""):
+    def ca_case(B, T, E, H, residual, label="", light=False):
         x, xf = rnd(B, T, E), rnd(B, T, E)
         mods = [rnd(B, E, std=0.2) for _ in range(4)]
         p = block_params(E)
@@ -408,9 +443,10 @@ def kernel_checks(gen):
         return compare(f"fused_ca_block E={E} T={T} residual={residual}{label}",
                        lambda: ops.fused_ca_block(*args, **kw),
                        lambda: ops.fused_ca_block_plain(*args, **kw), 3e-2, n_bytes, flops,
-                       kind="fused_ca_block", B=B, T=T, E=E, H=H, residual=residual)
+                       kind="fused_ca_block", light=light, B=B, T=T, E=E, H=H,
+                       residual=residual)
 
-    def ffn_case(B, T, E, F_, residual, modulate=True, label=""):
+    def ffn_case(B, T, E, F_, residual, modulate=True, label="", light=False):
         x = rnd(B, T, E)
         sc, sh = (rnd(B, E, std=0.2), rnd(B, E, std=0.2)) if modulate else (None, None)
         p = block_params(E, F_)
@@ -419,7 +455,7 @@ def kernel_checks(gen):
         return compare(f"fused_ffn_block E={E} F={F_} residual={residual} adaln={modulate}{label}",
                        lambda: ops.fused_ffn_block(*args, residual=residual),
                        lambda: ops.fused_ffn_block_plain(*args, residual=residual), 3e-2,
-                       n_bytes, 4 * B * T * E * F_, kind="fused_ffn_block",
+                       n_bytes, 4 * B * T * E * F_, kind="fused_ffn_block", light=light,
                        B=B, T=T, E=E, F=F_, residual=residual, adaln=modulate)
 
     results.append(sa_case(8, 299, 1024, 8, True))
@@ -467,6 +503,49 @@ def kernel_checks(gen):
     # kernels at the rows QUANT_TRAIN gives the frozen denoisers.
     results += base_bwd_checks(gen)
     results += quant_train_q8_checks(gen, compare, block_params, rnd)
+    # The evaluator's shapes (phases 5d and 6c), drawn after every earlier
+    # check.
+    results += eval_kernel_checks(gen, compare)
+    # The protocol's batches (phase 5d), drawn after every earlier check:
+    # each kernel of eval-mixermdm's W8A8 chain at the shapes its two
+    # generation batches give it (phase 5d (c) holds the shapes it counts
+    # to this set) and the W8A8 blocks there; then eval-base's bf16 blocks
+    # at its largest batch, the CLIP tower at 96 prompts and MDM's encoder
+    # at eval-base mdm's 32 (2-way CFG, the cond token + 300 frames).
+    for S, T in EVAL_GEN_ROWS:
+        P, M_, lab = S // 4, S * T, f" B={S} T={T}"
+        for E in (1024, 512):
+            results.append(_adaln_q8_case(rnd, S, T, E, label=lab, light=True))
+        for K, N, res in EVAL_Q8_GEMMS:
+            results.append(_q8_linear_case(
+                gen, rnd, M_, f"linear_q8 K={K} N={N}{' +residual' if res else ''}{lab}", K, N,
+                res=res, light=True))
+        for K, N in EVAL_GEMMS_FRAMES:
+            results.append(lin_case(f"linear K={K} N={N}{lab}", M_, K, N, light=True))
+        for rows, shapes in ((2 * P, EVAL_GEMMS_2P), (4 * P, EVAL_GEMMS_4P)):
+            for K, N in shapes:
+                results.append(lin_case(f"linear M={rows} K={K} N={N} ({P} prompts)", rows, K,
+                                        N, light=True))
+        for E, F_ in ((1024, 2048), (512, 1024)):
+            results.append(_sa_q8(compare, block_params, rnd, S, T, E, 8, True, label=lab,
+                                  light=True))
+            results.append(_ca_q8(compare, block_params, rnd, S, T, E, 8, True, label=lab,
+                                  light=True))
+            results.append(_ffn_q8(compare, block_params, rnd, S, T, E, F_, True, label=lab,
+                                   light=True))
+    results += fused_q8_checks(gen, rnd, rows=EVAL_GEN_ROWS)
+    S, lab = EVAL_BASE_ROWS, f" B={EVAL_BASE_ROWS} eval-base"
+    results.append(adaln_case(S, 299, 1024, label=lab, light=True))
+    results.append(attn_case("attention denoiser D=128" + lab, S, 8, 299, 299, 128, True,
+                             light=True))
+    results.append(sa_case(S, 299, 1024, 8, True, label=lab, light=True))
+    results.append(ca_case(S, 299, 1024, 8, True, label=lab, light=True))
+    results.append(ffn_case(S, 299, 1024, 2048, True, label=lab, light=True))
+    results.append(attn_case(f"attention clip tower B={EVAL_IH_CLIPS}", EVAL_IH_CLIPS, 12, 77,
+                             77, 64, False, causal=True, light=True))
+    results.append(attn_case(f"attention MDM encoder D=128 kpm B={2 * EVAL_HML_CLIPS} T=301",
+                             2 * EVAL_HML_CLIPS, 4, 301, 301, 128, False, kpm_tail=True,
+                             light=True))
     _lib.reset_launch_counts()  # comparison launches do not count
     return results
 
@@ -492,10 +571,60 @@ Q8_DIFFER_SHARE = 1e-4
 Q8_SCALE_REL = 2.0 ** -7
 
 
+def _adaln_q8_case(rnd, B, T, E, label="", light=False):
+    """``adaln_modulate_q8`` held twice on the same inputs: bitwise against
+    quant_rows_plain of adaln_modulate's rows (the quantisation is exact),
+    and against the plain composition adaln_modulate_q8_plain, which rounds
+    rows the kernel's statistics may put one f32 ulp apart to the other bf16
+    neighbour: at most Q8_INT8_ERR off per int8 value, at most
+    Q8_DIFFER_SHARE of them off, scales within Q8_SCALE_REL.  The row's
+    max_abs_err is the distance to the plain composition.  Timed beside the
+    unfused pair of kernels it replaces, adaln_modulate then quant_rows."""
+    import torch
+
+    from mixermdm_tpu_torch import ops
+
+    x = rnd(B, T, E)
+    sc, sh = rnd(B, 2 * E, std=0.2).chunk(2, dim=-1)
+    x8, xs = ops.adaln_modulate_q8(x, sc, sh)
+    torch.cuda.synchronize()
+    k8, ks = ops.quant_rows_plain(ops.adaln_modulate(x, sc, sh))
+    c8, cs_ = ops.adaln_modulate_q8_plain(x, sc, sh)
+    rows_err8 = (x8.int() - k8.int()).abs().max().item()
+    rows_errs = (xs - ks).abs().max().item()
+    err8 = (x8.int() - c8.int()).abs().max().item()
+    differ = (x8 != c8).float().mean().item()
+    scale_rel = ((xs - cs_).abs() / cs_).max().item()
+    ok = (rows_err8 == 0 and rows_errs == 0 and err8 <= Q8_INT8_ERR
+          and differ <= Q8_DIFFER_SHARE and scale_rel <= Q8_SCALE_REL)
+    n_bytes = 2 * B * T * E + 2 * 2 * B * E + B * T * E + 4 * B * T
+    b_ms, b_by = bound_ms(n_bytes, 12 * B * T * E, H100_F32_FLOPS)
+    kern = lambda: ops.adaln_modulate_q8(x, sc, sh)  # noqa: E731
+    dev_ms = light_timed if light else graph_timed
+    res = {
+        "check": f"adaln_modulate_q8 E={E} T={T}{label}", "kind": "adaln_modulate_q8",
+        "shape": {"B": B, "T": T, "E": E}, "max_abs_err": float(err8),
+        "int8_differ": differ, "max_scale_rel_err": scale_rel,
+        "tol": {"max_int8_err": Q8_INT8_ERR, "int8_differ": Q8_DIFFER_SHARE,
+                "max_scale_rel_err": Q8_SCALE_REL},
+        "vs_kernel_rows": {"max_int8_err": rows_err8, "max_scale_err": rows_errs,
+                           "tol": "bitwise"},
+        "ok": ok,
+        "ms": dev_ms(kern),
+        "plain_ms": dev_ms(lambda: ops.adaln_modulate_q8_plain(x, sc, sh)),
+        "pair_ms": dev_ms(lambda: ops.quant_rows(ops.adaln_modulate(x, sc, sh))),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "eager_ms": None if light else timed(kern), "host_us": None if light else host_us(kern),
+    }
+    print("   " + json.dumps(res), flush=True)
+    return res
+
+
 # --- linear_q8: f32 out to 1e-5 of max |plain|, bf16 out within one bf16
 # rounding per element ------------------------------------------------------
-def _q8_linear_case(gen, rnd, M, name, K, N, act=None, res=False):
-    """A ``linear_q8`` product at M rows against its plain version, timed."""
+def _q8_linear_case(gen, rnd, M, name, K, N, act=None, res=False, light=False):
+    """A ``linear_q8`` product at M rows against its plain version, timed
+    (``light``: :func:`light_timed`, no eager, host or library time)."""
     import torch
 
     from mixermdm_tpu_torch import ops
@@ -521,18 +650,19 @@ def _q8_linear_case(gen, rnd, M, name, K, N, act=None, res=False):
     n_bytes = M * K + N * K + 4 * (M + N) + 2 * N + out_bytes + (2 * M * N if res else 0)
     b_ms, b_by = bound_ms(n_bytes, 2 * M * N * K, H100_INT8_OPS)
     w8t = w8.t()
+    library_ms = None
     try:  # the library's int8 product (no dequantisation), a yardstick only
-        library_ms = graph_timed(lambda: torch._int_mm(x8, w8t))
+        library_ms = None if light else graph_timed(lambda: torch._int_mm(x8, w8t))
     except RuntimeError as e:
         print(f"   torch._int_mm at M={M} K={K} N={N} not timed: {e}", flush=True)
-        library_ms = None
+    dev_ms = light_timed if light else graph_timed
     result = {
         "check": name, "kind": "linear_q8",
         "shape": {"M": M, "K": K, "N": N, "activation": act, "residual": res},
         "max_abs_err": max_abs, "max_rel_err": rel, "tol": tol, "ok": bool(ok),
-        "ms": graph_timed(run), "plain_ms": graph_timed(plain),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms, "eager_ms": timed(run), "host_us": host_us(run),
+        "ms": dev_ms(run), "plain_ms": dev_ms(plain),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "eager_ms": None if light else timed(run), "host_us": None if light else host_us(run),
     }
     print("   " + json.dumps(result), flush=True)
     return result
@@ -553,7 +683,8 @@ def _q8_eq_ops(B, T, E, F_=None):
     return B * T * E * 4 * E + 4 * B * T * T * E
 
 
-def _sa_q8(compare, block_params, rnd, B, T, E, H, residual, kpm_tail=False, label=""):
+def _sa_q8(compare, block_params, rnd, B, T, E, H, residual, kpm_tail=False, label="",
+           light=False):
     import torch
 
     from mixermdm_tpu_torch import ops
@@ -570,11 +701,11 @@ def _sa_q8(compare, block_params, rnd, B, T, E, H, residual, kpm_tail=False, lab
     return compare(f"fused_sa_block_q8 E={E} T={T} residual={residual}{label}",
                    lambda: ops.fused_sa_block_q8(*args, **kw),
                    lambda: ops.fused_sa_block_q8_plain(*args, **kw), 3e-2, n_bytes,
-                   _q8_eq_ops(B, T, E), kind="fused_sa_block_q8", B=B, T=T, E=E, H=H,
-                   residual=residual, key_padding=kpm_tail)
+                   _q8_eq_ops(B, T, E), kind="fused_sa_block_q8", light=light, B=B, T=T, E=E,
+                   H=H, residual=residual, key_padding=kpm_tail)
 
 
-def _ca_q8(compare, block_params, rnd, B, T, E, H, residual, label=""):
+def _ca_q8(compare, block_params, rnd, B, T, E, H, residual, label="", light=False):
     from mixermdm_tpu_torch import ops
 
     x, xf = rnd(B, T, E), rnd(B, T, E)
@@ -586,11 +717,11 @@ def _ca_q8(compare, block_params, rnd, B, T, E, H, residual, label=""):
     return compare(f"fused_ca_block_q8 E={E} T={T} residual={residual}{label}",
                    lambda: ops.fused_ca_block_q8(*args, **kw),
                    lambda: ops.fused_ca_block_q8_plain(*args, **kw), 3e-2, n_bytes,
-                   _q8_eq_ops(B, T, E), kind="fused_ca_block_q8", B=B, T=T, E=E, H=H,
-                   residual=residual)
+                   _q8_eq_ops(B, T, E), kind="fused_ca_block_q8", light=light, B=B, T=T, E=E,
+                   H=H, residual=residual)
 
 
-def _ffn_q8(compare, block_params, rnd, B, T, E, F_, residual, label=""):
+def _ffn_q8(compare, block_params, rnd, B, T, E, F_, residual, label="", light=False):
     from mixermdm_tpu_torch import ops
 
     x, sc, sh = rnd(B, T, E), rnd(B, E, std=0.2), rnd(B, E, std=0.2)
@@ -600,7 +731,7 @@ def _ffn_q8(compare, block_params, rnd, B, T, E, F_, residual, label=""):
     return compare(f"fused_ffn_block_q8 E={E} F={F_} residual={residual}{label}",
                    lambda: ops.fused_ffn_block_q8(*args, residual=residual),
                    lambda: ops.fused_ffn_block_q8_plain(*args, residual=residual), 3e-2,
-                   n_bytes, _q8_eq_ops(B, T, E, F_), kind="fused_ffn_block_q8",
+                   n_bytes, _q8_eq_ops(B, T, E, F_), kind="fused_ffn_block_q8", light=light,
                    B=B, T=T, E=E, F=F_, residual=residual)
 
 
@@ -655,48 +786,9 @@ def q8_checks(gen, compare, block_params, rnd):
         print("   " + json.dumps(res), flush=True)
         results.append(res)
 
-    # --- adaln_modulate_q8, held twice on the same inputs: bitwise against
-    # quant_rows_plain of adaln_modulate's rows (the quantisation is exact),
-    # and against the plain composition adaln_modulate_q8_plain, which
-    # rounds rows the kernel's statistics may put one f32 ulp apart to the
-    # other bf16 neighbour: at most Q8_INT8_ERR off per int8 value, at most
-    # Q8_DIFFER_SHARE of them off, scales within Q8_SCALE_REL.  The row's
-    # max_abs_err is the distance to the plain composition.  Timed beside
-    # the unfused pair of kernels it replaces, adaln_modulate then quant_rows
+    # --- adaln_modulate_q8 (:func:`_adaln_q8_case`)
     for B, T, E in ((8, 299, 1024), (8, 299, 512), (3, 131, 1024)):
-        x = rnd(B, T, E)
-        sc, sh = rnd(B, 2 * E, std=0.2).chunk(2, dim=-1)
-        x8, xs = ops.adaln_modulate_q8(x, sc, sh)
-        torch.cuda.synchronize()
-        k8, ks = ops.quant_rows_plain(ops.adaln_modulate(x, sc, sh))
-        c8, cs_ = ops.adaln_modulate_q8_plain(x, sc, sh)
-        rows_err8 = (x8.int() - k8.int()).abs().max().item()
-        rows_errs = (xs - ks).abs().max().item()
-        err8 = (x8.int() - c8.int()).abs().max().item()
-        differ = (x8 != c8).float().mean().item()
-        scale_rel = ((xs - cs_).abs() / cs_).max().item()
-        ok = (rows_err8 == 0 and rows_errs == 0 and err8 <= Q8_INT8_ERR
-              and differ <= Q8_DIFFER_SHARE and scale_rel <= Q8_SCALE_REL)
-        n_bytes = 2 * B * T * E + 2 * 2 * B * E + B * T * E + 4 * B * T
-        b_ms, b_by = bound_ms(n_bytes, 12 * B * T * E, H100_F32_FLOPS)
-        kern = lambda: ops.adaln_modulate_q8(x, sc, sh)  # noqa: E731
-        res = {
-            "check": f"adaln_modulate_q8 E={E} T={T}", "kind": "adaln_modulate_q8",
-            "shape": {"B": B, "T": T, "E": E}, "max_abs_err": float(err8),
-            "int8_differ": differ, "max_scale_rel_err": scale_rel,
-            "tol": {"max_int8_err": Q8_INT8_ERR, "int8_differ": Q8_DIFFER_SHARE,
-                    "max_scale_rel_err": Q8_SCALE_REL},
-            "vs_kernel_rows": {"max_int8_err": rows_err8, "max_scale_err": rows_errs,
-                               "tol": "bitwise"},
-            "ok": ok,
-            "ms": graph_timed(kern),
-            "plain_ms": graph_timed(lambda: ops.adaln_modulate_q8_plain(x, sc, sh)),
-            "pair_ms": graph_timed(lambda: ops.quant_rows(ops.adaln_modulate(x, sc, sh))),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "eager_ms": timed(kern), "host_us": host_us(kern),
-        }
-        print("   " + json.dumps(res), flush=True)
-        results.append(res)
+        results.append(_adaln_q8_case(rnd, B, T, E))
 
     for name, K, N, kw in (("QKV E=1024", 1024, 3072, {}),
                            ("FFN1 gelu f32 E=1024", 1024, 2048, {"act": "gelu"}),
@@ -739,7 +831,7 @@ def q8_checks(gen, compare, block_params, rnd):
 FUSED_Q8_TOL = {"attention_q8": 2e-2 + 1 / 127, "linear_q8_gelu_q8": 1e-5 + 1 / 127}
 
 
-def fused_q8_checks(gen, rnd):
+def fused_q8_checks(gen, rnd, rows=None):
     """``attention_q8`` and the quantising GELU product (``linear_q8_gelu_q8``)
     at the six shapes where the W8A8 step quantised with ``quant_rows``
     before: int8 values and scales bitwise ``quant_rows`` of the unfused
@@ -748,7 +840,9 @@ def fused_q8_checks(gen, rnd):
     pair they replace (the producer kernel, then ``quant_rows``), with every
     warpgroup count of the plan forced beside the one it picks (rows per
     block: the plan's choice rests on these readings), and a ragged case of
-    each (not timed)."""
+    each (not timed).  With ``rows`` ((sequences, T), ...), instead: each
+    kernel at the shapes of those batches (:data:`EVAL_GEN_ROWS`), on the
+    plans they pick, timed lightly."""
     import importlib
 
     import torch
@@ -780,7 +874,7 @@ def fused_q8_checks(gen, rnd):
             setattr(module, plan_name, orig)
         return out
 
-    def held(name, kind, got, pair, plain, n_bytes, ops_, peak, timing, **shape):
+    def held(name, kind, got, pair, plain, n_bytes, ops_, peak, timing, light=False, **shape):
         (k8, ks), (r8, rs), (p8, ps) = got, pair, plain
         torch.cuda.synchronize()
         bit8 = (k8.int() - r8.int()).abs().max().item()
@@ -800,16 +894,18 @@ def fused_q8_checks(gen, rnd):
         }
         if timing:
             kern, pair_fn, plain_fn = timing
-            res.update({"ms": graph_timed(kern), "pair_ms": graph_timed(pair_fn),
-                        "plain_ms": graph_timed(plain_fn), "eager_ms": timed(kern),
-                        "host_us": host_us(kern)})
+            dev_ms = light_timed if light else graph_timed
+            res.update({"ms": dev_ms(kern), "pair_ms": dev_ms(pair_fn),
+                        "plain_ms": dev_ms(plain_fn),
+                        "eager_ms": None if light else timed(kern),
+                        "host_us": None if light else host_us(kern)})
         print("   " + json.dumps(res), flush=True)
         return res
 
     # --- attention_q8: Q, K, V as the blocks pass them (slices of a packed
     # projection); the SA form quantises the f32 output, the CA form its bf16
     # rounding.
-    def attn_q8(name, B, T, H, D, out_dtype, kpm_rows=(), time_it=True):
+    def attn_q8(name, B, T, H, D, out_dtype, kpm_rows=(), time_it=True, light=False):
         E = H * D
         qkv = rnd(B, T, 3 * E)
         q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in qkv.split(E, dim=-1))
@@ -833,11 +929,11 @@ def fused_q8_checks(gen, rnd):
         clusters = attn_mod.attention_q8_clusters(D, H, plan.nwg, plan.stages)
         n_bytes = 2 * 3 * B * T * E + B * T * E + 4 * B * T + (B * T if kpm is not None else 0)
         res = held(name, "attention_q8", kern(), pair(), plain(), n_bytes, 4 * B * T * T * E,
-                   H100_BF16_FLOPS, (kern, pair, plain) if time_it else None, B=B, H=H, Tq=T,
-                   Tk=T, D=D, out=str(out_dtype)[6:], masked_rows=list(kpm_rows),
+                   H100_BF16_FLOPS, (kern, pair, plain) if time_it else None, light=light, B=B,
+                   H=H, Tq=T, Tk=T, D=D, out=str(out_dtype)[6:], masked_rows=list(kpm_rows),
                    plan={"nwg": plan.nwg, "stages": plan.stages, "ctas": plan.grid[0] * H * B,
                          "clusters_at_once": clusters})
-        if time_it:
+        if time_it and not light:
             res["by_nwg"] = forced(attn_mod, "attention_q8_plan", "nwg",
                                    range(1, attn_mod.MAX_WARPGROUPS + 1), (B, H, T, T, D),
                                    kern, pair)
@@ -846,16 +942,8 @@ def fused_q8_checks(gen, rnd):
             print("   " + json.dumps({"check": name, "by_nwg": res["by_nwg"]}), flush=True)
         return res
 
-    M = 8 * 299
-    results.append(attn_q8("attention_q8 SA f32 D=128", 8, 299, 8, 128, torch.float32))
-    results.append(attn_q8("attention_q8 SA f32 D=64", 8, 299, 8, 64, torch.float32))
-    results.append(attn_q8("attention_q8 CA bf16 D=128", 8, 299, 8, 128, torch.bfloat16))
-    results.append(attn_q8("attention_q8 CA bf16 D=64", 8, 299, 8, 64, torch.bfloat16))
-    results.append(attn_q8("attention_q8 T=131 key padding + masked row", 3, 131, 8, 128,
-                           torch.bfloat16, kpm_rows=(1,), time_it=False))
-
     # --- the quantising GELU product (FFN1 of the W8A8 FFN blocks) ----------
-    def gelu_q8(name, M_, K, N, time_it=True):
+    def gelu_q8(name, M_, K, N, time_it=True, light=False):
         x8, xs = ops.quant_rows(torch.randn(M_, K, generator=gen, device=dev).to(torch.bfloat16))
         w8, ws = ops.quantize_weight(rnd(N, K, std=K ** -0.5))
         b = rnd(N, std=0.1)
@@ -867,9 +955,9 @@ def fused_q8_checks(gen, rnd):
         plan = lq.gelu_q8_plan(M_, N, K)
         n_bytes = M_ * K + N * K + 4 * (M_ + N) + 2 * N + M_ * N + 4 * M_
         res = held(name, "linear_q8_gelu_q8", kern(), pair(), plain(), n_bytes, 2 * M_ * N * K,
-                   H100_INT8_OPS, (kern, pair, plain) if time_it else None, M=M_, K=K, N=N,
-                   plan=dataclasses.asdict(plan))
-        if time_it:
+                   H100_INT8_OPS, (kern, pair, plain) if time_it else None, light=light, M=M_,
+                   K=K, N=N, plan=dataclasses.asdict(plan))
+        if time_it and not light:
             res["by_nc"] = forced(lq, "gelu_q8_plan", "nc", lq.GELU_Q8_WARPGROUPS,
                                   (M_, N, K), kern, pair)
             res["ok"] = res["ok"] and all(r["bitwise_vs_unfused_kernel"]
@@ -877,6 +965,26 @@ def fused_q8_checks(gen, rnd):
             print("   " + json.dumps({"check": name, "by_nc": res["by_nc"]}), flush=True)
         return res
 
+    if rows:
+        for S, T in rows:
+            lab = f" B={S} T={T}"
+            for D, form, dt in ((128, "SA f32", torch.float32), (64, "SA f32", torch.float32),
+                                (128, "CA bf16", torch.bfloat16), (64, "CA bf16", torch.bfloat16)):
+                results.append(attn_q8(f"attention_q8 {form} D={D}{lab}", S, T, 8, D, dt,
+                                       light=True))
+            results.append(gelu_q8(f"linear_q8_gelu_q8 FFN1 E=1024{lab}", S * T, 1024, 2048,
+                                   light=True))
+            results.append(gelu_q8(f"linear_q8_gelu_q8 FFN1 E=512{lab}", S * T, 512, 1024,
+                                   light=True))
+        return results
+
+    M = 8 * 299
+    results.append(attn_q8("attention_q8 SA f32 D=128", 8, 299, 8, 128, torch.float32))
+    results.append(attn_q8("attention_q8 SA f32 D=64", 8, 299, 8, 64, torch.float32))
+    results.append(attn_q8("attention_q8 CA bf16 D=128", 8, 299, 8, 128, torch.bfloat16))
+    results.append(attn_q8("attention_q8 CA bf16 D=64", 8, 299, 8, 64, torch.bfloat16))
+    results.append(attn_q8("attention_q8 T=131 key padding + masked row", 3, 131, 8, 128,
+                           torch.bfloat16, kpm_rows=(1,), time_it=False))
     results.append(gelu_q8("linear_q8_gelu_q8 FFN1 E=1024", M, 1024, 2048))
     results.append(gelu_q8("linear_q8_gelu_q8 FFN1 E=512", M, 512, 1024))
     results.append(gelu_q8("linear_q8_gelu_q8 M=393 N=1040 (ragged)", 393, 1024, 1040,
@@ -1076,6 +1184,74 @@ def base_bwd_checks(gen):
                       2 * BASE_TRAIN_B, 8, TRAIN_T, 128, True, True),
             _bwd_case(gen, "attention_bwd bf16 MDM encoder D=128", torch.bfloat16, BASE_TRAIN_B,
                       4, TRAIN_T + 1, 128, False, True)]
+
+
+# The InterCLIP towers (phases 5d and 6c), f32: the motion tower's query
+# token + 300 frames under a key mask, 8 heads of 128; the text tower's 77
+# tokens, 8 heads of 96, no mask.  The forward at the protocol's InterHuman
+# batch of 96, the backward at train-evaluator's batch of 32.
+EVAL_B, EVAL_TRAIN_B, EVAL_T = 96, 32, 301
+# The protocol's generation batches on the sampling kernels (phase 5d (c)):
+# eval-mixermdm samples InterHuman's 96 prompts and HumanML3D's 32 on the
+# W8A8 path, 4 sequences a prompt (CFG x the two persons) at the batch's
+# longest item (299 frames in phase 5d's InterHuman set, 300 in its
+# HumanML3D set).
+EVAL_IH_CLIPS, EVAL_HML_CLIPS = 96, 32
+EVAL_GEN_ROWS = ((4 * EVAL_IH_CLIPS, 299), (4 * EVAL_HML_CLIPS, 300))
+# One W8A8 step's int8 products, (K, N, residual), as phase 5 counts them:
+# QKV, the cross-attention's Q and KV, the out-projections and FFN2 with
+# the residual, of the 1024-d denoisers and the 512-d mixer core.
+EVAL_Q8_GEMMS = ((512, 512, False), (512, 512, True), (512, 1024, False), (512, 1536, False),
+                 (1024, 512, True), (1024, 1024, False), (1024, 1024, True),
+                 (1024, 2048, False), (1024, 3072, False), (2048, 1024, True))
+# Its bf16 products, (K, N): at every frame (the final layers, the influence
+# head, motion_embed) and at 2 or 4 rows a prompt (the AdaLN modulations,
+# the time and text embeddings).
+EVAL_GEMMS_FRAMES = ((1024, 262), (512, 23), (262, 1024), (262, 512))
+EVAL_GEMMS_2P = ((512, 512), (768, 512), (768, 1024), (1024, 1024))
+EVAL_GEMMS_4P = ((512, 1024), (768, 1024), (1024, 1024), (1024, 2048))
+# eval-base's largest batch: in2IN interaction's 4-way CFG over InterHuman's
+# 96 prompts, 8 sequences a prompt, bf16.
+EVAL_BASE_ROWS = 8 * EVAL_IH_CLIPS
+
+
+def eval_kernel_checks(gen, compare):
+    """``attention_f32`` at the evaluator's two shapes and ``attention_bwd``
+    f32 (with the forward that writes its statistics) at train-evaluator's,
+    each against its plain version.  The motion tower's keys past a
+    sequence's length are masked; the bound counts the products over the
+    keys that are not (what the masked logits need is their bias)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import attention as attn_mod
+
+    dev = torch.device("cuda")
+    results = []
+    for name, (B, H, T, D, masked) in (
+            ("attention f32 InterCLIP motion D=128 kpm", (EVAL_B, 8, EVAL_T, 128, True)),
+            ("attention f32 InterCLIP text D=96", (EVAL_B, 8, 77, 96, False))):
+        q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev) for _ in range(3))
+        kpm = bias = None
+        keys = B * T
+        if masked:  # the query token and 15-300 frames valid
+            lens = torch.randint(15, T, (B,), generator=gen, device=dev)
+            kpm = torch.arange(T, device=dev)[None, :] > lens[:, None]
+            bias = attn_mod.key_bias(kpm)[:, None, None, :]
+            keys = int((~kpm).sum())
+        results.append(compare(
+            name, lambda: ops.fused_attention(q, k, v, kpm, None, False),
+            lambda: ops.fused_attention_plain(q, k, v, kpm, None, False), F32_TOL,
+            4 * 4 * B * H * T * D + (B * T if masked else 0), 4 * H * T * keys * D,
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+            kind="attention_f32", peak=H100_F32_FLOPS, B=B, H=H, Tq=T, Tk=T, D=D,
+            zero_attn=False, key_padding=masked, valid_keys=keys))
+    results.append(_bwd_case(gen, "attention_bwd f32 InterCLIP motion D=128", torch.float32,
+                             EVAL_TRAIN_B, 8, EVAL_T, 128, False, True))
+    results.append(_bwd_case(gen, "attention_bwd f32 InterCLIP text D=96", torch.float32,
+                             EVAL_TRAIN_B, 8, 77, 96, False, False))
+    return results
 
 
 # --------------------------------------------------------------------------
@@ -1577,6 +1753,15 @@ def sample_phase(seed):
     return system, batch
 
 
+def _gemm_shapes():
+    """The GEMM launches counted by shape so far: {(route, M, K, N,
+    epilogue): n}."""
+    from mixermdm_tpu_torch.ops import _lib
+
+    return collections.Counter({k: n for k, n in _lib.launch_shapes.items()
+                                if k[0] in GEMM_NAMES})
+
+
 def sample_main_paths(system, batch, seed):
     """The main paths, counted: text encoding + the whole DDIM chain, on the
     bf16 path and on the shipped W8A8 path."""
@@ -1595,13 +1780,13 @@ def sample_main_paths(system, batch, seed):
             cond = system.generate_cond(batch)
             torch.cuda.synchronize()
             t1 = time.time()
-            text_shapes = collections.Counter(_lib.launch_shapes)
+            text_shapes = _gemm_shapes()
             out = system.sample(cond, T,
                                 generator=torch.Generator(device="cuda").manual_seed(seed))
             torch.cuda.synchronize()
             t2 = time.time()
             counts[label] = dict(ops.launches)
-            chain_shapes = collections.Counter(_lib.launch_shapes) - text_shapes
+            chain_shapes = _gemm_shapes() - text_shapes
         n_steps = system.sample_schedule.num_timesteps
         # The GEMM launches by (route, M, K, N, epilogue): per request for the
         # text, per DDIM step for the chain.
@@ -1632,16 +1817,18 @@ DPM_STEPS, DPM_SKIP = 25, 5
 SERVE_B = 10
 
 
-def _save_released(system, root):
+def _save_released(system, root, with_clip=False):
     """The three released files of ``system`` (the mixer file without its
-    CLIP tower, as the released MixerMDM.ckpt drops it); their paths."""
+    CLIP tower, as the released MixerMDM.ckpt drops it, unless
+    ``with_clip``); their paths."""
     import torch
 
     from mixermdm_tpu_torch.weights import released_in2in_state_dict, \
         released_mixermdm_state_dict
 
     files = (f"{root}/MixerMDM.ckpt", f"{root}/individual.ckpt", f"{root}/interaction.ckpt")
-    torch.save({"state_dict": released_mixermdm_state_dict(system, with_clip=False)}, files[0])
+    torch.save({"state_dict": released_mixermdm_state_dict(system, with_clip=with_clip)},
+               files[0])
     torch.save({"state_dict": released_in2in_state_dict(system.model1, "individual")}, files[1])
     torch.save({"state_dict": released_in2in_state_dict(system.model2, "interaction")}, files[2])
     return files
@@ -2056,7 +2243,7 @@ def _run_cli(label, main, argv, out_dir, name, want_shape, card):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = dict(ops.launches)
-    gemms = sorted(ops._lib.launch_shapes.items(), key=lambda kv: -kv[1])
+    gemms = sorted(_gemm_shapes().items(), key=lambda kv: -kv[1])
     for line in out.getvalue().splitlines():
         print(f"   (b) | {line}", flush=True)
     print(f"   (b) {label}: GEMM launches per request by (route, M, K, N, epilogue): "
@@ -2779,10 +2966,11 @@ def base_grad_check(mode, seed, normalizer, batch_np):
     return gaps
 
 
-def _cli_run(label, run, argv):
-    """A training CLI's ``run(argv)`` in-process, counted: its launches per
-    kernel, the plain versions it chose (none allowed); returns (its result,
-    the launches)."""
+def _cli_run(label, run, argv, printed=None):
+    """A CLI's ``run(argv)`` in-process, counted: its launches per kernel,
+    the plain versions it chose (none allowed); its output printed (only
+    the lines that start with one of ``printed``, when given).  Returns (its
+    result, the launches, its output lines)."""
     import io
 
     import torch
@@ -2796,13 +2984,15 @@ def _cli_run(label, run, argv):
         out = run(argv)
     torch.cuda.synchronize()
     counts = dict(ops.launches)
-    for line in text.getvalue().splitlines():
-        print(f"   | {line}", flush=True)
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        if printed is None or line.startswith(printed):
+            print(f"   | {line}", flush=True)
     print(f"   {label}: {time.time() - t0:.1f} s (system build included), plain versions "
           f"chosen: {plain[0]}; launches: {json.dumps(counts, sort_keys=True)}", flush=True)
     if plain[0]:
         raise SmokeFailure(f"{label}: a plain version was chosen on the card")
-    return out, counts
+    return out, counts, lines
 
 
 def _sample_trained(mode, out_dir):
@@ -2900,7 +3090,7 @@ def rest_of_training_phase(seed, tmp, phase6):
         argv = ["--mode", mode, "--data-root", data, "--out-dir", os.path.join(tmp, mode),
                 "--batch-size", str(BASE_TRAIN_B), "--max-steps", "2", "--seed", str(seed),
                 "--init-std", "0.02"]
-        out, c = _cli_run(f"(a) train-in2in {' '.join(argv)}", train_in2in.run, argv)
+        out, c, _ = _cli_run(f"(a) train-in2in {' '.join(argv)}", train_in2in.run, argv)
         recs = out["records"]
         if len(recs) != 2 or not all(math.isfinite(r["total"]) for r in recs):
             raise SmokeFailure(f"train-in2in {mode}: losses missing or not finite")
@@ -2976,7 +3166,7 @@ def rest_of_training_phase(seed, tmp, phase6):
     argv[argv.index("--max-steps") + 1] = "2"
     argv = [a for i, a in enumerate(argv) if a != "--log-jsonl" and
             (i == 0 or argv[i - 1] != "--log-jsonl")]
-    first, _ = _cli_run("(c) train-mixermdm, steps 1-2", train_mixermdm.run, argv)
+    first, _, _ = _cli_run("(c) train-mixermdm, steps 1-2", train_mixermdm.run, argv)
     saved = torch.load(first["state"], map_location="cuda", weights_only=True)
     del first
     torch.cuda.empty_cache()
@@ -2990,7 +3180,7 @@ def rest_of_training_phase(seed, tmp, phase6):
     argv[argv.index("--max-steps") + 1] = "4"
     train_mixermdm.restore_train_state = restore
     try:
-        rest, _ = _cli_run("(c) train-mixermdm --resume auto, steps 3-4", train_mixermdm.run,
+        rest, _, _ = _cli_run("(c) train-mixermdm --resume auto, steps 3-4", train_mixermdm.run,
                            argv + ["--resume", "auto"])
     finally:
         train_mixermdm.restore_train_state = real_restore
@@ -3020,7 +3210,7 @@ def rest_of_training_phase(seed, tmp, phase6):
     # --quant-train through the CLI: steps 5-6 resumed from steps 3-4's
     # final_state, the frozen denoisers as int8 in both side steps of each
     argv[argv.index("--max-steps") + 1] = "6"
-    quant, c = _cli_run("(c) train-mixermdm --resume auto --quant-train, steps 5-6",
+    quant, c, _ = _cli_run("(c) train-mixermdm --resume auto --quant-train, steps 5-6",
                         train_mixermdm.run, argv + ["--resume", "auto", "--quant-train"])
     recs = quant["records"]
     sides = sum(1 + (r["d_total"] is not None) for r in recs)
@@ -3054,7 +3244,7 @@ def rest_of_training_phase(seed, tmp, phase6):
             "--seed", str(seed)]
     train_finetuned.individual_to_interaction = transfer
     try:
-        ft, _ = _cli_run(f"(c) train-finetuned {' '.join(argv)}", train_finetuned.run, argv)
+        ft, _, _ = _cli_run(f"(c) train-finetuned {' '.join(argv)}", train_finetuned.run, argv)
     finally:
         train_finetuned.individual_to_interaction = real_transfer
     after = dict(ft["system"].denoisers["interaction"].named_parameters())
@@ -3077,6 +3267,431 @@ def rest_of_training_phase(seed, tmp, phase6):
     print("   phase 6b seconds by part: "
           + json.dumps({k: round(v, 1) for k, v in seconds.items()}), flush=True)
     readings["seconds"] = seconds
+    return counts, readings
+
+
+# --------------------------------------------------------------------------
+# Phases 5d and 6c: evaluation
+# --------------------------------------------------------------------------
+
+# Both towers are f32 on the kernels and on the plain versions; the kernels
+# hold 1e-5 one call at a time (F32_TOL), and 8 post-norm layers carry that
+# into the L2-normalised embeddings: max |diff| / max |plain| (readings on
+# an H100: 5.1e-7 to 8.7e-7).
+EVAL_EMB_TOL = 1e-5
+# The metrics computed from the kernels' embeddings against those from the
+# plain versions', relative (FID over 96 samples moved 1e-6 relative under
+# 1e-5 of noise in the embeddings, on the CPU).
+EVAL_METRIC_TOL = 1e-4
+# One train-evaluator step's gradients, kernels vs plain (both f32), rel(fro)
+# per trained subtree (readings on an H100: 1.8e-6 to 1.8e-5); the loss on
+# F32_TOL.
+EVAL_GRAD_TOL = 2e-4
+EVAL_SUBTREES = ("motion_encoder", "textTransEncoder", "text_ln", "out", "latent_scale")
+EVAL_PRINTED = ("==", "generation:", "scoring:", "mm generation:", "loaded ", "note:",
+                "evaluator training done", "NON-PROTOCOL", "wrote ")
+
+
+def _eval_fixtures(root, seed):
+    """The synthetic InterHuman set (96 clips, every clip in train and test)
+    and HumanML3D set (32 clips), their lengths drawn so that they differ
+    inside a batch, up to the 300-frame window (an InterHuman item is at most
+    299 frames long: its features take one frame for the velocities)."""
+    import os
+
+    import numpy as np
+
+    from mixermdm_tpu_torch.data.synthetic import make_hml3d_fixture, make_interhuman_fixture
+
+    rng = np.random.default_rng(seed + 5)
+    ih = [301] + [int(n) for n in rng.integers(40, 302, EVAL_IH_CLIPS - 1)]
+    hml = [300] + [int(n) for n in rng.integers(40, 301, EVAL_HML_CLIPS - 1)]
+    ih_root, hml_root = os.path.join(root, "interhuman"), os.path.join(root, "hml3d")
+    make_interhuman_fixture(ih_root, n_clips=EVAL_IH_CLIPS, n_frames=ih, seed=seed,
+                            n_test=EVAL_IH_CLIPS)
+    make_hml3d_fixture(hml_root, n_clips=EVAL_HML_CLIPS, n_frames=hml, seed=seed + 1)
+    return ih_root, hml_root
+
+
+def _side_seconds(lines):
+    """{side: {part: seconds}} from an evaluation CLI's progress lines."""
+    sides, side = {}, None
+    for line in lines:
+        if line.startswith("===== "):
+            side = line.split()[1]
+            sides[side] = {}
+        elif side and line.startswith(("generation:", "scoring:", "mm generation:")):
+            for part in line.split("; "):
+                key, value = part.split(":", 1)
+                sides[side][key.replace(" ", "_") + "_s"] = float(value.split()[0])
+    return sides
+
+
+def _loaded_all(lines, n):
+    """Whether the output says ``n`` times that a file filled every
+    parameter (``loaded k/k parameters``)."""
+    loaded = [ln.split()[1].split("/") for ln in lines if ln.startswith("loaded ")]
+    return len(loaded) == n and all(a == b for a, b in loaded)
+
+
+def _finite_summary(summary):
+    vals = [v for side in summary.values() for d in side.values() for pair in d.values()
+            for v in pair]
+    return bool(vals) and all(math.isfinite(v) for v in vals)
+
+
+def _protocol_metrics(t_emb, m_emb, m_emb2, seed):
+    """MM-Distance, R-precision top-1/2/3, FID (of ``m_emb2`` against
+    ``m_emb``) and Diversity of one batch's embeddings, as the protocol
+    computes them."""
+    import numpy as np
+
+    from mixermdm_tpu_torch.eval import metrics as M
+
+    t, m, m2 = (x.double().cpu().numpy() for x in (t_emb, m_emb, m_emb2))
+    dist = M.euclidean_distance_matrix(t, m)
+    top = M.calculate_top_k(np.argsort(dist, axis=1), 3).sum(axis=0) / len(t)
+    return {"MM Distance": float(dist.trace() / len(t)),
+            **{f"R_precision_top{k + 1}": float(top[k]) for k in range(3)},
+            "FID": M.calculate_fid(m2, m),
+            "Diversity": M.calculate_diversity(m, len(m) - 1, seed=seed)}
+
+
+def evaluation_phase(seed, card, tmp, held):
+    """Evaluation at full width (InterCLIP: 1024-d, 8 layers, 8 heads, FF
+    2048; text 768 x 8 layers) on synthetic InterHuman (96 clips) and
+    HumanML3D (32 clips) sets with lengths that differ inside a batch:
+
+    (setup) the interaction and individual evaluators written in the
+    reference's file layout and read back ``strict`` into evaluators of
+    other weights, bit for bit;
+    (a) on one protocol batch (InterHuman 96; HumanML3D 32, 64 persons) both
+    towers' embeddings on the kernels against the plain versions;
+    (b) MM-Distance, R-precision, FID and Diversity from the kernels'
+    embeddings against those from the plain versions';
+    (c) the mixer, its zero-init layers drawn from N(0, 0.02) so that the
+    generated motions depend on the noise and on the kernels: one CFG mixer
+    step at the InterHuman batch on the W8A8 kernels against the plain
+    versions and f32, held as phase 4 holds its step; its three released
+    files (CLIP tower included); then ``eval-mixermdm --datasets both``
+    through its entry point on those files and the evaluators' ``--strict``:
+    one replication, one InterHuman batch of 96, one HumanML3D batch of 32,
+    MultiModality at 2 prompts x 15 replicas, DDIM-50 on the shipped W8A8
+    path; each side's generation and scoring seconds, the launches by
+    kernel, MultiModality above 0 on both sides, and every shape the two
+    generation batches launched a kernel at among ``held`` (the launch-shape
+    keys of phase 3's checks);
+    (d) ``eval-base`` in each mode (8 items, DDIM respaced to 10 steps, no
+    MultiModality), counted.
+    Returns (launches by path, readings, the fixture roots)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli import eval_base, eval_mixermdm
+    from mixermdm_tpu_torch.cli.infer_mixermdm import build_system
+    from mixermdm_tpu_torch.data.humanml3d import HumanML3DDataset
+    from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
+    from mixermdm_tpu_torch.data.loader import collate
+    from mixermdm_tpu_torch.eval import driver, metrics as M
+    from mixermdm_tpu_torch.eval.driver import interleave
+    from mixermdm_tpu_torch.eval.interclip import build_interclip
+    from mixermdm_tpu_torch.ops import _lib
+    from mixermdm_tpu_torch.eval.protocol import EvaluatorWrapperIndividual
+    from mixermdm_tpu_torch.train.checkpoint import load_released_interclip, save_released
+    from mixermdm_tpu_torch.weights import released_interclip_state_dict
+
+    t0 = time.time()
+    seconds, readings, counts = {}, {}, {}
+    ih_root, hml_root = _eval_fixtures(tmp, seed)
+    files, evaluators = {}, {}
+    for i, mode in enumerate(("interaction", "individual")):
+        written = build_interclip(mode, device="cuda", seed=seed + 30 + i)
+        path = f"{tmp}/interclip_{mode}.ckpt"
+        save_released(path, released_interclip_state_dict(written))
+        ev = build_interclip(mode, device="cuda", seed=seed + 40 + i)
+        unfilled = load_released_interclip(ev, path, strict=True)
+        same = all(torch.equal(a, b) for a, b in zip(ev.state_dict().values(),
+                                                      written.state_dict().values()))
+        n = sum(1 for _ in ev.parameters())
+        print(f"   (setup) {mode} InterCLIP: {n} parameters written to the reference layout and "
+              f"read back --strict ({len(unfilled)} unfilled), bitwise: "
+              f"{'ok' if same and not unfilled else 'FAIL'}", flush=True)
+        if unfilled or not same:
+            raise SmokeFailure(f"{mode} evaluator file did not load back bit for bit")
+        files[mode], evaluators[mode] = path, ev
+        del written
+    seconds["setup"] = time.time() - t0
+
+    # (a) one protocol batch through both towers of both evaluators
+    t_part = time.time()
+    ih = InterHumanDataset(ih_root, mode="test", max_gt_length=300)
+    batch = collate([ih[i] for i in range(EVAL_IH_CLIPS)])
+    hml = HumanML3DDataset(hml_root, mode="test", max_gt_length=300, extended=True)
+    hbatch = collate([hml[i] for i in range(EVAL_HML_CLIPS)])
+    inter, ind = evaluators["interaction"], evaluators["individual"]
+    persons, plens = EvaluatorWrapperIndividual(ind)._split_persons(hbatch["motions"],
+                                                                  hbatch["motion_lens"])
+    # the second set FID needs: the same motions with N(0, 0.3) noise
+    noised = batch["motions"] + 0.3 * np.random.default_rng(seed).standard_normal(
+        batch["motions"].shape).astype(np.float32)
+    print(f"   (a) InterHuman batch {batch['motions'].shape}, lengths "
+          f"{int(batch['motion_lens'].min())}-{int(batch['motion_lens'].max())}; HumanML3D "
+          f"persons {tuple(persons.shape)}", flush=True)
+    towers = {  # name: (the tower's call, its layers: one attention_f32 launch each)
+        "motion tower, InterHuman B=96": (lambda: inter.encode_motion(
+            batch["motions"], batch["motion_lens"]), inter.motion_encoder.transformer),
+        "motion tower, InterHuman B=96 noised": (lambda: inter.encode_motion(
+            noised, batch["motion_lens"]), inter.motion_encoder.transformer),
+        "text tower, InterHuman B=96": (lambda: inter.encode_text(batch["text"]),
+                                        inter.textTransEncoder),
+        "motion tower, HumanML3D persons B=64": (lambda: ind.encode_motion(persons, plens),
+                                                 ind.motion_encoder.transformer),
+        "text tower, HumanML3D persons B=64": (lambda: ind.encode_text(interleave(
+            hbatch["text_individual1"], hbatch["text_individual2"])), ind.textTransEncoder),
+    }
+    emb = {}
+    for name, (fn, stack) in towers.items():
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            k = fn()
+            torch.cuda.synchronize()
+            launched = dict(ops.launches)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            with ops.plain_versions():
+                p = fn()
+        print(f"   (a) {name}: {start.elapsed_time(end):.3f} ms a call (eager), launches "
+              f"{json.dumps(launched, sort_keys=True)}", flush=True)
+        _agree(f"(a) {name} embeddings", k, p, EVAL_EMB_TOL, "max")
+        if launched.get("attention_f32", 0) != len(stack.layers):
+            raise SmokeFailure(f"(a) {name}: not one attention_f32 launch a layer")
+        emb[name] = (k, p)
+    seconds["(a)"] = time.time() - t_part
+
+    # (b) the protocol's metrics from both sets of embeddings
+    names = list(towers)
+    got, want = (_protocol_metrics(emb[names[2]][j], emb[names[0]][j], emb[names[1]][j], seed)
+                 for j in (0, 1))
+    # FID is a difference of terms of the size of the two covariances'
+    # traces; near 0 it is held relative to them.
+    scale = {m: max(abs(want[m]), 1e-6) for m in want}
+    scale["FID"] = max(scale["FID"], sum(float(np.trace(M.calculate_activation_statistics(
+        emb[n][1].double().cpu().numpy())[1])) for n in names[:2]))
+    bad = [m for m in want if not abs(got[m] - want[m]) <= EVAL_METRIC_TOL * scale[m]]
+    print("   (b) metrics of the InterHuman batch, kernels / plain: " + json.dumps(
+        {m: [got[m], want[m]] for m in want}) + f"; held on {EVAL_METRIC_TOL} relative (FID "
+        f"relative to {scale['FID']:.4g}): " + ("ok" if not bad else f"FAIL {bad}"), flush=True)
+    if bad:
+        raise SmokeFailure(f"(b) metrics from the kernels' embeddings differ: {bad}")
+    readings["(b)"] = {"kernels": got, "plain": want}
+    del emb, evaluators, inter, ind
+    torch.cuda.empty_cache()
+
+    # (c) the mixer: one CFG mixer step at the InterHuman batch, then its
+    # released files
+    t_part = time.time()
+    system = build_system(None, device="cuda", seed=seed + 60, zero_init_std=0.02)
+    twin = copy.deepcopy(system).cast_(None)  # f32 networks never run int8
+    P, T = EVAL_IH_CLIPS, int(batch["motion_lens"].max())
+    g = torch.Generator(device="cuda").manual_seed(seed + 61)
+    cond = system.generate_cond(batch)
+    x = torch.randn(P, T, 2 * system.nfeats, generator=g, device="cuda")
+    t = torch.full((P,), 979, dtype=torch.long, device="cuda")
+    ops.reset_launch_counts()
+    step_k = system.cfg_mixer_step(x, x, t, cond)
+    torch.cuda.synchronize()
+    launched = dict(ops.launches)
+    with ops.plain_versions():
+        step_p = system.cfg_mixer_step(x, x, t, cond)
+        step_f = twin.cfg_mixer_step(x, x, t, cond)
+    del twin
+    name = f"(c) one CFG mixer step, W8A8, {P} prompts x {T} frames"
+    print(f"   {name}: launches {json.dumps(launched, sort_keys=True)}", flush=True)
+    _agree(name, step_k, step_p, STEP_TOL, "fro")
+    gap_p = _agree(name, step_p, step_f, None, "fro", "plain W8A8 vs f32")
+    _agree(name, step_k, step_f, WITNESS_RATIO * gap_p, "fro",
+           f"kernels vs f32 (at most {WITNESS_RATIO} x plain W8A8 vs f32)")
+    if not launched.get("attention_q8"):
+        raise SmokeFailure(f"{name}: the W8A8 kernels did not run")
+    mixer_dir = os.path.join(tmp, "mixer")
+    os.makedirs(mixer_dir)
+    mixer_files = _save_released(system, mixer_dir, with_clip=True)
+    del system, cond, x, step_k, step_p, step_f
+    torch.cuda.empty_cache()
+    seconds["(c) step + files"] = time.time() - t_part
+
+    # (c) eval-mixermdm --datasets both through its entry point, with the
+    # shapes that each generation batch launched kernels at counted
+    t_part = time.time()
+    argv = ["--data-root", ih_root, "--hml3d-root", hml_root, "--datasets", "both",
+            "--replications", "1", "--num-samples", str(EVAL_IH_CLIPS), "--mm-num-samples", "2",
+            "--mm-num-repeats", "15", "--checkpoint", mixer_files[0],
+            "--ckpt-individual", mixer_files[1], "--ckpt-interaction", mixer_files[2],
+            "--evaluator-checkpoint", files["interaction"],
+            "--evaluator-individual-checkpoint", files["individual"], "--strict",
+            "--seed", str(seed), "--out", f"{tmp}/eval_mixermdm.json"]
+    chain, real_sample = collections.Counter(), driver.sample
+
+    def counted_sample(*args, **kwargs):
+        before = collections.Counter(_lib.launch_shapes)
+        out = real_sample(*args, **kwargs)
+        chain.update(collections.Counter(_lib.launch_shapes) - before)
+        return out
+
+    driver.sample = counted_sample  # the generation batches (not MultiModality's)
+    try:
+        summary, counts["eval-mixermdm"], lines = _cli_run(
+            "(c) eval-mixermdm --datasets both", eval_mixermdm.run, argv, EVAL_PRINTED)
+    finally:
+        driver.sample = real_sample
+    shutil.rmtree(mixer_dir)
+    sides = _side_seconds(lines)
+    mm = {side: summary[side]["MultiModality"]["mixermdm"][0] for side in ("interhuman", "hml3d")}
+    ok = (_loaded_all(lines, 3) and _finite_summary(summary)
+          and set(summary) == {"interhuman", "hml3d", "f_score"} and len(sides) == 2
+          and all(v > 0 for v in mm.values()))
+    print(f"   (c) seconds by side and part on {card}: {json.dumps(sides)}; the mixer's and the "
+          f"evaluators' files loaded whole, metrics finite, MultiModality {json.dumps(mm)} above "
+          f"0: {'ok' if ok else 'FAIL'}", flush=True)
+    print("   (c) InterHuman / HumanML3D / F-score (random weights; says nothing of quality): "
+          + json.dumps({side: {m: round(v[next(iter(v))][0], 5) for m, v in d.items()}
+                        for side, d in summary.items()}), flush=True)
+    if not ok:
+        raise SmokeFailure("(c) eval-mixermdm: files not loaded whole, metrics not finite or "
+                           "the generated motions do not vary")
+    shapes = collections.defaultdict(dict)
+    for key, n in sorted(chain.items(), key=lambda kv: str(kv[0])):
+        shapes[key[0]][" ".join(map(str, key[1:]))] = n
+    missing = sorted(" ".join(map(str, k)) for k in chain if k not in held)
+    print(f"   (c) the generation batches' launches by kernel and shape ({len(chain)} shapes): "
+          + json.dumps(shapes), flush=True)
+    print("   (c) every one of those shapes held against its plain version in phase 3: "
+          + ("ok" if chain and not missing else f"FAIL, not held: {json.dumps(missing)}"),
+          flush=True)
+    if not chain or missing:
+        raise SmokeFailure(f"(c) kernels launched at shapes phase 3 did not hold: {missing}")
+    readings["(c)"] = {"seconds_by_side": sides, "multimodality": mm}
+    seconds["(c)"] = time.time() - t_part
+
+    # (d) eval-base, each mode
+    t_part = time.time()
+    for mode in ("interaction", "individual", "dual", "mdm"):
+        argv = ["--mode", mode, "--data-root", ih_root, "--hml3d-root", hml_root,
+                "--replications", "1", "--num-samples", "8", "--mm-num-samples", "0",
+                "--sample-steps", "10", "--evaluator-checkpoint", files["interaction"],
+                "--evaluator-individual-checkpoint", files["individual"], "--strict",
+                "--seed", str(seed), "--out", f"{tmp}/eval_base_{mode}.json"]
+        summary, counts[f"eval-base {mode}"], lines = _cli_run(
+            f"(d) eval-base --mode {mode}", eval_base.run, argv, EVAL_PRINTED)
+        want_sides = {"interhuman", "hml3d"} if mode in ("interaction", "dual") else {"hml3d"}
+        ok = (_loaded_all(lines, len(want_sides)) and _finite_summary(summary)
+              and set(summary) == want_sides)
+        print(f"   (d) eval-base --mode {mode}: seconds {json.dumps(_side_seconds(lines))}; "
+              f"sides {sorted(summary)}, metrics finite: {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SmokeFailure(f"(d) eval-base --mode {mode} failed its checks")
+    seconds["(d)"] = time.time() - t_part
+    print("   phase 5d seconds by part: "
+          + json.dumps({k: round(v, 1) for k, v in seconds.items()}), flush=True)
+    readings["seconds"] = seconds
+    return counts, readings, (ih_root, hml_root)
+
+
+def evaluator_training_phase(seed, card, tmp, roots):
+    """train-evaluator at full width: (a) one step's loss and gradients
+    (batch 32 of the InterHuman set, lengths up to 300) on the kernels
+    against the plain versions, both f32 with TF32 off (the model's own
+    precision: the plain versions are its f32 reference), every gap printed
+    first; (b) the CLI for 3 steps, counted, its file read back by
+    ``eval-mixermdm --evaluator-checkpoint --strict`` (InterHuman side, 8
+    items, DDIM respaced to 10 steps).  Returns (launches by path,
+    readings)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli import eval_mixermdm, train_evaluator
+    from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
+    from mixermdm_tpu_torch.data.loader import collate
+    from mixermdm_tpu_torch.eval.interclip import build_interclip, full_f32
+
+    ih_root, _ = roots
+    counts, readings = {}, {}
+    t0 = time.time()
+    model = build_interclip("interaction", device="cuda", seed=seed + 50)
+    ds = InterHumanDataset(ih_root, mode="train", max_gt_length=300)
+    batch = collate([ds[i] for i in range(EVAL_TRAIN_B)])
+    motions = torch.from_numpy(batch["motions"]).float().cuda()
+    lens = torch.from_numpy(batch["motion_lens"]).cuda()
+    tokens = model.tokenize(batch["text"])
+    named = {k: p for k, p in model.named_parameters() if p.requires_grad}
+    n_layers = len(model.motion_encoder.transformer.layers) + len(model.textTransEncoder.layers)
+
+    def side(plain):
+        with full_f32(), ops.plain_versions() if plain else contextlib.nullcontext():
+            loss, _ = model.compute_loss(motions, lens, tokens)
+            grads = torch.autograd.grad(loss, list(named.values()))
+        flat = {t: torch.cat([g.flatten() for k, g in zip(named, grads)
+                              if k == t or k.startswith(t + ".")]) for t in EVAL_SUBTREES}
+        return float(loss.detach()), flat
+
+    ops.reset_launch_counts()
+    lk, gk = side(False)
+    torch.cuda.synchronize()
+    launched = dict(ops.launches)
+    lp, gp = side(True)
+    print(f"   (a) one step at B {EVAL_TRAIN_B} (lengths {int(lens.min())}-{int(lens.max())}): "
+          f"launches {json.dumps(launched, sort_keys=True)}; loss kernels / plain {lk:.7g} / "
+          f"{lp:.7g}, relative {abs(lk - lp) / abs(lp):.3g} (held on {F32_TOL})", flush=True)
+    gaps = {t: _gaps(gk[t], gp[t])[2] for t in EVAL_SUBTREES}
+    print("   (a) gradient rel(fro) kernels vs plain by subtree: " + json.dumps(gaps), flush=True)
+    if not abs(lk - lp) <= F32_TOL * abs(lp) or not math.isfinite(lk):
+        raise SmokeFailure("(a) train-evaluator loss: kernels vs plain disagree")
+    for t in EVAL_SUBTREES:
+        _agree(f"(a) gradient of {t}", gk[t], gp[t], EVAL_GRAD_TOL, "fro")
+    if not launched.get("attention_f32") == launched.get("attention_bwd") == n_layers:
+        raise SmokeFailure("(a) not one attention_f32 and one attention_bwd launch a layer")
+    readings["grad_rel_fro"] = gaps
+    readings["loss_rel"] = abs(lk - lp) / abs(lp)
+    del model, named, gk, gp
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(tmp, "evaluator")
+    argv = ["--data-root", ih_root, "--out-dir", out_dir, "--max-steps", "3",
+            "--batch-size", str(EVAL_TRAIN_B), "--seed", str(seed)]
+    trained, counts["train-evaluator"], _ = _cli_run(
+        "(b) train-evaluator " + " ".join(argv), train_evaluator.run, argv, EVAL_PRINTED)
+    steps = trained["records"]
+    per_step = [r["dt_s"] for r in steps]
+    ok = len(steps) == 3 and all(math.isfinite(r["total"]) for r in steps)
+    print(f"   (b) train-evaluator: losses {[round(r['total'], 6) for r in steps]}, seconds a "
+          f"step {[round(t, 4) for t in per_step]} on {card}: {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SmokeFailure("(b) train-evaluator: not 3 finite steps")
+    readings["step_s"] = per_step
+    del trained
+    argv = ["--data-root", ih_root, "--datasets", "interhuman", "--replications", "1",
+            "--num-samples", "8", "--mm-num-samples", "0", "--sample-steps", "10",
+            "--evaluator-checkpoint", os.path.join(out_dir, "final.ckpt"), "--strict",
+            "--seed", str(seed), "--out", os.path.join(tmp, "eval_trained.json")]
+    summary, _, lines = _cli_run("(b) eval-mixermdm on the trained evaluator",
+                                 eval_mixermdm.run, argv, EVAL_PRINTED)
+    ok = _loaded_all(lines, 1) and _finite_summary(summary)
+    print(f"   (b) train-evaluator's final.ckpt read by eval-mixermdm --strict, every parameter "
+          f"filled, metrics finite: {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure("(b) the trained evaluator file did not load whole")
+    readings["seconds"] = time.time() - t0
     return counts, readings
 
 
@@ -3151,6 +3766,7 @@ KERNELS = {
 # The kernels each main path must launch.  The shipped config samples on the
 # W8A8 path; the bf16 path (QUANT_FROZEN off) runs the bf16 block forms.
 GEMM_ROUTES = ("linear_epilogue", "linear_epilogue_skinny", "linear_epilogue_ragged")
+GEMM_NAMES = (*GEMM_ROUTES, "linear_q8", "linear_q8_gelu_q8")
 PATH_KERNELS = {
     "W8A8": ("adaln_modulate_q8", *GEMM_ROUTES, "attention", "attention_f32",
              "attention_q8", "fused_attention", "linear_q8", "linear_q8_gelu_q8",
@@ -3201,11 +3817,30 @@ PATH_KERNELS = {
                              "fused_ffn_block_q8", "attention_bwd"),
     "train-finetuned": ("linear_epilogue", "attention", "attention_f32", "attention_bwd",
                         "fused_attention"),
+    # Evaluation (phase 5d): the mixer's W8A8 sampling, the InterCLIP towers
+    # on the f32 attention; eval-base's generators in bf16 (MDM's encoder
+    # without the zero key), the towers again.
+    "eval-mixermdm": ("adaln_modulate_q8", *GEMM_ROUTES, "attention", "attention_f32",
+                      "attention_q8", "fused_attention", "linear_q8", "linear_q8_gelu_q8",
+                      "fused_sa_block_q8", "fused_ca_block_q8", "fused_ffn_block_q8"),
+    "eval-base interaction": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
+                              "fused_attention", "fused_sa_block", "fused_ca_block",
+                              "fused_ffn_block"),
+    "eval-base individual": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
+                             "fused_attention", "fused_sa_block", "fused_ffn_block"),
+    "eval-base dual": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
+                       "fused_attention", "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
+    "eval-base mdm": (*GEMM_ROUTES, "attention", "attention_f32", "fused_attention"),
+    # train-evaluator (phase 6c): the towers' attention forward and backward
+    # in f32; their dense layers are f32 products, outside the kernels.
+    "train-evaluator": ("attention_f32", "attention_bwd", "fused_attention"),
 }
 # The path whose counts stand in a kernel's row: the shipped sampling path,
-# the bf16 one for the bf16 block forms, the training path for the kernels
-# it brought; quant_rows stands on the W8A8 path it left to its producers
-# (0 launches there unless an FFN input is not modulated).
+# the bf16 one for the bf16 block forms, the training path for the backward
+# and the f32 attention it brought (the InterCLIP towers' shapes stand in
+# rows of their own, :data:`SHAPE_ROWS`); quant_rows stands on the W8A8 path it left to its producers (0 launches
+# there unless an FFN input is not modulated).  Every row also carries its
+# launches on each path that launched it (``launches_by_path``).
 ROW_PATH = {"attention_f32": "train", "attention_bwd": "train", "quant_rows": "W8A8",
             "sa_block": "exp_kernels", "sa_block_i8x": "exp_kernels"}
 # The check whose numbers stand for each name in the kernels line: the
@@ -3235,10 +3870,41 @@ REPRESENTATIVE = {
 }
 
 
+# Rows of a kernel at a second shape, each under a name of its own: (the
+# kernel, the path whose launches it carries, its check).
+SHAPE_ROWS = {
+    "attention_f32 InterCLIP motion tower": ("attention_f32", "eval-mixermdm",
+                                             "attention f32 InterCLIP motion D=128 kpm"),
+    "attention_bwd f32 InterCLIP motion tower": ("attention_bwd", "train-evaluator",
+                                                 "attention_bwd f32 InterCLIP motion D=128"),
+}
+
+
+def _shape_key(r):
+    """The ``_lib.launch_shapes`` key of a phase-3 check that held one
+    kernel against its plain version (None for an entry point, or a check
+    that failed)."""
+    kind, s = r.get("kind"), r.get("shape") or {}
+    if not r.get("ok"):
+        return None
+    if kind in GEMM_ROUTES or kind == "linear_q8":
+        epi = ("gelu" if s.get("activation") == "gelu" else
+               "residual" if s.get("residual") else "none")
+        return (kind, s["M"], s["K"], s["N"], epi)
+    if kind == "linear_q8_gelu_q8":
+        return (kind, s["M"], s["K"], s["N"], "gelu_q8")
+    if kind in ("attention", "attention_f32", "attention_q8"):
+        return (kind, s["B"], s["H"], s["Tq"], s["Tk"], s["D"])
+    if kind in ("adaln_modulate", "adaln_modulate_q8"):
+        return (kind, s["B"], s["T"], s["E"])
+    return None
+
+
 def kernels_line(results, counts):
-    """One row per kernel and entry point; ``launches`` from the main path
-    of :data:`ROW_PATH` (else the W8A8 sampling path, or the bf16 one for the
-    bf16 block forms that only it runs)."""
+    """One row per kernel and entry point (and per :data:`SHAPE_ROWS`);
+    ``launches`` from the main path of :data:`ROW_PATH` (else the W8A8
+    sampling path, or the bf16 one for the bf16 block forms that only it
+    runs)."""
     by_name = {r["check"]: r for r in results}
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -3247,8 +3913,18 @@ def kernels_line(results, counts):
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": int(counts[path].get(name, 0)), "path": path,
+            "launches_by_path": {p: int(c[name]) for p, c in counts.items() if c.get(name)},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+        })
+    for name, (kernel, path, check) in SHAPE_ROWS.items():
+        r = by_name[check]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNELS[kernel][0],
+            "replaces": KERNELS[kernel][1], "launches": int(counts[path].get(kernel, 0)),
+            "path": path, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
         })
     return {"kernels": rows}
@@ -3334,6 +4010,13 @@ def main(argv=None):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
+        t0 = phase("5d. evaluation at full width: InterCLIP towers and metrics, kernels vs plain; "
+                   "eval-mixermdm --datasets both, eval-base (four modes)")
+        held = {key for key in map(_shape_key, results) if key is not None}
+        eval_counts, evaluation, eval_roots = evaluation_phase(args.seed, card, tmp, held)
+        counts.update(eval_counts)
+        done(t0)
+
         t0 = phase("6. adversarial training at full width")
         counts["train"], phase6 = train_phase(args.seed, tmp)
         done(t0)
@@ -3342,6 +4025,12 @@ def main(argv=None):
                    "QUANT_TRAIN, --resume, train-finetuned")
         rest_counts, rest = rest_of_training_phase(args.seed, tmp, phase6)
         counts.update(rest_counts)
+        done(t0)
+
+        t0 = phase("6c. train-evaluator at full width: one step's gradients, kernels vs plain; "
+                   "the CLI, its file read by eval-mixermdm --strict")
+        ev_counts, ev_train = evaluator_training_phase(args.seed, card, tmp, eval_roots)
+        counts.update(ev_counts)
         done(t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3357,6 +4046,10 @@ def main(argv=None):
     print(f"   inference surface (phase 5b): {json.dumps(surface)}", flush=True)
     print("   the rest of training (phase 6b): " + json.dumps(
         {k: v for k, v in rest.items() if not k.startswith("grad ")}), flush=True)
+    print("   evaluation (phase 5d): " + json.dumps(
+        {"seconds": evaluation["seconds"], "by side": evaluation["(c)"]["seconds_by_side"]}),
+        flush=True)
+    print("   train-evaluator (phase 6c): " + json.dumps(ev_train), flush=True)
     print("   base-model requests (phase 5c): " + json.dumps(
         {k: {"s_per_request": v["s_per_request"], "launches": sum(v["launches"].values())}
          for k, v in base.items()}), flush=True)

@@ -13,6 +13,12 @@ COMMANDS = {
                     "base-model training (in2IN interaction / individual, MDM)"),
     "train-finetuned": ("mixermdm_tpu_torch.cli.train_finetuned",
                         "fine-tune an interaction in2IN model from an individual one"),
+    "eval-mixermdm": ("mixermdm_tpu_torch.cli.eval_mixermdm",
+                      "MixerMDM evaluation (dual-dataset protocol + F-score)"),
+    "eval-base": ("mixermdm_tpu_torch.cli.eval_base",
+                  "base-model evaluation (in2IN / DualMDM / MDM)"),
+    "train-evaluator": ("mixermdm_tpu_torch.cli.train_evaluator",
+                        "train the InterCLIP evaluator"),
     "serve": ("mixermdm_tpu_torch.cli.serve", "HTTP generation server (continuous batching)"),
 }
 

@@ -4,8 +4,9 @@ datasets/humanml3d.py:11-149): ``joints_vec/*.npy`` motions, ``texts/*.txt``
 captions (the caption before the first ``#``), a random text, a random
 <= ``max_gt_length``-frame crop, zero padding.  The augmentation draws
 come from ``self.rng`` (a ``random.Random``), which the loader reseeds per
-epoch.  The JAX dataset's ``extended`` two-person form (for its evaluation)
-is not ported."""
+epoch.  ``extended=True`` gives the two-person form the evaluation reads
+(reference humanml3d.py:146-149): the motion and the text duplicated into
+``motion2`` and the two individual texts."""
 
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ MIN_GT_LENGTH = 15
 
 class HumanML3DDataset:
     def __init__(self, data_root: str, mode: str = "train", max_gt_length: int = MAX_GT_LENGTH,
-                 rng: Optional[random.Random] = None):
+                 rng: Optional[random.Random] = None, extended: bool = False):
+        self.extended = extended
         self.max_gt_length = max_gt_length
         self.min_length = MIN_GT_LENGTH
         self.rng = rng or random.Random(0)
@@ -70,5 +72,8 @@ class HumanML3DDataset:
         if gt_length < self.max_gt_length:
             pad = np.zeros((self.max_gt_length - gt_length, motion.shape[1]), motion.dtype)
             motion = np.concatenate([motion, pad], axis=0)
-        return {"name": item["name"], "text": text, "motion1": motion.astype(np.float32),
-                "motion_lens": gt_length}
+        out = {"name": item["name"], "text": text, "motion1": motion.astype(np.float32),
+               "motion_lens": gt_length}
+        if self.extended:
+            out.update(motion2=out["motion1"], text_individual1=text, text_individual2=text)
+        return out

@@ -34,7 +34,11 @@ def random_raw_motion(rng: np.random.Generator, n_frames: int) -> np.ndarray:
 
 
 def make_interhuman_fixture(root: str, n_clips: int = 4,
-                            n_frames: Union[int, Sequence[int]] = 40, seed: int = 0) -> list:
+                            n_frames: Union[int, Sequence[int]] = 40, seed: int = 0,
+                            n_test: int = 2) -> list:
+    """``n_clips`` two-person clips, every clip in the train split, the first
+    in val, the last ``n_test`` in test (JAX ``make_interhuman_fixture``:
+    2)."""
     rng = np.random.default_rng(seed)
     lengths = [n_frames] * n_clips if isinstance(n_frames, int) else list(n_frames)
     for d in ("motions_processed/person1", "motions_processed/person2", "annots",
@@ -51,7 +55,7 @@ def make_interhuman_fixture(root: str, n_clips: int = 4,
         for p in ("person1", "person2"):
             with open(pjoin(root, "annots_individual", p, f"{name}.txt"), "w") as f:
                 f.write("\n".join(_IND_TEXTS))
-    for split, sel in (("train", names), ("val", names[:1]), ("test", names[-2:])):
+    for split, sel in (("train", names), ("val", names[:1]), ("test", names[-n_test:])):
         with open(pjoin(root, "split", f"{split}.txt"), "w") as f:
             f.write("\n".join(sel) + "\n")
     return names

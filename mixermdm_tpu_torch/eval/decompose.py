@@ -1,7 +1,7 @@
 """Interaction-text -> per-person individual-text decomposition; this
 package's copy of ``mixermdm_tpu/eval/decompose.py``
-(``decompose_interaction_text``, ``heuristic_text_decomposer`` and their
-helpers; pure ``re``).
+(``decompose_interaction_text``, ``heuristic_text_decomposer``,
+``get_decomposer`` and their helpers; pure ``re``).
 
 The reference pipes every interaction caption through an LLM with a
 one-shot prompt ("Having the description of an interaction, extract
@@ -12,7 +12,8 @@ the caption, classify each clause's grammatical subject as person 1 /
 person 2 / both, and emit one description per person with the subject
 normalised to "one person" and partner mentions normalised to "the other
 person".  The inference CLI uses it when the individual prompts are left
-out.
+out, the evaluation datasets where a dataset carries none, and
+``eval-mixermdm --decompose`` through :func:`get_decomposer`.
 """
 
 from __future__ import annotations
@@ -152,3 +153,16 @@ def heuristic_text_decomposer(interaction_texts: List[str]):
     evaluation datasets: list of captions -> (list_t1, list_t2)."""
     pairs = [decompose_interaction_text(t) for t in interaction_texts]
     return [a for a, _ in pairs], [b for _, b in pairs]
+
+
+def get_decomposer(name: str):
+    """The evaluation CLI's ``--decompose``: "identity" (both persons get
+    the interaction text, the reference's path without its LLM splitter) or
+    "heuristic" (:func:`heuristic_text_decomposer`)."""
+    if name == "identity":
+        from .datasets import default_text_decomposer
+
+        return default_text_decomposer
+    if name == "heuristic":
+        return heuristic_text_decomposer
+    raise ValueError(f"unknown decomposer {name!r}")

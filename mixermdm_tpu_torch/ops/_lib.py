@@ -43,7 +43,8 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptx
 # need to show a run went through the kernels.
 launches: collections.Counter = collections.Counter()
 # The same launches by (name, *shape) where the wrapper gives a shape (the
-# GEMM routes: M, K, N, epilogue), for a histogram of a run.
+# GEMM routes: M, K, N, epilogue; the attention kernels: B, H, Tq, Tk, D;
+# the AdaLN prologues: B, T, E), for a histogram of a run.
 launch_shapes: collections.Counter = collections.Counter()
 
 

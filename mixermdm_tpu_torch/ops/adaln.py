@@ -80,7 +80,7 @@ def adaln_modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     rc = _lib.library().mm_adaln_modulate(
         x.data_ptr(), scale.data_ptr(), scale.stride(0), shift.data_ptr(), shift.stride(0),
         y.data_ptr(), B, T, E, float(eps), _lib.stream_handle(x))
-    _lib.check_launch("adaln_modulate", rc)
+    _lib.check_launch("adaln_modulate", rc, shape=(B, T, E))
     return y
 
 
@@ -105,5 +105,5 @@ def adaln_modulate_q8(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     rc = _lib.library().mm_adaln_modulate_q8(
         x.data_ptr(), scale.data_ptr(), scale.stride(0), shift.data_ptr(), shift.stride(0),
         x8.data_ptr(), s.data_ptr(), B, T, E, float(eps), _lib.stream_handle(x))
-    _lib.check_launch("adaln_modulate_q8", rc)
+    _lib.check_launch("adaln_modulate_q8", rc, shape=(B, T, E))
     return x8, s

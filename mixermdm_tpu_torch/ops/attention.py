@@ -259,7 +259,7 @@ def attention_into(q, k, v, out, key_padding_mask=None, attn_mask=None,
         B, H, Tq, Tk, D, int(bool(zero_attn)), 1.0 / math.sqrt(D), int(in_f32),
         int(out.dtype == torch.float32), 0 if plan is None else plan.nwg,
         0 if plan is None else plan.stages, _lib.stream_handle(q))
-    _lib.check_launch("attention_f32" if in_f32 else "attention", rc)
+    _lib.check_launch("attention_f32" if in_f32 else "attention", rc, shape=(B, H, Tq, Tk, D))
     return out
 
 
@@ -362,7 +362,7 @@ def attention_q8_into(q, k, v, out8, scale, key_padding_mask=None, zero_attn: bo
         (ctypes.c_int64 * 12)(*strides), None if kpm is None else kpm.data_ptr(),
         scale.data_ptr(), B, H, Tq, Tk, D, int(bool(zero_attn)), 1.0 / math.sqrt(D),
         int(bool(round_bf16)), plan.nwg, plan.stages, _lib.stream_handle(q))
-    _lib.check_launch("attention_q8", rc)
+    _lib.check_launch("attention_q8", rc, shape=(B, H, Tq, Tk, D))
     return out8, scale
 
 
@@ -519,7 +519,7 @@ def attention_bwd(q, k, v, key_padding_mask, g, zero_attn: bool = True, stats=No
         dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), dsum.data_ptr(),
         None if kpm is None else kpm.data_ptr(), B, H, Tq, Tk, D, 1.0 / math.sqrt(D),
         int(q.dtype == torch.float32), _lib.stream_handle(q))
-    _lib.check_launch("attention_bwd", rc)
+    _lib.check_launch("attention_bwd", rc, shape=(B, H, Tq, Tk, D))
     return dq, dk, dv
 
 

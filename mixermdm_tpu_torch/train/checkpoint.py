@@ -33,6 +33,10 @@ Train states (:func:`save_train_state`, :func:`restore_train_state`,
 native ``torch.save`` files of a trainer's ``state_dict``: the trained
 parameters, every optimizer's state, the step and the sampler history.
 
+The evaluator: a reference InterCLIP file into an InterCLIP
+(:func:`load_released_interclip`); ``train-evaluator`` writes that layout
+(``weights.released_interclip_state_dict``).
+
 The JAX package's ``--checkpoint`` is an orbax directory, which the port
 cannot read: a JAX-trained system reaches the port as torch-named files,
 written by the JAX exporters (``export_mixermdm_system``,
@@ -204,6 +208,39 @@ def load_released_mdm(system: nn.Module, ckpt: str, strict: bool = False) -> Lis
     MDMSystem, as :func:`load_released_mixermdm` loads."""
     entries = {k: (ckpt, v) for k, v in rename(load_torch_state_dict(ckpt), MDM_RENAMES).items()}
     return _copy_checked(system, entries, strict)
+
+
+# What a reference evaluator file holds that the evaluator never reads: the
+# CLIP tower it keeps frozen beside its own text encoder (reference
+# models.py:92-100), and the motion tower's sinusoidal buffer.
+INTERCLIP_UNUSED_PREFIXES = ("clip_transformer.", "ln_final.", "text_projection",
+                             "motion_encoder.sequence_pos_encoder.")
+
+
+def load_released_interclip(interclip: nn.Module, ckpt: str, strict: bool = False) -> List[str]:
+    """Load an evaluator file in the reference layout (``motion_encoder.*``,
+    ``textTransEncoder.*``, ``text_ln``, ``out``, ``token_embedding``,
+    ``positional_embedding``, ``latent_scale``: the names JAX
+    ``convert_interclip`` reads, and
+    :class:`~mixermdm_tpu_torch.eval.interclip.InterCLIP`'s own) into an
+    InterCLIP, as :func:`load_released_mixermdm` loads: every shape checked
+    before anything is copied, the parameters no entry filled returned
+    (``strict``: a ``ValueError``).  The reference's ``latent_scale`` of
+    shape (1,) fills the scalar.  The keys of
+    :data:`INTERCLIP_UNUSED_PREFIXES` are skipped and counted."""
+    entries: Dict[str, tuple] = {}
+    skipped = 0
+    for key, value in load_torch_state_dict(ckpt).items():
+        if key.startswith(INTERCLIP_UNUSED_PREFIXES):
+            skipped += 1
+            continue
+        if key == "latent_scale" and value.numel() == 1:
+            value = value.reshape(())
+        entries[key] = (ckpt, value)
+    if skipped:
+        print(f"{ckpt}: skipped {skipped} entries the evaluator does not read "
+              f"({', '.join(INTERCLIP_UNUSED_PREFIXES)})", flush=True)
+    return _copy_checked(interclip, entries, strict)
 
 
 # ---------------------------------------------------------------------------

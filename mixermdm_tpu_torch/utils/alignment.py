@@ -1,8 +1,15 @@
-"""Per-step geometry of the mixer chain on (B, T, 262) motions, f32.
+"""Geometry of 262-d motions, f32; counterpart of
+``mixermdm_tpu/utils/alignment.py``.
 
-Counterpart of the functions of ``mixermdm_tpu/utils/alignment.py`` that the
-sampling chain calls: :func:`orthonormalize_rot6d`, :func:`center_person_fast`,
-:func:`align_persons_fast` and :func:`align_trajectories`.  They run on the
+The mixer chain's per-step functions: :func:`orthonormalize_rot6d`,
+:func:`center_person_fast`, :func:`align_persons_fast` and
+:func:`align_trajectories`.  The reference chain the evaluation centres its
+persons with (reference alignment.py:11-222): :func:`ih_to_smpl` (262-d
+InterHuman -> 205-d SMPL: positions, velocities, 23 axis-angle joints, the
+last two zero, contacts), :func:`smpl_to_ih`, :func:`align_motions` and
+:func:`center_motion`.  The last two return 201-d tensors, the contacts
+dropped, so a following :func:`smpl_to_ih` reads its "contacts" from the
+zero hand joints: contacts come out as zeros, as upstream.  All run on the
 card as plain tensor code (small elementwise work, no kernel of their own).
 """
 
@@ -14,6 +21,8 @@ import torch
 
 from .constants import FACE_JOINT_INDX
 from .quaternions import qbetween, qrot
+from .rotations import axis_angle_to_matrix, matrix_to_axis_angle, matrix_to_rotation_6d, \
+    rotation_6d_to_matrix
 
 
 def _unit(v: torch.Tensor, eps: float) -> torch.Tensor:
@@ -54,10 +63,11 @@ def orthonormalize_rot6d(motion: torch.Tensor) -> torch.Tensor:
     return torch.cat([motion[..., :132], rot, motion[..., 258:]], dim=-1)
 
 
-def center_person_fast(motion: torch.Tensor) -> torch.Tensor:
-    """``smpl_to_ih(center_motion(ih_to_smpl(x)))`` on (B, T, 262): floor at
-    zero, first root at the XZ origin facing Z+, rotations orthonormalised,
-    contacts zeroed (the reference chain's contact-drop quirk)."""
+def _canonical_frame(motion: torch.Tensor):
+    """The positions and velocities (B, T, 66 each) of (B, T, >= 132)
+    motions with the floor at zero, the first root at the XZ origin, facing
+    Z+ at the first frame (reference alignment.py:161-222; the hip and
+    facing norms eps-stabilised, so that a zero pose stays finite)."""
     B, T = motion.shape[:2]
     pos = motion[..., :66].reshape(B, T, 22, 3)
     vel = motion[..., 66:132].reshape(B, T, 22, 3)
@@ -72,12 +82,16 @@ def center_person_fast(motion: torch.Tensor) -> torch.Tensor:
     across = _unit(root_init[:, r_hip] - root_init[:, l_hip], 1e-12)
     forward = _unit(_facing(across), 1e-12)
     root_quat = qbetween(forward, _plus_z(forward))[:, None, None, :]
-    pos = qrot(root_quat, pos)
-    vel = qrot(root_quat, vel)
+    return qrot(root_quat, pos).reshape(B, T, 66), qrot(root_quat, vel).reshape(B, T, 66)
 
+
+def center_person_fast(motion: torch.Tensor) -> torch.Tensor:
+    """``smpl_to_ih(center_motion(ih_to_smpl(x)))`` on (B, T, 262): floor at
+    zero, first root at the XZ origin facing Z+, rotations orthonormalised,
+    contacts zeroed (the reference chain's contact-drop quirk)."""
+    pos, vel = _canonical_frame(motion)
     rot = orthonormalize_rot6d(motion)[..., 132:258]
-    contacts = motion.new_zeros(B, T, 4)
-    return torch.cat([pos.reshape(B, T, 66), vel.reshape(B, T, 66), rot, contacts], dim=-1)
+    return torch.cat([pos, vel, rot, motion.new_zeros(motion.shape[:2] + (4,))], dim=-1)
 
 
 def align_trajectories(t1: torch.Tensor, t2: torch.Tensor,
@@ -99,24 +113,70 @@ def align_trajectories(t1: torch.Tensor, t2: torch.Tensor,
     return qbetween(v2, v1)[:, None, None, :]
 
 
+def _aligned(motion1: torch.Tensor, motion2: torch.Tensor, mask: Optional[torch.Tensor]):
+    """The positions and velocities (B, T, 66 each) of motion2 moved onto
+    motion1: the first roots together, the heading of the root trajectory
+    turned onto motion1's, the first roots together again (reference
+    alignment.py:108-158)."""
+    B, T = motion1.shape[:2]
+    pos_r = motion1[..., :66].reshape(B, T, 22, 3)
+    pos_m = motion2[..., :66].reshape(B, T, 22, 3)
+    vel_m = motion2[..., 66:132].reshape(B, T, 22, 3)
+
+    pos_m = pos_m + (pos_r[:, 0, 0] - pos_m[:, 0, 0])[:, None, None, :]
+    alignment = align_trajectories(pos_r[:, :, 0], pos_m[:, :, 0], mask)
+    pos_m = qrot(alignment, pos_m)
+    pos_m = pos_m + (pos_r[:, 0, 0] - pos_m[:, 0, 0])[:, None, None, :]
+    return pos_m.reshape(B, T, 66), qrot(alignment, vel_m).reshape(B, T, 66)
+
+
 def align_persons_fast(ref262: torch.Tensor, mov262: torch.Tensor,
                        mask: Optional[torch.Tensor] = None):
     """The mixer's per-step ``ih_to_smpl -> align_motions -> smpl_to_ih`` on
     (B, T, 262) streams.  Returns ``(ref_out, mov_out)``: the moving stream
     position- and heading-aligned onto the reference with contacts zeroed,
     the reference passed through with rotations orthonormalised."""
-    B, T = ref262.shape[:2]
-    pos_r = ref262[..., :66].reshape(B, T, 22, 3)
-    pos_m = mov262[..., :66].reshape(B, T, 22, 3)
-    vel_m = mov262[..., 66:132].reshape(B, T, 22, 3)
-
-    pos_m = pos_m + (pos_r[:, 0, 0] - pos_m[:, 0, 0])[:, None, None, :]
-    alignment = align_trajectories(pos_r[:, :, 0], pos_m[:, :, 0], mask)
-    pos_m = qrot(alignment, pos_m)
-    pos_m = pos_m + (pos_r[:, 0, 0] - pos_m[:, 0, 0])[:, None, None, :]
-    vel_m = qrot(alignment, vel_m)
-
+    pos_m, vel_m = _aligned(ref262, mov262, mask)
     mov_rot = orthonormalize_rot6d(mov262)[..., 132:258]
-    mov_out = torch.cat([pos_m.reshape(B, T, 66), vel_m.reshape(B, T, 66), mov_rot,
-                         mov262.new_zeros(B, T, 4)], dim=-1)
+    mov_out = torch.cat([pos_m, vel_m, mov_rot, mov262.new_zeros(mov262.shape[:2] + (4,))],
+                        dim=-1)
     return orthonormalize_rot6d(ref262), mov_out
+
+
+def ih_to_smpl(motion: torch.Tensor) -> torch.Tensor:
+    """(..., T, 262) InterHuman -> (..., T, 205) SMPL layout: the 21 6d
+    rotations as negated axis-angles, two zero hand joints, the contacts."""
+    lead = motion.shape[:-1]
+    rot6d = motion[..., 132:258].reshape(lead + (21, 6))
+    poses = -matrix_to_axis_angle(rotation_6d_to_matrix(rot6d))
+    return torch.cat([motion[..., :132], poses.reshape(lead + (63,)),
+                      motion.new_zeros(lead + (6,)), motion[..., -4:]], dim=-1)
+
+
+def smpl_to_ih(motion: torch.Tensor) -> torch.Tensor:
+    """(..., T, >= 201) SMPL -> (..., T, 262): 23 axis-angle joints at
+    [132:201] (the two hand joints dropped), and the trailing 4 dims as
+    contacts, which on the 201-d output of :func:`center_motion` /
+    :func:`align_motions` are the zero hand joints (reference
+    alignment.py:41-67)."""
+    lead = motion.shape[:-1]
+    axis_angles = motion[..., 132:201].reshape(lead + (23, 3))
+    poses = matrix_to_rotation_6d(axis_angle_to_matrix(-axis_angles))
+    return torch.cat([motion[..., :132], poses.reshape(lead + (138,))[..., :126],
+                      motion[..., -4:]], dim=-1)
+
+
+def align_motions(motion1: torch.Tensor, motion2: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None):
+    """Position- and heading-align motion2 onto motion1, both (B, T, >= 201)
+    SMPL; returns ``(motion1, motion2 aligned)``, the second 201-d
+    (reference alignment.py:108-158)."""
+    pos, vel = _aligned(motion1, motion2, mask)
+    return motion1, torch.cat([pos, vel, motion2[..., 132:201]], dim=-1)
+
+
+def center_motion(motion: torch.Tensor) -> torch.Tensor:
+    """(B, T, >= 201) SMPL -> (B, T, 201) in its canonical frame
+    (:func:`_canonical_frame`); contacts dropped (reference
+    alignment.py:161-222)."""
+    return torch.cat([*_canonical_frame(motion), motion[..., 132:201]], dim=-1)

@@ -29,3 +29,16 @@ def qbetween(v0: torch.Tensor, v1: torch.Tensor) -> torch.Tensor:
         + 1e-8
     )
     return qnormalize(torch.cat([w, v], dim=-1))
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternion -> (..., 3, 3) rotation matrix (the JAX
+    package's ``quaternion_to_matrix``, 2 / |q|^2 scaled)."""
+    w, x, y, z = q.unbind(-1)
+    two_s = 2.0 / (q * q).sum(-1)
+    m = torch.stack([
+        1 - two_s * (y * y + z * z), two_s * (x * y - z * w), two_s * (x * z + y * w),
+        two_s * (x * y + z * w), 1 - two_s * (x * x + z * z), two_s * (y * z - x * w),
+        two_s * (x * z - y * w), two_s * (y * z + x * w), 1 - two_s * (x * x + y * y),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))

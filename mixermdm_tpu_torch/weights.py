@@ -12,7 +12,9 @@ system in the released files' layout (the keys the JAX exporters write),
 which the JAX package's converters and this package's
 :mod:`..train.checkpoint` loaders read.  InterGen has no released layout in
 either package (no converter); its mapping goes straight from the JAX tree
-to the port's modules.
+to the port's modules.  The InterCLIP evaluator's module names are the
+reference file's, so its state dict needs no renames
+(:func:`interclip_state_dict`, JAX ``export_interclip``).
 """
 
 from __future__ import annotations
@@ -279,6 +281,28 @@ def export_discriminator(params: Mapping, prefix: str, out: StateDict):
         export_transformer_block(bp, f"{prefix}.blocks.{i}", out)
 
 
+def interclip_state_dict(params: Mapping) -> StateDict:
+    """A JAX InterCLIP param tree -> the reference evaluator's state dict,
+    which is also :class:`~mixermdm_tpu_torch.eval.interclip.InterCLIP`'s
+    (JAX ``export_interclip``): ``motion_encoder.*``, ``textTransEncoder.*``,
+    ``text_ln``, ``out``, ``token_embedding.weight``,
+    ``positional_embedding``, ``latent_scale``."""
+    out: StateDict = {}
+    me = params["motion_encoder"]
+    out["motion_encoder.query_token"] = _np(me["query_token"])
+    export_linear(me["embed_motion"], "motion_encoder.embed_motion", out)
+    export_torch_encoder(me["transformer"], "motion_encoder.transformer", out)
+    export_layernorm(me["out_ln"], "motion_encoder.out_ln", out)
+    export_linear(me["out"], "motion_encoder.out", out)
+    out["token_embedding.weight"] = _np(params["token_embedding"])
+    out["positional_embedding"] = _np(params["positional_embedding"])
+    out["latent_scale"] = _np(params["latent_scale"]).reshape(())
+    export_torch_encoder(params["text_encoder"], "textTransEncoder", out)
+    export_layernorm(params["text_ln"], "text_ln", out)
+    export_linear(params["text_out"], "out", out)
+    return out
+
+
 def export_mixermdm_system(params: Mapping) -> StateDict:
     """The trained parts of a MixerMDM param tree -> the reference
     MixerMDM.ckpt layout (mixer core, discriminators, post-encoder, tower)."""
@@ -456,6 +480,15 @@ def released_mdm_state_dict(mdm_system: nn.Module,
     return _released(mdm_system.state_dict(), MDM_RENAMES, with_clip, _MDM_CLIP_RENAMES)
 
 
+def released_interclip_state_dict(interclip: nn.Module) -> Dict[str, torch.Tensor]:
+    """An InterCLIP in the reference evaluator file's layout (its own
+    parameter names), as f32 CPU tensors; ``latent_scale`` with the
+    reference's shape (1,) (``nn.Parameter(torch.Tensor([1]))``)."""
+    out = {k: v.detach().float().cpu().clone() for k, v in interclip.state_dict().items()}
+    out["latent_scale"] = out["latent_scale"].reshape(1)
+    return out
+
+
 def without_individual_cross_attention(sd: Mapping, prefix: str = "") -> dict:
     """An individual-mode denoiser has no cross-attention; trees converted
     from reference checkpoints carry it all the same.  Drops the
@@ -492,6 +525,12 @@ def load_mdm_params(system: nn.Module, params: Mapping) -> nn.Module:
 
 def load_intergen_params(system: nn.Module, params: Mapping) -> nn.Module:
     return load_state_dict_np(system, intergen_state_dict(params))
+
+
+def load_interclip_params(interclip: nn.Module, params: Mapping) -> nn.Module:
+    """Load a JAX InterCLIP param tree into an InterCLIP of the same
+    architecture."""
+    return load_state_dict_np(interclip, interclip_state_dict(params))
 
 
 def load_denoiser_params(denoiser: nn.Module, params: Mapping) -> nn.Module:

@@ -28,6 +28,30 @@ from tests.test_torch_port_models import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAIN_TOL = dict(atol=1e-3, rtol=1e-3)
+# What the card machine lacks (jax, flax, optax, orbax, yaml), the JAX
+# package and its scripts, and matplotlib (absent there too): a fresh
+# interpreter that runs the port with these blocked shows that it needs
+# none of them.
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "yaml",
+           "mixermdm_tpu", "scripts", "matplotlib")
+
+
+def run_blocked(code: str, timeout: int = 300) -> subprocess.CompletedProcess:
+    """Run ``code`` in a fresh interpreter at the repository root with
+    :data:`BLOCKED` unimportable and one OpenMP thread; after ``code`` it
+    asserts that none of them (matplotlib aside) was imported, then prints
+    ``blocked imports held``."""
+    guard = f"import sys\nfor name in {BLOCKED!r}:\n    sys.modules[name] = None\n"
+    check = textwrap.dedent("""
+        bad = [k for k, v in sys.modules.items() if v is not None and
+               k.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml", "mixermdm_tpu",
+                                    "scripts")]
+        assert not bad, bad
+        print("blocked imports held")
+    """)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-c", guard + textwrap.dedent(code) + check],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -228,11 +252,8 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     with DPM-Solver++, trajectory control, a warm start and decomposed
     prompts (matplotlib blocked too, as on the card machine, so its plots
     are skipped), and the server's module imports."""
-    code = textwrap.dedent(f"""
+    code = f"""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "yaml",
-                     "mixermdm_tpu", "scripts", "matplotlib"):
-            sys.modules[name] = None
         import mixermdm_tpu_torch
         mods = [m.name for m in pkgutil.walk_packages(mixermdm_tpu_torch.__path__,
                                                       "mixermdm_tpu_torch.")]
@@ -315,17 +336,11 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
                     {str(tmp_path / "base")!r} + "/individual/final.ckpt",
                     "--out-dir", {str(tmp_path / "ft")!r}]
         assert cli() == 0
-        bad = [k for k, v in sys.modules.items() if v is not None and
-               k.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml", "mixermdm_tpu",
-                                    "scripts")]
-        assert not bad, bad
         print("imported", len(mods), "modules")
-    """)
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
-                         text=True, timeout=300)
+    """
+    res = run_blocked(code)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "imported" in res.stdout
+    assert "imported" in res.stdout and "blocked imports held" in res.stdout
     motion = np.load(tmp_path / "g_motion.npy")
     assert motion.shape == (2, 16, 2 * F) and np.isfinite(motion).all()
     assert np.load(tmp_path / "g_influence_i1.npy").shape == (4, 2, 16, F)
