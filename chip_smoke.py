@@ -142,6 +142,11 @@ BUDGET_S = 1100          # hard stop, under the 1200 s limit of a run
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM at 700 W
 H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak
+# f32-accurate products on the tensor cores: three TF32 passes (hi.hi +
+# hi.lo + lo.hi, f32 sums), the form of the f32 attention kernels' tiled
+# routes; the bound of every f32 attention row.
+H100_F32_MMA_FLOPS = H100_TF32_FLOPS / 3
 H100_BYTES_PER_S = 3.35e12
 
 PROMPTS = [
@@ -546,6 +551,9 @@ def kernel_checks(gen):
     results.append(attn_case(f"attention MDM encoder D=128 kpm B={2 * EVAL_HML_CLIPS} T=301",
                              2 * EVAL_HML_CLIPS, 4, 301, 301, 128, False, kpm_tail=True,
                              light=True))
+    # The f32 attention's two routes side by side (its own generator, after
+    # every earlier check).
+    results += f32_route_checks(gen.initial_seed() + 16)
     _lib.reset_launch_counts()  # comparison launches do not count
     return results
 
@@ -624,7 +632,8 @@ def _adaln_q8_case(rnd, B, T, E, label="", light=False):
 # rounding per element ------------------------------------------------------
 def _q8_linear_case(gen, rnd, M, name, K, N, act=None, res=False, light=False):
     """A ``linear_q8`` product at M rows against its plain version, timed
-    (``light``: :func:`light_timed`, no eager, host or library time)."""
+    beside ``torch._int_mm`` (``light``: :func:`light_timed`, no eager or
+    host time)."""
     import torch
 
     from mixermdm_tpu_torch import ops
@@ -652,7 +661,7 @@ def _q8_linear_case(gen, rnd, M, name, K, N, act=None, res=False, light=False):
     w8t = w8.t()
     library_ms = None
     try:  # the library's int8 product (no dequantisation), a yardstick only
-        library_ms = None if light else graph_timed(lambda: torch._int_mm(x8, w8t))
+        library_ms = (light_timed if light else graph_timed)(lambda: torch._int_mm(x8, w8t))
     except RuntimeError as e:
         print(f"   torch._int_mm at M={M} K={K} N={N} not timed: {e}", flush=True)
     dev_ms = light_timed if light else graph_timed
@@ -992,8 +1001,11 @@ def fused_q8_checks(gen, rnd, rows=None):
     return results
 
 
-# f32 attention is held at ~1e-5 of max |plain|: f32 FMA on both sides, only
-# the order of the sums differs (no TF32 anywhere: set in main()).
+# f32 attention is held at ~1e-5 of max |plain|: the plain versions are f32
+# products (TF32 off: set in main()); the kernels' products are f32 FMA (the
+# forward's warp-per-row route) or three TF32 passes on the tensor cores
+# (the tiled routes and the backward's other kernel, ~2^-22 a product), so
+# beyond the order of the sums they differ by a few f32 roundings.
 F32_TOL = 1e-5
 # attention_bwd in bf16 against its plain version (the same rounding points:
 # p and ds rounded to bf16, as the JAX kernel rounds them), max |diff| / max
@@ -1008,12 +1020,29 @@ BWD_BF16_TOL = 1e-2
 STATS_TOL = 1e-5
 
 
+def _pair_bound(B, H, T, D, e, kpm, zero_attn):
+    """The bound of attention's forward with statistics + backward, and of
+    the backward alone: q, k, v read and o written by the forward (and the
+    statistics); q, k, v, g, o read and dq, dk, dv written by the
+    backward; 2 + 5 products of 2 * H*T*D operations for every (query row,
+    key) pair that the key mask leaves (the zero key counted).  f32 on the
+    tensor cores in three TF32 passes, bf16 at its peak."""
+    keys = B * T if kpm is None else int((~kpm).sum())
+    keys += B if zero_attn else 0
+    peak = H100_F32_MMA_FLOPS if e == 4 else H100_BF16_FLOPS
+    pair_bytes = 12 * B * H * T * D * e + 8 * B * H * T + (2 * B * T if kpm is not None else 0)
+    b_ms, b_by = bound_ms(pair_bytes, 7 * 2 * H * T * keys * D, peak)
+    bwd_b_ms, _ = bound_ms(8 * B * H * T * D * e + 8 * B * H * T, 5 * 2 * H * T * keys * D, peak)
+    return b_ms, b_by, bwd_b_ms
+
+
 # --- attention_bwd -------------------------------------------------------
 # What autograd runs (ops.FusedAttention): the forward that also writes
 # the row statistics, then the backward from them and the forward's
 # output.  The row's ms times that pair, against SDPA forward + backward;
 # the backward alone stands beside it.
-def _bwd_case(gen, name, dt, B, H, T, D, zero_attn, kpm_tail, masked_rows=(), time_it=True):
+def _bwd_case(gen, name, dt, B, H, T, D, zero_attn, kpm_tail, masked_rows=(), time_it=True,
+              route=None):
     import torch
     import torch.nn.functional as F
 
@@ -1029,14 +1058,17 @@ def _bwd_case(gen, name, dt, B, H, T, D, zero_attn, kpm_tail, masked_rows=(), ti
             kpm[:, T - T // 5:] = True
         for r in masked_rows:
             kpm[r] = True                      # every key of one sequence masked
-    out, stats = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True)
-    kern = lambda: ops.attention_bwd(q, k, v, kpm, g, zero_attn, stats, out)  # noqa: E731
+    out, stats = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True,
+                                     route=route)
+    kern = lambda: ops.attention_bwd(q, k, v, kpm, g, zero_attn, stats, out,  # noqa: E731
+                                     route=route)
     plain = lambda: ops.attention_bwd_plain(q, k, v, kpm, g, zero_attn, stats,  # noqa: E731
                                             out)
 
     def pair():
-        o, st = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True)
-        return ops.attention_bwd(q, k, v, kpm, g, zero_attn, st, o)
+        o, st = ops.fused_attention(q, k, v, kpm, None, zero_attn, return_stats=True,
+                                    route=route)
+        return ops.attention_bwd(q, k, v, kpm, g, zero_attn, st, o, route=route)
 
     def plain_pair():
         o = ops.fused_attention_plain(q, k, v, kpm, None, zero_attn)
@@ -1075,16 +1107,7 @@ def _bwd_case(gen, name, dt, B, H, T, D, zero_attn, kpm_tail, masked_rows=(), ti
             e["vs_f32_autograd"] <= WITNESS_RATIO * max(e["plain_vs_f32_autograd"], 1e-6)
             for e in errs.values())
     ok = ok and all(bool(torch.isfinite(t.float()).all()) for t in got)
-    # The pair's bound: q, k, v read and o written by the forward (and
-    # the statistics); q, k, v, g, o read and dq, dk, dv written by the
-    # backward; 2 + 5 products of 2 * B*H*T*T*D operations.
-    e = q.element_size()
-    pair_bytes = 12 * B * H * T * D * e + 8 * B * H * T + (2 * B * T if kpm is not None else 0)
-    b_ms, b_by = bound_ms(pair_bytes, 7 * 2 * B * H * T * T * D,
-                          H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
-    bwd_b_ms, _ = bound_ms(8 * B * H * T * D * e + 8 * B * H * T,
-                           5 * 2 * B * H * T * T * D,
-                           H100_F32_FLOPS if f32 else H100_BF16_FLOPS)
+    b_ms, b_by, bwd_b_ms = _pair_bound(B, H, T, D, q.element_size(), kpm, zero_attn)
     res = {
         "check": name, "kind": "attention_bwd",
         "shape": {"B": B, "H": H, "Tq": T, "Tk": T, "D": D, "dtype": str(dt)[6:],
@@ -1153,15 +1176,16 @@ def train_kernel_checks(gen, compare):
             lambda: ops.fused_attention_plain(q, k, v, None, am, False), F32_TOL, n_bytes,
             4 * B * H * T * T * D,
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am),
-            kind="attention_f32", peak=H100_F32_FLOPS, B=B, H=H, Tq=T, Tk=T, D=D,
+            kind="attention_f32", peak=H100_F32_MMA_FLOPS, B=B, H=H, Tq=T, Tk=T, D=D,
             zero_attn=False, causal=causal))
 
     # G step: the discriminators' attention (bf16, 4 heads of 64, T = 300,
     # zero-attn, key padding) and the mixer head's (f32, 8 heads of 96).
     results.append(_bwd_case(gen, "attention_bwd bf16 discriminator", torch.bfloat16, 8, 4,
                              300, 64, True, True))
+    # The heads pin the warp-per-row route (models/layers.py), as here.
     results.append(_bwd_case(gen, "attention_bwd f32 post-encoder", torch.float32, 8, 8, 77,
-                             96, False, False))
+                             96, False, False, route="rows"))
     # A sequence whose keys are all masked, with and without the zero key,
     # in both dtypes (small: checks, not timed).
     for dt, D in ((torch.bfloat16, 64), (torch.float32, 96)):
@@ -1245,12 +1269,172 @@ def eval_kernel_checks(gen, compare):
             lambda: ops.fused_attention_plain(q, k, v, kpm, None, False), F32_TOL,
             4 * 4 * B * H * T * D + (B * T if masked else 0), 4 * H * T * keys * D,
             library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
-            kind="attention_f32", peak=H100_F32_FLOPS, B=B, H=H, Tq=T, Tk=T, D=D,
+            kind="attention_f32", peak=H100_F32_MMA_FLOPS, B=B, H=H, Tq=T, Tk=T, D=D,
             zero_attn=False, key_padding=masked, valid_keys=keys))
     results.append(_bwd_case(gen, "attention_bwd f32 InterCLIP motion D=128", torch.float32,
                              EVAL_TRAIN_B, 8, EVAL_T, 128, False, True))
     results.append(_bwd_case(gen, "attention_bwd f32 InterCLIP text D=96", torch.float32,
                              EVAL_TRAIN_B, 8, 77, 96, False, False))
+    return results
+
+
+# The f32 attention's routes (ops.attention.F32_ROUTES) at the InterCLIP
+# towers' shapes, the post-encoder heads' and the f32 CLIP tower's, and at
+# B 8 / 16 of the head shape (the dispatch changes between B 2 and 8): each route's
+# forward (and, for the backward's shapes, forward with statistics +
+# backward) against the plain version and timed beside SDPA.
+F32_FWD_SHAPES = (  # (name, B, H, T, D, key mask, causal)
+    ("motion", EVAL_B, 8, EVAL_T, 128, True, False), ("text", EVAL_B, 8, 77, 96, False, False),
+    ("head", 2, 8, 77, 96, False, False), ("clip tower", 2, 12, 77, 64, False, True),
+    ("head B=8", 8, 8, 77, 96, False, False), ("head B=16", 16, 8, 77, 96, False, False))
+F32_BWD_SHAPES = (  # (name, B, H, T, D, key mask)
+    ("motion", EVAL_TRAIN_B, 8, EVAL_T, 128, True), ("text", EVAL_TRAIN_B, 8, 77, 96, False),
+    ("head training", 8, 8, 77, 96, False))
+
+
+def _motion_mask(gen, B, T, dev):
+    """The motion tower's key mask: the query token and 15-300 frames valid."""
+    import torch
+
+    lens = torch.randint(15, T, (B,), generator=gen, device=dev)
+    return torch.arange(T, device=dev)[None, :] > lens[:, None]
+
+
+def _mask_cases(B, T, dev):
+    """The key masks that exercise the tiled routes' passing over fully
+    masked keys: (name, mask, zero_attn)."""
+    import torch
+
+    lens = torch.arange(B, device=dev) * 7 % (T - 30) + 20
+    tail = torch.arange(T, device=dev)[None, :] > lens[:, None]
+    all_one = tail.clone()
+    all_one[1] = True                 # every key of sequence 1 masked, no zero key
+    middle = torch.zeros(B, T, dtype=torch.bool, device=dev)
+    middle[:, 40:170] = True          # whole tiles masked in the middle of the row
+    middle[2, 200:] = True
+    zero_tail = tail.clone()
+    zero_tail[3] = True               # with the zero key: every tile of sequence 3 passed over
+    return (("one sequence all masked, no zero key", all_one, False),
+            ("masked tiles in the middle", middle, False),
+            ("zero key + masked tail", zero_tail, True))
+
+
+def f32_route_checks(seed):
+    """Phase 3's f32 routes: every shape of :data:`F32_FWD_SHAPES` /
+    :data:`F32_BWD_SHAPES` on both routes against the plain version on
+    ``F32_TOL`` (the forward's statistics on ``STATS_TOL``), each timed
+    beside SDPA, the route the dispatch takes printed; then the three mask
+    cases of :func:`_mask_cases` on the forward at the motion tower's shape
+    and on the backward at train-evaluator's."""
+    import torch
+    import torch.nn.functional as F
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.ops import attention as attn_mod
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    results = []
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+
+    def fwd(q, k, v, kpm, am, za, route):
+        B, H, Tq, _ = q.shape
+        st = torch.empty((2, B, H, Tq), dtype=torch.float32, device=dev)
+        o = attn_mod.attention_into(q, k, v, torch.empty_like(q), kpm, am, za, st, route=route)
+        return o, st
+
+    def fwd_check(name, q, k, v, kpm, am, za, time_it):
+        want = ops.fused_attention_plain(q, k, v, kpm, am, za)
+        want_st = attn_mod.attention_stats_plain(q, k, kpm, am, za)
+        B, H, T, D = q.shape
+        # The bound as phase 3's other f32 rows count it: the products over
+        # the keys that the mask leaves, three TF32 passes.
+        keys = (B * T if kpm is None else int((~kpm).sum())) + (B if za else 0)
+        b_ms, b_by = bound_ms(16 * B * H * T * D + (B * T if kpm is not None else 0)
+                              + (4 * T * T if am is not None else 0), 4 * H * T * keys * D,
+                              H100_F32_MMA_FLOPS)
+        res = {"check": f"attention_f32 routes {name}", "kind": "attention_f32 routes",
+               "shape": {"B": B, "H": H, "Tq": T, "Tk": T, "D": D, "zero_attn": za,
+                         "key_padding": kpm is not None, "causal": am is not None},
+               "dispatch": attn_mod.attention_f32_plan(B, H, T, T, D).route, "err": {},
+               "stats_err": {}, "ms": {}, "tol_rel": F32_TOL, "stats_tol": STATS_TOL,
+               "bound_ms": b_ms, "bound_by": b_by}
+        for route in attn_mod.F32_ROUTES:
+            o, st = fwd(q, k, v, kpm, am, za, route)
+            torch.cuda.synchronize()
+            res["err"][route] = rel(o, want)
+            res["stats_err"][route] = max(rel(st[i], want_st[i]) for i in range(2))
+            if time_it:
+                res["ms"][route] = graph_timed(lambda r=route: fwd(q, k, v, kpm, am, za, r))
+        res["ok"] = all(e <= F32_TOL for e in res["err"].values()) and all(
+            e <= STATS_TOL for e in res["stats_err"].values())
+        return res
+
+    def bwd_check(name, q, k, v, g, kpm, za, time_it):
+        B, H, T, D = q.shape
+        b_ms, b_by, bwd_b_ms = _pair_bound(B, H, T, D, 4, kpm, za)
+        res = {"check": f"attention_bwd f32 routes {name}", "kind": "attention_bwd routes",
+               "shape": {"B": B, "H": H, "Tq": T, "Tk": T, "D": D, "zero_attn": za,
+                         "key_padding": kpm is not None},
+               "dispatch": attn_mod.attention_bwd_f32_plan(B, H, T, T, D).route, "err": {},
+               "ms": {}, "bwd_ms": {}, "tol_rel": F32_TOL, "bound_ms": b_ms, "bound_by": b_by,
+               "bwd_bound_ms": bwd_b_ms}
+
+        def pair(route):
+            o, st = fwd(q, k, v, kpm, None, za, route)
+            return ops.attention_bwd(q, k, v, kpm, g, za, st, o, route=route)
+
+        for route in attn_mod.F32_ROUTES:
+            o, st = fwd(q, k, v, kpm, None, za, route)
+            got = ops.attention_bwd(q, k, v, kpm, g, za, st, o, route=route)
+            torch.cuda.synchronize()
+            want = ops.attention_bwd_plain(q, k, v, kpm, g, za, st, o)
+            res["err"][route] = max(rel(a, b) for a, b in zip(got, want))
+            if time_it:
+                res["ms"][route] = graph_timed(lambda r=route: pair(r))
+                res["bwd_ms"][route] = graph_timed(
+                    lambda r=route: ops.attention_bwd(q, k, v, kpm, g, za, st, o, route=r))
+        res["ok"] = all(e <= F32_TOL for e in res["err"].values())
+        return res
+
+    def inputs(B, H, T, D, n):
+        return [torch.randn(B, H, T, D, generator=gen, device=dev) for _ in range(n)]
+
+    for name, B, H, T, D, masked, causal in F32_FWD_SHAPES:
+        q, k, v = inputs(B, H, T, D, 3)
+        kpm = _motion_mask(gen, B, T, dev) if masked else None
+        am = torch.triu(torch.full((T, T), float("-inf"), device=dev), 1) if causal else None
+        bias = attn_mod.key_bias(kpm)[:, None, None, :] if masked else am
+        res = fwd_check(f"{name} {(B, H, T, D)}", q, k, v, kpm, am, False, True)
+        res["library_ms"] = graph_timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias))
+        results.append(res)
+        print("   " + json.dumps(res), flush=True)
+    for name, B, H, T, D, masked in F32_BWD_SHAPES:
+        q, k, v, g = inputs(B, H, T, D, 4)
+        kpm = _motion_mask(gen, B, T, dev) if masked else None
+        bias = attn_mod.key_bias(kpm)[:, None, None, :] if masked else None
+        res = bwd_check(f"{name} {(B, H, T, D)}", q, k, v, g, kpm, False, True)
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def library():  # SDPA forward + backward
+            o = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias)
+            return torch.autograd.grad(o, (lq, lk, lv), g)
+
+        res["library_ms"] = graph_timed(library)
+        results.append(res)
+        print("   " + json.dumps(res), flush=True)
+    for B, n in ((EVAL_B, 3), (EVAL_TRAIN_B, 4)):
+        for name, kpm, za in _mask_cases(B, EVAL_T, dev):
+            ins = inputs(B, 8, EVAL_T, 128, n)
+            label = f"motion B={B}: {name}"
+            res = (fwd_check(label, *ins, kpm, None, za, False) if n == 3
+                   else bwd_check(label, *ins, kpm, za, False))
+            results.append(res)
+            print("   " + json.dumps(res), flush=True)
     return results
 
 

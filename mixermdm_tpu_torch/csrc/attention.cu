@@ -66,20 +66,29 @@
 // take two waves; the host plans the warpgroups per block for waves of
 // clusters (ops/attention.py: attention_q8_plan).
 //
-// f32 inputs (attention_f32_kernel; the f32 softmax branch of _attn_body,
-// attention.py:60; on the port's paths the CLIP post-encoders, (B, 8, 77,
-// 96)): f32 in, f32 out, every product an f32 FMA on the CUDA cores (no
-// TF32: one pass keeps ~10 bits and could not meet the 1e-5 agreement the
-// f32 path is held to; a three-pass TF32 split on the tensor cores was
-// slower at the head shape, where the grid is small and each block's chain
-// of products is the time).  At T = 77 one head's K and V (2 x 77 x 96 x
-// 4 B = 59 KB) fit in shared memory: a block of 8 warps loads them once with
-// 16-byte cp.async and each warp owns one query row, so the softmax needs no
-// online rescaling and the grid (ceil(Tq / 8) x H x B = 160 blocks at the
-// head shape) fills the card.  Longer rows go through 128-key chunks with
-// the online softmax.  What bounds it is shared memory: each lane reads its
-// own key rows, a 16-byte read per four FMAs.
+// f32 inputs (the f32 softmax branch of _attn_body, attention.py:60; on the
+// port's paths the CLIP post-encoders, (B, 8, 77, 96), and the InterCLIP
+// towers, (96, 8, 301, 128) under a key mask and (96, 8, 77, 96)): f32 in,
+// f32 out, held to 1e-5 of the f32 reference, so no single TF32 pass (~10
+// bits).  Two routes, picked by the host (ops/attention.py:
+// attention_f32_plan):
+//
+// - attention_f32_kernel, for small grids (the heads at B 2): every product
+//   an f32 FMA on the CUDA cores.  At T = 77 one head's K and V (59 KB at
+//   D 96) fit in shared memory: a block of 8 warps loads them once with
+//   16-byte cp.async and each warp owns one query row, so the softmax needs
+//   no online rescaling and the grid (ceil(Tq / 8) x H x B = 160 blocks at
+//   the head shape) fills the card.  Longer rows go through 128-key chunks
+//   with the online softmax.  What bounds it is shared memory: each lane
+//   reads its own key rows, a 16-byte read per four FMAs, and every block of
+//   8 rows reads the head's K and V again.
+// - attention_f32_tc_kernel, for the towers' grids: 64 query rows a block,
+//   products on the tensor cores in three TF32 passes (~2^-22 a product), K
+//   and V split once a tile (see its section below).  Several times faster
+//   than the first route at the towers' shapes; slower at the heads' B 2
+//   (the grid is 32-48 blocks and each block's chain of tiles is the time).
 #include "gemm_sm90.cuh"
+#include "tf32.cuh"
 
 using mm::bf16;
 
@@ -553,19 +562,22 @@ struct F32Params {
   float scale;
 };
 
-// ops/attention.py does not plan this kernel: keys per chunk and the
-// shared memory follow from Tk and D alone.
+// Keys per chunk and the shared memory follow from Tk and D alone
+// (ops/attention.py:attention_f32_rows_smem).
 __host__ __device__ constexpr int f32_smem_bytes(int d, int kc) {
   return ((2 * kc + kF32Rows) * (d + 4) + kF32Rows * kc) * 4;
 }
 
-template <int D>
+// Rows row0 .. row0 + rows - 1 of a strided (rows_total, D) matrix into
+// shared rows of D + 4 floats, zeros past rows_total; THREADS threads.
+template <int D, int THREADS>
 __device__ __forceinline__ void load_rows_f32(float* s, const float* g, long long st, int row0,
-                                              int rows, int tid) {
+                                              int rows, int rows_total, int tid) {
   constexpr int LD = D + 4, CPR = D / 4;  // 16-byte chunks per row
-  for (int c = tid; c < rows * CPR; c += kF32Threads) {
+  for (int c = tid; c < rows * CPR; c += THREADS) {
     const int r = c / CPR, cc = (c % CPR) * 4;
-    mm::cp_async16(s + r * LD + cc, g + (size_t)(row0 + r) * st + cc, 16);
+    const bool ok = row0 + r < rows_total;
+    mm::cp_async16(s + r * LD + cc, ok ? g + (size_t)(row0 + r) * st + cc : g, ok ? 16 : 0);
   }
 }
 
@@ -584,7 +596,7 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(const F32Par
   const float* Q = p.q + b * p.q_sb + h * p.q_sh;
   const float* K = p.k + b * p.k_sb + h * p.k_sh;
   const float* V = p.v + b * p.v_sb + h * p.v_sh;
-  load_rows_f32<D>(sQ, Q, p.q_st, q0, min(kF32Rows, p.Tq - q0), tid);
+  load_rows_f32<D, kF32Threads>(sQ, Q, p.q_st, q0, min(kF32Rows, p.Tq - q0), p.Tq, tid);
 
   float m = p.zero_attn ? 0.f : -INFINITY;  // the zero key: logit 0, value 0
   float l = p.zero_attn ? 1.f : 0.f;
@@ -597,8 +609,8 @@ __global__ void __launch_bounds__(kF32Threads) attention_f32_kernel(const F32Par
   for (int c0 = 0; c0 < p.Tk; c0 += kc) {
     const int nk = min(kc, p.Tk - c0);
     if (c0 > 0) __syncthreads();  // every warp is done with the previous chunk
-    load_rows_f32<D>(sK, K, p.k_st, c0, nk, tid);
-    load_rows_f32<D>(sV, V, p.v_st, c0, nk, tid);
+    load_rows_f32<D, kF32Threads>(sK, K, p.k_st, c0, nk, p.Tk, tid);
+    load_rows_f32<D, kF32Threads>(sV, V, p.v_st, c0, nk, p.Tk, tid);
     mm::cp_async_commit();
     mm::cp_async_wait<0>();
     __syncthreads();
@@ -666,6 +678,204 @@ int launch_f32(const F32Params& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// f32 inputs, tiled on the tensor cores (attention_f32_tc_kernel): a block of
+// 4 warps owns 64 query rows (16 a warp), so every K/V tile read into the SM
+// serves 64 rows.  Q stays in shared memory; K and V stream through a ring of
+// two 16-key stages filled by 16-byte cp.async (the next tile in flight while
+// the current one is multiplied), and each tile, once landed, is split in
+// place into its TF32 hi parts (the lo parts beside it) by the whole block,
+// once, not by every warp at every product.  S = Q K^T and O += P V are
+// mma.sync m16n8k8 in three TF32 passes (csrc/tf32.cuh); P goes from S's
+// accumulator to its A fragment in registers.  Online softmax with ex2.
+// Rows of D + 4 floats: every fragment read is free of bank conflicts.  At
+// D 128 a block takes 84.5 KB, two blocks (8 warps) to an SM.  What bounds
+// it: each warp reads its operands from shared memory on its own (a tile's
+// K and V hi and lo, 4 floats per three mma.sync), as many bytes as the
+// tensor cores' mma.sync rate can use; wgmma, which reads them once per
+// warpgroup, takes TF32 only K-major (V would need a transpose).
+//
+// Key tiles whose keys are all masked (or past Tk) are skipped where that is
+// exact, which is where the row max is finite: the zero key is on, or the
+// batch has an unmasked key (then exp(-1e30 - max) is exactly 0).  A batch
+// whose keys are all masked, without the zero key, runs every tile (the
+// reference spreads p evenly over the masked keys), and so does a call with
+// an additive attn_mask (it can leave a row only masked keys).
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 64, kTcThreads = 128, kTcKeys = 16, kTcStages = 2;
+
+// Q, the hi ring (K and V of each stage), the lo parts of one stage's K and
+// V, and one tile's key bias.  ops/attention.py:attention_f32_tc_smem is the
+// same formula.
+__host__ __device__ constexpr int f32_tc_smem_bytes(int d) {
+  return ((kTcRows + (2 * kTcStages + 2) * kTcKeys) * (d + 4) + kTcKeys) * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2) attention_f32_tc_kernel(const F32Params p) {
+  constexpr int LD = D + 4, NT = D / 8, KT = kTcKeys * LD;  // floats of one K or V tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sHi = sQ + kTcRows * LD;          // stage s: K at tile 2 s, V at 2 s + 1
+  float* sLo = sHi + 2 * kTcStages * KT;   // the current tile's K, then V
+  float* sBias = sLo + 2 * KT;             // the current tile's key bias
+
+  const int q0 = blockIdx.x * kTcRows, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const float* Q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* K = p.k + b * p.k_sb + h * p.k_sh;
+  const float* V = p.v + b * p.v_sb + h * p.v_sh;
+  const bool* kpm_b = p.kpm != nullptr ? p.kpm + (size_t)b * p.Tk : nullptr;
+  const int nkt = (p.Tk + kTcKeys - 1) / kTcKeys;
+  const bool skip = kpm_b != nullptr && p.amask == nullptr &&
+                    (p.zero_attn || mm::keys_live(kpm_b, 0, p.Tk, p.Tk, lane));
+  auto next_tile = [&](int j) {  // the first tile from j that is not skipped
+    if (skip)
+      while (j < nkt && !mm::keys_live(kpm_b, j * kTcKeys, kTcKeys, p.Tk, lane)) ++j;
+    return j;
+  };
+  auto issue = [&](int j, int st) {
+    float* dst = sHi + 2 * st * KT;
+    load_rows_f32<D, kTcThreads>(dst, K, p.k_st, j * kTcKeys, kTcKeys, p.Tk, tid);
+    load_rows_f32<D, kTcThreads>(dst + KT, V, p.v_st, j * kTcKeys, kTcKeys, p.Tk, tid);
+  };
+
+  load_rows_f32<D, kTcThreads>(sQ, Q, p.q_st, q0, kTcRows, p.Tq, tid);
+  int j = next_tile(0);
+  if (j < nkt) issue(j, 0);
+  mm::cp_async_commit();
+
+  // This thread's rows r_lo and r_lo + 8; the zero key as the running state
+  // (max 0, sum 1 credited to one lane of the quad), as in attention_kernel.
+  const int r_lo = q0 + warp * 16 + g;
+  float m[2], l[2], o[NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = p.zero_attn ? 0.f : -INFINITY;
+    l[i] = (p.zero_attn && t == 0) ? 1.f : 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const float* qw = sQ + (warp * 16 + g) * LD + t;
+
+  for (int st = 0; j < nkt; st ^= 1) {
+    mm::cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; every warp is done with the previous one
+    const int jn = next_tile(j + 1);
+    if (jn < nkt) issue(jn, st ^ 1);
+    mm::cp_async_commit();
+    const float* kh = sHi + 2 * st * KT;
+    const float* vh = kh + KT;
+    const float* kl = sLo;
+    const float* vl = sLo + KT;
+    mm::split_inplace(sHi + 2 * st * KT, sLo, 2 * KT / 4, tid, kTcThreads);
+    const int k0 = j * kTcKeys;
+    if (tid < kTcKeys) {  // -inf past Tk, -1e30 where masked
+      const int col = k0 + tid;
+      float v = col < p.Tk ? 0.f : -INFINITY;
+      if (kpm_b != nullptr && kpm_b[min(col, p.Tk - 1)]) v += kMasked;
+      sBias[tid] = v;
+    }
+    __syncthreads();
+
+    // S = Q K^T: this warp's 16 rows x the tile's 16 keys.
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float a[4] = {qw[kk * 8], qw[8 * LD + kk * 8], qw[kk * 8 + 4], qw[8 * LD + kk * 8 + 4]};
+      uint32_t ah[4], al[4];
+      mm::split_a(a, ah, al);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int off = (n * 8 + g) * LD + kk * 8 + t;
+        const uint32_t bh[2] = {__float_as_uint(kh[off]), __float_as_uint(kh[off + 4])};
+        const uint32_t bl[2] = {__float_as_uint(kl[off]), __float_as_uint(kl[off + 4])};
+        mm::mma3_split(s[n], ah, al, bh, bl);
+      }
+    }
+
+    // Scale, bias, mask; s[n][e] is row r_lo + 8 (e >> 1), key k0 + 8n +
+    // 2t + (e & 1).  Then the online softmax.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = fmaf(s[n][e], p.scale, sBias[n * 8 + 2 * t + (e & 1)]);
+        if (p.amask != nullptr) {
+          const int row = min(r_lo + 8 * (e >> 1), p.Tq - 1);
+          const int col = min(k0 + n * 8 + 2 * t + (e & 1), p.Tk - 1);
+          v += p.amask[(size_t)row * p.Tk + col];
+        }
+        s[n][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    float mref[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float mnew = fmaxf(m[i], mx[i]);
+      mref[i] = mnew == -INFINITY ? 0.f : mnew;  // a row with no finite logit yet
+      const float alpha = ex2((m[i] - mref[i]) * kLog2e);
+      m[i] = mnew;
+      l[i] *= alpha;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][2 * i] *= alpha;
+        o[n][2 * i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = ex2((s[n][e] - mref[e >> 1]) * kLog2e);
+        l[e >> 1] += s[n][e];
+      }
+
+    // O += P V: k-step kb is S's n-tile kb; its B rows are keys 8 kb + 2t and
+    // 8 kb + 2t + 1 (csrc/tf32.cuh).
+#pragma unroll
+    for (int kb = 0; kb < 2; ++kb) mm::mma3_acc_nn<NT, LD>(o, s[kb], vh, vl, kb * 8, g, t);
+    j = jn;
+  }
+  mm::cp_async_wait<0>();  // nothing left in flight when every tile was skipped
+
+  const size_t n_all = (size_t)p.B * p.H * p.Tq, bh = (size_t)b * p.H + h;
+  float* O = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = r_lo + i * 8;
+    if (row >= p.Tq) continue;
+    if (p.stats != nullptr && t == 0) {
+      p.stats[bh * p.Tq + row] = m[i] == -INFINITY ? 0.f : m[i];
+      p.stats[n_all + bh * p.Tq + row] = l[i] > 0.f ? l[i] : 1.f;
+    }
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(O + (size_t)row * p.o_st + n * 8 + 2 * t) =
+          make_float2(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+  }
+}
+
+template <int D>
+int launch_f32_tc(const F32Params& p, cudaStream_t s) {
+  const dim3 grid((p.Tq + kTcRows - 1) / kTcRows, p.H, p.B);
+  attention_f32_tc_kernel<D><<<grid, kTcThreads, f32_tc_smem_bytes(D), s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // strides: 12 int64 values, (batch, head, row) strides of q, k, v, o in
@@ -674,12 +884,14 @@ int launch_f32(const F32Params& p, cudaStream_t s) {
 // (2, B, H, Tq) f32 is written when not null.  D in {64, 96, 128}; Tk >= 1.  q, k, v are bf16, or f32 when in_f32 (then
 // o is f32 too); with bf16 inputs o is bf16, or f32 when out_f32, and nwg
 // (1-3 warpgroups of 64 query rows per block) and stages (1-3 K/V stages)
-// are the host's plan.
+// are the host's plan.  With f32 inputs f32_tiled is the host's route: 0
+// the warp-per-row kernel, 1 the tiled tensor-core kernel; nwg and stages
+// are unused.
 extern "C" int mm_attention(const void* q, const void* k, const void* v, void* o,
                             const long long* strides, const void* kpm, const void* amask,
                             void* stats, int B, int H, int Tq, int Tk, int D, int zero_attn,
-                            float scale, int in_f32, int out_f32, int nwg, int stages,
-                            void* stream) {
+                            float scale, int in_f32, int out_f32, int f32_tiled, int nwg,
+                            int stages, void* stream) {
   if ((D != 64 && D != 96 && D != 128) || Tk < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_f32) {
@@ -701,6 +913,12 @@ extern "C" int mm_attention(const void* q, const void* k, const void* v, void* o
     p.Tk = Tk;
     p.zero_attn = zero_attn;
     p.scale = scale;
+    if (f32_tiled == 1) switch (D) {
+        case 64: return launch_f32_tc<64>(p, s);
+        case 96: return launch_f32_tc<96>(p, s);
+        default: return launch_f32_tc<128>(p, s);
+      }
+    if (f32_tiled != 0) return static_cast<int>(cudaErrorInvalidValue);
     switch (D) {
       case 64: return launch_f32<64>(p, s);
       case 96: return launch_f32<96>(p, s);
@@ -808,5 +1026,12 @@ extern "C" int mm_attention_init() {
     e = cudaFuncSetAttribute(attention_f32_kernel<128>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              f32_smem_bytes(128, kF32Chunk));
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attention_f32_tc_kernel<64>, attr, f32_tc_smem_bytes(64));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attention_f32_tc_kernel<96>, attr, f32_tc_smem_bytes(96));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(attention_f32_tc_kernel<128>, attr, f32_tc_smem_bytes(128));
   return static_cast<int>(e);
 }

@@ -43,16 +43,22 @@
 // double-buffered with 16-byte cp.async.  Bound at the discriminator shape
 // (8, 4, 300, 64): bytes, 2.6 us.
 //
-// f32: the same blocks, 64-row tiles streamed one at a time (two blocks fit
-// an SM), P and dS reaching their A fragments by warp shuffles, and every
-// product on the tensor cores (mma.sync m16n8k8) in three TF32 passes (x =
-// hi + lo, both TF32; hi.hi + hi.lo + lo.hi, f32 sums: ~2^-22 per product,
-// within the 1e-5 the f32 path is held to).  On the CUDA cores each f32 FMA
-// needed its own operand from shared memory, four times what the banks
-// deliver per FMA slot.
+// f32: every product on the tensor cores (mma.sync m16n8k8) in three TF32
+// passes (csrc/tf32.cuh: x = hi + lo, both TF32; hi.hi + hi.lo + lo.hi, f32
+// sums: ~2^-22 per product, within the 1e-5 the f32 path is held to).  On
+// the CUDA cores each f32 FMA needed its own operand from shared memory,
+// four times what the banks deliver per FMA slot.  Two kernels, picked by
+// the host (ops/attention.py:attention_bwd_f32_plan):
+// - attn_bwd_f32_kernel (the heads' training shapes, (8, 8, 77, 96)): the
+//   same blocks as bf16, 64-row tiles streamed one at a time, P and dS
+//   reaching their A fragments by warp shuffles, the streamed operand split
+//   by every warp at every product.  At D 128 its 136 KB of shared memory
+//   leave one 4-warp block to an SM.
+// - attn_bwd_f32_tc_kernel (the InterCLIP towers' shapes): see its section.
 #include <type_traits>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 using mm::bf16;
 
@@ -67,7 +73,7 @@ struct Params {
   const float* stats;             // (2, B, H, Tq): the forward's row max, denominator
   float* dsum;                    // (B, H, Tq): written by the dsum kernel
   const bool* kpm;                // (B, Tk), true = masked (bias -1e30), or null
-  int B, H, Tq, Tk;
+  int B, H, Tq, Tk, zero_attn;
   float scale;
 };
 
@@ -402,48 +408,21 @@ __host__ __device__ constexpr int f32_tile_floats(int d) { return BT * (d + 4); 
 // tile's statistics (two blocks fit an SM at D <= 96).
 __host__ __device__ constexpr int f32_smem(int d) { return (4 * f32_tile_floats(d) + 3 * BT) * 4; }
 
+// Rows row0 .. row0 + rows - 1 of a contiguous (rows_total, D) matrix into
+// shared rows of D + 4 floats, zeros past the edge.
 template <int D>
-__device__ __forceinline__ void load_tile_f32(float* s, const float* g, int row0, int rows_total,
-                                              int tid) {
-  constexpr int LD = D + 4, CPR = D / 4;
-  for (int c = tid; c < BT * CPR; c += kMmaThreads) {
+__device__ __forceinline__ void load_rows_f32(float* s, const float* g, int row0, int rows,
+                                              int rows_total, int tid) {
+  constexpr int LD = D + 4, CPR = D / 4;  // 16-byte chunks per row
+  for (int c = tid; c < rows * CPR; c += kMmaThreads) {
     const int r = c / CPR, cc = (c % CPR) * 4;
     const bool ok = row0 + r < rows_total;
     mm::cp_async16(s + r * LD + cc, ok ? g + (size_t)(row0 + r) * D + cc : g, ok ? 16 : 0);
   }
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 (10-bit mantissas): hi . hi + hi . lo + lo . hi
-// carries a product to ~2^-22, f32 accuracy for the sums that follow.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += A . B over one k8 step, 3xTF32: the small terms first.
-__device__ __forceinline__ void mma3(float* d, const uint32_t* ah, const uint32_t* al,
-                                     const float* b) {
-  uint32_t bh[2], bl[2];
-  split_tf32(b[0], bh[0], bl[0]);
-  split_tf32(b[1], bh[1], bl[1]);
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
+using mm::mma3;
+using mm::split_tf32;
 
 // acc (this warp's 16 rows x 64 columns) = A[rows] . B[64 rows]^T over D;
 // acc in the m16n8 accumulator layout.
@@ -529,8 +508,8 @@ __device__ __forceinline__ void dq_f32(const Params& p, unsigned char* smem, int
   const float* G = static_cast<const float*>(p.g) + bh * p.Tq * D;
   const float* K = static_cast<const float*>(p.k) + bh * p.Tk * D;
   const float* V = static_cast<const float*>(p.v) + bh * p.Tk * D;
-  load_tile_f32<D>(sQ, Q, q0, p.Tq, tid);
-  load_tile_f32<D>(sG, G, q0, p.Tq, tid);
+  load_rows_f32<D>(sQ, Q, q0, BT, p.Tq, tid);
+  load_rows_f32<D>(sG, G, q0, BT, p.Tq, tid);
 
   const int r_lo = q0 + warp * 16 + (lane >> 2);  // rows r_lo and r_lo + 8
   float mx[2], inv[2], dsum[2];
@@ -550,8 +529,8 @@ __device__ __forceinline__ void dq_f32(const Params& p, unsigned char* smem, int
 
   for (int k0 = 0; k0 < p.Tk; k0 += BT) {
     __syncthreads();  // every warp is done with the previous K, V tile
-    load_tile_f32<D>(sK, K, k0, p.Tk, tid);
-    load_tile_f32<D>(sV, V, k0, p.Tk, tid);
+    load_rows_f32<D>(sK, K, k0, BT, p.Tk, tid);
+    load_rows_f32<D>(sV, V, k0, BT, p.Tk, tid);
     mm::cp_async_commit();
     float kb[16];  // keys k0 + 8t + 2(lane % 4) + c, c = 2t + (0, 1)
 #pragma unroll
@@ -602,8 +581,8 @@ __device__ __forceinline__ void dkdv_f32(const Params& p, unsigned char* smem, i
   const float* G = static_cast<const float*>(p.g) + bh * p.Tq * D;
   const float* K = static_cast<const float*>(p.k) + bh * p.Tk * D;
   const float* V = static_cast<const float*>(p.v) + bh * p.Tk * D;
-  load_tile_f32<D>(sK, K, k0, p.Tk, tid);
-  load_tile_f32<D>(sV, V, k0, p.Tk, tid);
+  load_rows_f32<D>(sK, K, k0, BT, p.Tk, tid);
+  load_rows_f32<D>(sV, V, k0, BT, p.Tk, tid);
 
   const int kr_lo = k0 + warp * 16 + (lane >> 2);  // keys kr_lo and kr_lo + 8
   const float kb[2] = {key_bias(p, b, kr_lo), key_bias(p, b, kr_lo + 8)};
@@ -615,8 +594,8 @@ __device__ __forceinline__ void dkdv_f32(const Params& p, unsigned char* smem, i
 
   for (int q0 = 0; q0 < p.Tq; q0 += BT) {
     __syncthreads();  // every warp is done with the previous Q, G tile
-    load_tile_f32<D>(sQ, Q, q0, p.Tq, tid);
-    load_tile_f32<D>(sG, G, q0, p.Tq, tid);
+    load_rows_f32<D>(sQ, Q, q0, BT, p.Tq, tid);
+    load_rows_f32<D>(sG, G, q0, BT, p.Tq, tid);
     mm::cp_async_commit();
     for (int i = tid; i < BT; i += kMmaThreads) {
       const int q = q0 + i;
@@ -671,18 +650,304 @@ __global__ void __launch_bounds__(kMmaThreads, 2) attn_bwd_f32_kernel(const Para
 }
 
 // ---------------------------------------------------------------------------
+// f32, tiled for the long rows (attn_bwd_f32_tc_kernel): the same two kinds
+// of block, each with its own 64-row tiles (Q and G, or K and V) resident,
+// while the other side streams through a ring of two sub-tiles of R rows
+// (16 up to D = 96, 8 at D = 128) filled by 16-byte cp.async, the next one
+// in flight while the current one is multiplied.  Each sub-tile, once
+// landed, is split in place into its TF32 hi parts (the lo parts beside it)
+// by the whole block, once.  P and dS reach their A fragments in registers
+// (csrc/tf32.cuh: the accumulator's columns taken as 2t -> t, 2t + 1 ->
+// t + 4, the B rows read to match).  At D = 128 a block's shared memory is
+// 93 KB, so two blocks (8 warps) share an SM, and a key-tile block holds
+// dk and dv (128 floats a thread) beside a sub-tile's S and dP (8).
+//
+// Keys all masked: skipped under the forward's rule (attention.cu), where
+// the row max is finite (the zero key is on, or the batch has an unmasked
+// key), so p = exp(-1e30 - max) = 0 there exactly: a key-tile block whose
+// 64 keys are all masked writes zero dk and dv and returns (p = 0 gives
+// ds = 0), and a query-tile block passes over such sub-tiles of keys.
+// ---------------------------------------------------------------------------
+
+// Streamed rows per sub-tile.
+__host__ __device__ constexpr int tc_rows(int d) { return d <= 96 ? 16 : 8; }
+// Either kind of block: two resident tiles, the hi ring (two tensors of a
+// sub-tile per stage), the current sub-tile's lo parts, and (key-tile
+// blocks) each stage's query statistics.  ops/attention.py:attention_bwd_tc_smem
+// is the same formula.
+__host__ __device__ constexpr int tc_smem(int d) {
+  return ((2 * BT + 6 * tc_rows(d)) * (d + 4) + 6 * tc_rows(d)) * 4;
+}
+
+// acc[n] (this warp's 16 resident rows x the sub-tile's R streamed rows) =
+// A[rows] . B[R rows]^T over D, for two products at once: (A0, B0) into
+// acc0, (A1, B1) into acc1.  A raw (split here, once per k-step for both
+// n-tiles), B split (hi, lo), read just before its products (at D = 128
+// the key-tile block holds dk and dv beside these: 254 registers).
+template <int D, int R>
+__device__ __forceinline__ void tc_nt2(float (&acc0)[R / 8][4], float (&acc1)[R / 8][4],
+                                       const float* a0, const float* a1, const float* b0h,
+                                       const float* b0l, const float* b1h, const float* b1l,
+                                       int g, int t) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[n][e] = acc1[n][e] = 0.f;
+#pragma unroll 4
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int ao = g * LD + kk * 8 + t;
+    const float x0[4] = {a0[ao], a0[ao + 8 * LD], a0[ao + 4], a0[ao + 8 * LD + 4]};
+    const float x1[4] = {a1[ao], a1[ao + 8 * LD], a1[ao + 4], a1[ao + 8 * LD + 4]};
+    uint32_t h0[4], l0[4], h1[4], l1[4];
+    mm::split_a(x0, h0, l0);
+    mm::split_a(x1, h1, l1);
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n) {
+      const int off = (n * 8 + g) * LD + kk * 8 + t;
+      const uint32_t bh0[2] = {__float_as_uint(b0h[off]), __float_as_uint(b0h[off + 4])};
+      const uint32_t bl0[2] = {__float_as_uint(b0l[off]), __float_as_uint(b0l[off + 4])};
+      mm::mma3_split(acc0[n], h0, l0, bh0, bl0);
+      const uint32_t bh1[2] = {__float_as_uint(b1h[off]), __float_as_uint(b1h[off + 4])};
+      const uint32_t bl1[2] = {__float_as_uint(b1l[off]), __float_as_uint(b1l[off + 4])};
+      mm::mma3_split(acc1[n], h1, l1, bh1, bl1);
+    }
+  }
+}
+
+// acc (16 x D) += V (16 x R, an accumulator) . B (R x D split, [k][d]):
+// k-step kb is V's n-tile kb, its B rows 8 kb + 2t and 8 kb + 2t + 1.
+template <int D, int R>
+__device__ __forceinline__ void tc_nn(float (&acc)[D / 8][4], const float (&v)[R / 8][4],
+                                      const float* bh, const float* bl, int g, int t) {
+#pragma unroll
+  for (int kb = 0; kb < R / 8; ++kb)
+    mm::mma3_acc_nn<D / 8, D + 4>(acc, v[kb], bh, bl, kb * 8, g, t);
+}
+
+// Whether this batch's fully masked keys may be passed over (see above).
+__device__ __forceinline__ bool may_skip(const Params& p, const bool* kpm_b, int lane) {
+  return kpm_b != nullptr && (p.zero_attn || mm::keys_live(kpm_b, 0, p.Tk, p.Tk, lane));
+}
+
+// A query-tile block: dq of rows q0.. over the key sub-tiles.
+template <int D>
+__device__ __forceinline__ void dq_tc(const Params& p, float* smem, int q0, int h, int b) {
+  constexpr int LD = D + 4, NT = D / 8, R = tc_rows(D), ST = R * LD;
+  float* sQ = smem;
+  float* sG = sQ + BT * LD;
+  float* sHi = sG + BT * LD;  // stage s: K at sub-tile 2 s, V at 2 s + 1
+  float* sLo = sHi + 4 * ST;  // the current sub-tile's K, then V
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  const size_t bh = (size_t)b * p.H + h, n_all = (size_t)p.B * p.H * p.Tq;
+  const float* Q = static_cast<const float*>(p.q) + bh * p.Tq * D;
+  const float* G = static_cast<const float*>(p.g) + bh * p.Tq * D;
+  const float* K = static_cast<const float*>(p.k) + bh * p.Tk * D;
+  const float* V = static_cast<const float*>(p.v) + bh * p.Tk * D;
+  const bool* kpm_b = p.kpm != nullptr ? p.kpm + (size_t)b * p.Tk : nullptr;
+  const bool skip = may_skip(p, kpm_b, lane);
+  const int nst = (p.Tk + R - 1) / R;
+  auto next = [&](int j) {
+    if (skip)
+      while (j < nst && !mm::keys_live(kpm_b, j * R, R, p.Tk, lane)) ++j;
+    return j;
+  };
+  auto issue = [&](int j, int st) {
+    load_rows_f32<D>(sHi + 2 * st * ST, K, j * R, R, p.Tk, tid);
+    load_rows_f32<D>(sHi + (2 * st + 1) * ST, V, j * R, R, p.Tk, tid);
+  };
+  load_rows_f32<D>(sQ, Q, q0, BT, p.Tq, tid);
+  load_rows_f32<D>(sG, G, q0, BT, p.Tq, tid);
+  int j = next(0);
+  if (j < nst) issue(j, 0);
+  mm::cp_async_commit();
+
+  const int r_lo = q0 + warp * 16 + g;  // rows r_lo and r_lo + 8
+  float mx[2], inv[2], dsum[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    const bool ok = row < p.Tq;
+    mx[i] = ok ? p.stats[bh * p.Tq + row] : 0.f;
+    inv[i] = ok ? 1.f / p.stats[n_all + bh * p.Tq + row] : 0.f;
+    dsum[i] = ok ? p.dsum[bh * p.Tq + row] : 0.f;
+  }
+  float dq[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  const float* qw = sQ + warp * 16 * LD;
+  const float* gw = sG + warp * 16 * LD;
+
+  for (int st = 0; j < nst; st ^= 1) {
+    mm::cp_async_wait<0>();
+    __syncthreads();  // sub-tile j has landed; every warp is done with the previous one
+    const int jn = next(j + 1);
+    if (jn < nst) issue(jn, st ^ 1);
+    mm::cp_async_commit();
+    const float* kh = sHi + 2 * st * ST;
+    const float* vh = kh + ST;
+    mm::split_inplace(sHi + 2 * st * ST, sLo, 2 * ST / 4, tid, kMmaThreads);
+    __syncthreads();
+    float s[R / 8][4], dp[R / 8][4];
+    tc_nt2<D, R>(s, dp, qw, gw, kh, sLo, vh, sLo + ST, g, t);
+    const int k0 = j * R;
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float kb = key_bias(p, b, k0 + n * 8 + 2 * t + (e & 1));
+        s[n][e] = prob(s[n][e], p.scale, kb, mx[i], inv[i]) * (dp[n][e] - dsum[i]);
+      }
+    tc_nn<D, R>(dq, s, kh, sLo, g, t);
+    j = jn;
+  }
+  mm::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_lo + 8 * i;
+    if (row >= p.Tq) continue;
+    float* dQ = static_cast<float*>(p.dq) + (bh * p.Tq + row) * D;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(dQ + n * 8 + 2 * t) =
+          make_float2(dq[n][2 * i] * p.scale, dq[n][2 * i + 1] * p.scale);
+  }
+}
+
+// A key-tile block: dk and dv of keys k0.. over the query sub-tiles.
+template <int D>
+__device__ __forceinline__ void dkdv_tc(const Params& p, float* smem, int k0, int h, int b) {
+  constexpr int LD = D + 4, NT = D / 8, R = tc_rows(D), ST = R * LD;
+  float* sK = smem;
+  float* sV = sK + BT * LD;
+  float* sHi = sV + BT * LD;  // stage s: Q at sub-tile 2 s, G at 2 s + 1
+  float* sLo = sHi + 4 * ST;  // the current sub-tile's Q, then G
+  float* sSt = sLo + 2 * ST;  // stage s: max, 1 / den, dsum (3 x R)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  const size_t bh = (size_t)b * p.H + h, n_all = (size_t)p.B * p.H * p.Tq;
+  const bool* kpm_b = p.kpm != nullptr ? p.kpm + (size_t)b * p.Tk : nullptr;
+  const int kr_lo = k0 + warp * 16 + g;  // keys kr_lo and kr_lo + 8
+  if (may_skip(p, kpm_b, lane) && !mm::keys_live(kpm_b, k0, BT, p.Tk, lane)) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kr_lo + 8 * i;
+      if (key >= p.Tk) continue;
+      float* dK = static_cast<float*>(p.dk) + (bh * p.Tk + key) * D;
+      float* dV = static_cast<float*>(p.dv) + (bh * p.Tk + key) * D;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<float2*>(dK + n * 8 + 2 * t) = make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(dV + n * 8 + 2 * t) = make_float2(0.f, 0.f);
+      }
+    }
+    return;
+  }
+  const float* Q = static_cast<const float*>(p.q) + bh * p.Tq * D;
+  const float* G = static_cast<const float*>(p.g) + bh * p.Tq * D;
+  const float* K = static_cast<const float*>(p.k) + bh * p.Tk * D;
+  const float* V = static_cast<const float*>(p.v) + bh * p.Tk * D;
+  auto issue = [&](int j, int st) {
+    load_rows_f32<D>(sHi + 2 * st * ST, Q, j * R, R, p.Tq, tid);
+    load_rows_f32<D>(sHi + (2 * st + 1) * ST, G, j * R, R, p.Tq, tid);
+    float* sst = sSt + 3 * R * st;  // plain stores: read after the next barrier but one
+    for (int i = tid; i < R; i += kMmaThreads) {
+      const int q = j * R + i;
+      const bool ok = q < p.Tq;
+      sst[i] = ok ? p.stats[bh * p.Tq + q] : INFINITY;  // p = 0 past Tq
+      sst[R + i] = ok ? 1.f / p.stats[n_all + bh * p.Tq + q] : 0.f;
+      sst[2 * R + i] = ok ? p.dsum[bh * p.Tq + q] : 0.f;
+    }
+  };
+  load_rows_f32<D>(sK, K, k0, BT, p.Tk, tid);
+  load_rows_f32<D>(sV, V, k0, BT, p.Tk, tid);
+  issue(0, 0);
+  mm::cp_async_commit();
+
+  const float kb[2] = {key_bias(p, b, kr_lo), key_bias(p, b, kr_lo + 8)};
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float* kw = sK + warp * 16 * LD;
+  const float* vw = sV + warp * 16 * LD;
+
+  const int nst = (p.Tq + R - 1) / R;
+  for (int j = 0, st = 0; j < nst; ++j, st ^= 1) {
+    mm::cp_async_wait<0>();
+    __syncthreads();  // sub-tile j has landed; every warp is done with the previous one
+    if (j + 1 < nst) issue(j + 1, st ^ 1);
+    mm::cp_async_commit();
+    const float* qh = sHi + 2 * st * ST;
+    const float* gh = qh + ST;
+    const float* sst = sSt + 3 * R * st;
+    mm::split_inplace(sHi + 2 * st * ST, sLo, 2 * ST / 4, tid, kMmaThreads);
+    __syncthreads();
+    // S^T and dP^T: this warp's 16 keys x the sub-tile's R queries.
+    float s[R / 8][4], dp[R / 8][4];
+    tc_nt2<D, R>(s, dp, kw, vw, qh, sLo, gh, sLo + ST, g, t);
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, qi = n * 8 + 2 * t + (e & 1);
+        const float pv = prob(s[n][e], p.scale, kb[i], sst[qi], sst[R + qi]);
+        dp[n][e] = pv * (dp[n][e] - sst[2 * R + qi]);
+        s[n][e] = pv;
+      }
+    tc_nn<D, R>(dv, s, gh, sLo + ST, g, t);
+    tc_nn<D, R>(dk, dp, qh, sLo, g, t);
+  }
+  mm::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr_lo + 8 * i;
+    if (key >= p.Tk) continue;
+    float* dK = static_cast<float*>(p.dk) + (bh * p.Tk + key) * D;
+    float* dV = static_cast<float*>(p.dv) + (bh * p.Tk + key) * D;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dK + c) =
+          make_float2(dk[n][2 * i] * p.scale, dk[n][2 * i + 1] * p.scale);
+      *reinterpret_cast<float2*>(dV + c) = make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) attn_bwd_f32_tc_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int nqt = (p.Tq + BT - 1) / BT;
+  if (blockIdx.x < nqt)
+    dq_tc<D>(p, smem, blockIdx.x * BT, blockIdx.y, blockIdx.z);
+  else
+    dkdv_tc<D>(p, smem, (blockIdx.x - nqt) * BT, blockIdx.y, blockIdx.z);
+}
+
+// ---------------------------------------------------------------------------
 
 // The dsum kernel, then the main kernel: blocks of query tiles and of key
 // tiles side by side along x.
 template <typename T, int D>
-int launch(const Params& p, cudaStream_t s) {
+int launch(const Params& p, int route, cudaStream_t s) {
   constexpr bool f32 = std::is_same<T, float>::value;
   const size_t rows = (size_t)p.B * p.H * p.Tq;
   attn_bwd_dsum_kernel<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.Tq + BT - 1) / BT + (p.Tk + BT - 1) / BT, p.H, p.B);
-  if (f32)
+  if (f32 && route == 1)
+    attn_bwd_f32_tc_kernel<D><<<grid, kMmaThreads, tc_smem(D), s>>>(p);
+  else if (f32)
     attn_bwd_f32_kernel<D><<<grid, kMmaThreads, f32_smem(D), s>>>(p);
   else
     attn_bwd_mma_kernel<D><<<grid, kMmaThreads, mma_smem(D), s>>>(p);
@@ -692,8 +957,9 @@ int launch(const Params& p, cudaStream_t s) {
 template <int D>
 cudaError_t set_smem() {
   const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  const cudaError_t e = cudaFuncSetAttribute(attn_bwd_mma_kernel<D>, a, mma_smem(D));
-  return e != cudaSuccess ? e : cudaFuncSetAttribute(attn_bwd_f32_kernel<D>, a, f32_smem(D));
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_mma_kernel<D>, a, mma_smem(D));
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(attn_bwd_f32_kernel<D>, a, f32_smem(D));
+  return e != cudaSuccess ? e : cudaFuncSetAttribute(attn_bwd_f32_tc_kernel<D>, a, tc_smem(D));
 }
 
 }  // namespace
@@ -702,11 +968,15 @@ cudaError_t set_smem() {
 // bf16, or f32 when in_f32; o is the forward's output.  stats: (2, B, H, Tq)
 // f32, the forward's row max and denominator (mm_attention's stats).  dsum:
 // (B, H, Tq) f32 scratch.  kpm (B, Tk) bool, true = masked, or null.  D in {64, 96, 128}.
-// Two launches on the stream, in order.
+// zero_attn: whether the forward had the zero key (only the f32 tiled
+// route reads it, to skip fully masked keys).  route (f32 only, the host's
+// plan): 0 the kernel of 64-row tiles streamed one at a time, 1 the tiled
+// one with split sub-tiles.  Two launches on the stream, in order.
 extern "C" int mm_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                 const void* o, void* dq, void* dk, void* dv, const void* stats,
                                 void* dsum, const void* kpm, int B, int H, int Tq, int Tk,
-                                int D, float scale, int in_f32, void* stream) {
+                                int D, float scale, int in_f32, int zero_attn, int route,
+                                void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -724,11 +994,13 @@ extern "C" int mm_attention_bwd(const void* q, const void* k, const void* v, con
   p.Tq = Tq;
   p.Tk = Tk;
   p.scale = scale;
+  p.zero_attn = zero_attn;
+  if (route != 0 && (route != 1 || !in_f32)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return in_f32 ? launch<float, 64>(p, s) : launch<bf16, 64>(p, s);
-    case 96: return in_f32 ? launch<float, 96>(p, s) : launch<bf16, 96>(p, s);
-    case 128: return in_f32 ? launch<float, 128>(p, s) : launch<bf16, 128>(p, s);
+    case 64: return in_f32 ? launch<float, 64>(p, route, s) : launch<bf16, 64>(p, route, s);
+    case 96: return in_f32 ? launch<float, 96>(p, route, s) : launch<bf16, 96>(p, route, s);
+    case 128: return in_f32 ? launch<float, 128>(p, route, s) : launch<bf16, 128>(p, route, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

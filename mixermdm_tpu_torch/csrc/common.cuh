@@ -106,6 +106,17 @@ __device__ __forceinline__ uint32_t q8(float v, float s) {
   return static_cast<uint32_t>(static_cast<int>(r)) & 0xffu;
 }
 
+// Whether any key of [k0, k0 + n) below Tk is unmasked (kpm_b: one batch's
+// mask bytes, true = masked); the same answer in every lane of the warp.
+__device__ __forceinline__ bool keys_live(const bool* kpm_b, int k0, int n, int Tk, int lane) {
+  bool live = false;
+  for (int i = lane; i < n; i += 32) {
+    const int k = k0 + i;
+    live |= k < Tk && !kpm_b[k];
+  }
+  return __any_sync(0xffffffffu, live);
+}
+
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace mm

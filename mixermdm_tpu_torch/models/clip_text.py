@@ -80,6 +80,7 @@ class ClipResBlock(nn.Module):
         super().__init__()
         self.ln_1 = LayerNormAffine(width)
         self.attn = TorchMultiheadAttention(width, heads, add_zero_attn=False)
+        self.attn.f32_route = "rows"  # the conds keep their arithmetic (layers.py)
         self.ln_2 = LayerNormAffine(width)
         self.mlp = ClipMLP(width)
 

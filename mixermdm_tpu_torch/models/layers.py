@@ -210,7 +210,19 @@ class AdaLN(nn.Module):
 class TorchMultiheadAttention(nn.Module):
     """``nn.MultiheadAttention`` (batch first) with its parameter layout;
     ``forward`` is self-attention, the form the text towers use.
-    ``dropout`` drops attention probabilities in training mode."""
+    ``dropout`` drops attention probabilities in training mode.
+    ``f32_route`` pins the f32 attention kernels' route
+    (:data:`..ops.attention.F32_ROUTES`; None: the plan picks by shape).
+    The text encoders of the generators (the CLIP tower, the post-encoder
+    heads) pin ``"rows"``: their outputs condition the sampling, training
+    and base-model paths, which keep the arithmetic they had at every batch
+    (the plan would take the tiled route for the heads from 8 prompts on,
+    the protocol's 96 among them); at random weights a W8A8 step turns
+    last-bit changes of its conds into gaps the size of its own rounding
+    (``chip_smoke.py`` phase 5d (c), ``STEP_TOL``).  The InterCLIP towers
+    take the plan's route."""
+
+    f32_route: Optional[str] = None
 
     def __init__(self, embed_dim: int, num_heads: int, add_zero_attn: bool = True,
                  dropout: float = 0.0):
@@ -250,12 +262,13 @@ class TorchMultiheadAttention(nn.Module):
             out = fused_attention_plain(q, k, v, key_padding_mask, attn_mask, self.add_zero_attn,
                                         dropout_p=self.dropout)
         elif not grad:
-            out = fused_attention(q, k, v, key_padding_mask, attn_mask, self.add_zero_attn)
+            out = fused_attention(q, k, v, key_padding_mask, attn_mask, self.add_zero_attn,
+                                  route=self.f32_route)
         elif _train_attention == "plain":
             out = fused_attention_plain(q, k, v, key_padding_mask, attn_mask, self.add_zero_attn)
         else:
             out = differentiable_attention(q, k, v, key_padding_mask, attn_mask,
-                                           self.add_zero_attn)
+                                           self.add_zero_attn, route=self.f32_route)
         return self.out_proj(out.transpose(1, 2).reshape(B, T, E), residual=residual)
 
 

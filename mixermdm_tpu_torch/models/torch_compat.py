@@ -74,6 +74,8 @@ class ClipPostEncoder(nn.Module):
         # does (systems/mixermdm.py: encode_cond), so it never drops there.
         self.encoder = TorchEncoder(d_model, nhead, dim_feedforward, num_layers, dropout)
         self.ln = LayerNormAffine(d_model)
+        for layer in self.encoder.layers:  # the conds keep their arithmetic (layers.py)
+            layer.self_attn.f32_route = "rows"
 
     def forward(self, clip_tokens: torch.Tensor) -> torch.Tensor:
         return self.ln(self.encoder(clip_tokens))

@@ -33,7 +33,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(PACKAGE_DIR, "_build")
 SOURCES = ("adaln.cu", "linear.cu", "attention.cu", "attention_bwd.cu", "quant.cu", "linear_q8.cu",
            "sa_block.cu", "sa_block_i8x.cu")
-HEADERS = ("common.cuh", "gemm_sm90.cuh", "wgmma.cuh", "sa_common.cuh")
+HEADERS = ("common.cuh", "gemm_sm90.cuh", "wgmma.cuh", "sa_common.cuh", "tf32.cuh")
 LIB_NAME = "libmixermdm_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -174,13 +174,14 @@ ARGTYPES = {
                          _i32, _i32, _i32, _i32, _vp],
     "mm_linear_init": [],
     "mm_attention": [_vp, _vp, _vp, _vp, ctypes.POINTER(_i64), _vp, _vp, _vp,
-                     _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _i32, _i32, _vp],
+                     _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _i32, _i32, _i32,
+                     _vp],
     "mm_attention_init": [],
     "mm_attention_q8": [_vp, _vp, _vp, _vp, ctypes.POINTER(_i64), _vp, _vp,
                         _i32, _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _i32, _vp],
     "mm_attention_q8_clusters": [_i32, _i32, _i32, _i32],
     "mm_attention_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                         _i32, _i32, _i32, _i32, _i32, _f32, _i32, _vp],
+                         _i32, _i32, _i32, _i32, _i32, _f32, _i32, _i32, _i32, _vp],
     "mm_attention_bwd_init": [],
     "mm_quant_rows": [_vp, _i32, _vp, _vp, _i32, _i32, _vp],
     "mm_linear_q8": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp, _i64, _vp, _i64,

@@ -20,8 +20,11 @@ larger of the Q/K/V/O bytes over 3.35 TB/s and the 4·B·H·Tq·Tk·D
 tensor-core operations over 989 TFLOP/s.  A second instantiation writes f32,
 for the W8A8 self-attention block, which quantises the attention output from
 f32 (``mixermdm_tpu/ops/fused_block.py:140-146``).  f32 inputs (the CLIP
-post-encoders) take a third, f32 FMA on the CUDA cores and no TF32, counted
-as ``attention_f32``.  Given a ``stats`` buffer, either kernel also writes
+post-encoders, the InterCLIP towers) take one of two f32 kernels, counted as
+``attention_f32``: a warp per query row with f32 FMA on the CUDA cores, or
+64 query rows a block with every product on the tensor cores in three TF32
+passes, as :func:`attention_f32_plan` picks for the shape.  Given a
+``stats`` buffer, any of them also writes
 each row's softmax max and denominator (zero key included) for the
 backward.  ``attention_q8`` (:func:`attention_q8_into`) is the bf16 kernel
 with a quantising epilogue for the W8A8 blocks: the H heads of a query tile
@@ -103,6 +106,120 @@ def attention_plan(B: int, H: int, Tq: int, Tk: int, D: int,
     _, nwg, tiles = best
     stages = max(1, min(MAX_STAGES, -(-Tk // ATTN_ROWS)))
     return AttentionPlan(nwg, stages, (tiles, H, B), attention_smem_bytes(dp, nwg, stages))
+
+
+# The f32 kernels' two routes (csrc/attention.cu, csrc/attention_bwd.cu).
+# "rows": the forward's warp-per-row kernel (8 query rows a block, K and V
+# through 128-key chunks, CUDA-core FMA) and the backward's kernel of 64-row
+# tiles streamed one at a time.  "tiled": 64 query rows a block of 4 warps,
+# the streamed side in split sub-tiles (16 keys in the forward; 16 rows up
+# to D = 96, 8 at D = 128 in the backward) through a two-stage cp.async
+# ring, every product on the tensor cores in three TF32 passes.
+F32_ROUTES = ("rows", "tiled")
+F32_ROWS_PER_BLOCK = 8          # the warp-per-row forward: one warp a row
+F32_ROWS_CHUNK = 128            # its keys per chunk
+F32_TC_ROWS = 64                # the tiled routes' query (and key) tiles
+F32_TC_KEYS = 16                # the tiled forward's keys per streamed tile
+F32_TC_STAGES = 2
+# The tiled routes take a call whose B x H x ceil(Tq / 64) query tiles are
+# at least this many: the measured crossover on an H100 (chip_smoke.py
+# phase 3, f32_route_checks).  The tiled forward is slower than the
+# warp-per-row kernel at the heads' (2, 8, 77, 96) (32 tiles) and the CLIP
+# tower's (2, 12, 77, 64) (48), and faster at (8, 8, 77, 96) (128) and
+# every larger shape timed; the backward pair alike at (8, 8, 77, 96).
+# The plan picks for speed only: the generators' text encoders, whose
+# arithmetic the sampling, training and base-model paths keep bit for bit,
+# pin the warp-per-row kernels at every batch
+# (models/layers.py: TorchMultiheadAttention.f32_route).
+F32_TILED_MIN_TILES = 128
+SM_SMEM_BYTES = 233472          # shared memory of an H100 SM
+SMEM_PER_BLOCK_RESERVED = 1024  # what the hardware keeps of it for each block
+
+
+def attention_f32_rows_smem(D: int, Tk: int) -> int:
+    """Dynamic shared memory of the warp-per-row forward (``f32_smem_bytes``
+    in csrc/attention.cu): a chunk of K and V, the block's 8 query rows
+    (rows of D + 4 floats) and their probabilities."""
+    kc = min(Tk, F32_ROWS_CHUNK)
+    return ((2 * kc + F32_ROWS_PER_BLOCK) * (D + 4) + F32_ROWS_PER_BLOCK * kc) * 4
+
+
+def attention_f32_tc_smem(D: int) -> int:
+    """Dynamic shared memory of the tiled forward (``f32_tc_smem_bytes`` in
+    csrc/attention.cu): Q, the two stages of K and V (their TF32 hi parts
+    once split), the current tile's lo parts, its key bias."""
+    return ((F32_TC_ROWS + (2 * F32_TC_STAGES + 2) * F32_TC_KEYS) * (D + 4) + F32_TC_KEYS) * 4
+
+
+def attention_bwd_tc_rows(D: int) -> int:
+    """Streamed rows per sub-tile of the tiled backward (``tc_rows``)."""
+    return 16 if D <= 96 else 8
+
+
+def attention_bwd_tc_smem(D: int) -> int:
+    """Dynamic shared memory of the tiled backward (``tc_smem`` in
+    csrc/attention_bwd.cu): two resident 64-row tiles, the two-stage ring of
+    the streamed pair, the current sub-tile's lo parts, each stage's query
+    statistics."""
+    r = attention_bwd_tc_rows(D)
+    return ((2 * F32_TC_ROWS + 6 * r) * (D + 4) + 6 * r) * 4
+
+
+def attention_bwd_rows_smem(D: int) -> int:
+    """Dynamic shared memory of the backward's other f32 kernel (``f32_smem``):
+    four 64-row tiles and one tile's query statistics."""
+    return (4 * F32_TC_ROWS * (D + 4) + 3 * F32_TC_ROWS) * 4
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes of dynamic shared memory an H100 SM holds."""
+    return SM_SMEM_BYTES // (smem + SMEM_PER_BLOCK_RESERVED)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    route: str          # one of F32_ROUTES
+    grid: tuple         # (x blocks, H, B)
+    threads: int        # per block
+    smem: int           # dynamic shared memory per block, bytes
+    warps_per_sm: int   # resident warps an SM's shared memory allows
+
+
+def f32_route(B: int, H: int, Tq: int) -> str:
+    """The f32 route of a call (forward and backward alike): "tiled" from
+    :data:`F32_TILED_MIN_TILES` query tiles of 64 rows on, else "rows"."""
+    return "tiled" if B * H * -(-Tq // F32_TC_ROWS) >= F32_TILED_MIN_TILES else "rows"
+
+
+@functools.lru_cache(maxsize=None)
+def attention_f32_plan(B: int, H: int, Tq: int, Tk: int, D: int,
+                       route: Optional[str] = None) -> F32Plan:
+    """The launch of the f32 forward (``attention_f32``), cached: the route
+    (:func:`f32_route` unless forced) and its grid, block and shared
+    memory."""
+    route = route or f32_route(B, H, Tq)
+    if route == "tiled":
+        smem = attention_f32_tc_smem(D)
+        return F32Plan(route, (-(-Tq // F32_TC_ROWS), H, B), 128, smem,
+                       4 * blocks_per_sm(smem))
+    if route != "rows":
+        raise ValueError(f"attention_f32: route {route!r} not in {F32_ROUTES}")
+    smem = attention_f32_rows_smem(D, Tk)
+    return F32Plan(route, (-(-Tq // F32_ROWS_PER_BLOCK), H, B), 32 * F32_ROWS_PER_BLOCK, smem,
+                   F32_ROWS_PER_BLOCK * blocks_per_sm(smem))
+
+
+@functools.lru_cache(maxsize=None)
+def attention_bwd_f32_plan(B: int, H: int, Tq: int, Tk: int, D: int,
+                           route: Optional[str] = None) -> F32Plan:
+    """The launch of the f32 backward's main kernel, cached: query-tile and
+    key-tile blocks of 4 warps side by side along x."""
+    route = route or f32_route(B, H, Tq)
+    if route not in F32_ROUTES:
+        raise ValueError(f"attention_bwd: route {route!r} not in {F32_ROUTES}")
+    smem = attention_bwd_tc_smem(D) if route == "tiled" else attention_bwd_rows_smem(D)
+    grid = (-(-Tq // F32_TC_ROWS) + -(-Tk // F32_TC_ROWS), H, B)
+    return F32Plan(route, grid, 128, smem, 4 * blocks_per_sm(smem))
 
 
 def key_bias(key_padding_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -202,7 +319,8 @@ def view_ok(t: torch.Tensor) -> bool:
 
 
 def attention_into(q, k, v, out, key_padding_mask=None, attn_mask=None,
-                   zero_attn: bool = True, stats=None) -> torch.Tensor:
+                   zero_attn: bool = True, stats=None, route: Optional[str] = None
+                   ) -> torch.Tensor:
     """Launch the ``attention`` kernel on (B, H, T, D) views.
 
     The views may be strided (the fused blocks pass slices of the packed QKV
@@ -211,8 +329,9 @@ def attention_into(q, k, v, out, key_padding_mask=None, attn_mask=None,
     copies describe).  q, k and v are all bf16 (then ``out`` is bf16 or f32)
     or all f32 (then ``out`` is f32).  Given ``stats``, a contiguous
     (2, B, H, Tq) f32 tensor, the kernel also writes each row's softmax max
-    and denominator into it (see :func:`attention_stats_plain`).  Writes
-    ``out`` and returns it.
+    and denominator into it (see :func:`attention_stats_plain`).  f32
+    inputs take the route of :func:`attention_f32_plan`; ``route`` forces
+    one (for timing the two side by side).  Writes ``out`` and returns it.
     """
     _lib.require_cuda("attention", (torch.bfloat16, torch.float32), q, k, v, out)
     in_f32 = q.dtype == torch.float32
@@ -249,7 +368,12 @@ def attention_into(q, k, v, out, key_padding_mask=None, attn_mask=None,
             stats[0].zero_()
             stats[1].fill_(1.0)
         return out.zero_()
-    plan = None if in_f32 else attention_plan(B, H, Tq, Tk, D, sm_count(q))
+    tiled, nwg, stages = 0, 0, 0
+    if in_f32:
+        tiled = int(attention_f32_plan(B, H, Tq, Tk, D, route).route == "tiled")
+    else:
+        plan = attention_plan(B, H, Tq, Tk, D, sm_count(q))
+        nwg, stages = plan.nwg, plan.stages
     c_strides = (ctypes.c_int64 * 12)(*strides)
     rc = _lib.library().mm_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), c_strides,
@@ -257,18 +381,19 @@ def attention_into(q, k, v, out, key_padding_mask=None, attn_mask=None,
         None if amask is None else amask.data_ptr(),
         None if stats is None else stats.data_ptr(),
         B, H, Tq, Tk, D, int(bool(zero_attn)), 1.0 / math.sqrt(D), int(in_f32),
-        int(out.dtype == torch.float32), 0 if plan is None else plan.nwg,
-        0 if plan is None else plan.stages, _lib.stream_handle(q))
+        int(out.dtype == torch.float32), tiled, nwg, stages, _lib.stream_handle(q))
     _lib.check_launch("attention_f32" if in_f32 else "attention", rc, shape=(B, H, Tq, Tk, D))
     return out
 
 
 def fused_attention(q, k, v, key_padding_mask=None, attn_mask=None,
-                    zero_attn: bool = True, return_stats: bool = False):
+                    zero_attn: bool = True, return_stats: bool = False,
+                    route: Optional[str] = None):
     """q (B, H, Tq, D), k/v (B, H, Tk, D), key_padding_mask (B, Tk) bool with
     True = masked, attn_mask (Tq, Tk) additive -> (B, H, Tq, D); with
     ``return_stats`` also the (2, B, H, Tq) f32 row statistics that
-    :func:`attention_bwd` reads (:func:`attention_stats_plain`).
+    :func:`attention_bwd` reads (:func:`attention_stats_plain`).  ``route``
+    pins f32 inputs to one of :data:`F32_ROUTES` (else the plan's).
 
     A CPU tensor (any tensor inside ``ops.plain_versions()``) takes
     :func:`fused_attention_plain`; a CUDA tensor launches
@@ -283,7 +408,7 @@ def fused_attention(q, k, v, key_padding_mask=None, attn_mask=None,
     stats = (torch.empty((2, B, H, Tq), dtype=torch.float32, device=q.device)
              if return_stats else None)
     out = attention_into(q, k, v, torch.empty_like(q, memory_format=torch.contiguous_format),
-                         key_padding_mask, attn_mask, zero_attn, stats)
+                         key_padding_mask, attn_mask, zero_attn, stats, route)
     _lib.launches["fused_attention"] += 1
     return (out, stats) if return_stats else out
 
@@ -475,13 +600,17 @@ def attention_bwd_plain(q, k, v, key_padding_mask, g, zero_attn: bool = True, st
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def attention_bwd(q, k, v, key_padding_mask, g, zero_attn: bool = True, stats=None, out=None):
+def attention_bwd(q, k, v, key_padding_mask, g, zero_attn: bool = True, stats=None, out=None,
+                  route: Optional[str] = None):
     """(dq, dk, dv) of :func:`fused_attention` (no ``attn_mask``) for the
     output gradient ``g``: q, g (B, H, Tq, D), k, v (B, H, Tk, D), all bf16
     or all f32; key_padding_mask (B, Tk) bool with True = masked.  The
     kernels need two things from the forward
     (``fused_attention(..., return_stats=True)``): ``stats``, the
     (2, B, H, Tq) row statistics, and ``out``, its output (for dsum).
+
+    f32 inputs take the route of :func:`attention_bwd_f32_plan`; ``route``
+    forces one (for timing the two side by side).
 
     A CPU tensor (any tensor inside ``ops.plain_versions()``) takes
     :func:`attention_bwd_plain`; a CUDA tensor launches the kernels or
@@ -514,11 +643,13 @@ def attention_bwd(q, k, v, key_padding_mask, g, zero_attn: bool = True, stats=No
         return dq.zero_(), dk.zero_(), dv.zero_()
     kpm = _mask_bytes("attention_bwd", key_padding_mask, B, Tk, q.device)
     dsum = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    in_f32 = q.dtype == torch.float32
+    tiled = in_f32 and attention_bwd_f32_plan(B, H, Tq, Tk, D, route).route == "tiled"
     rc = _lib.library().mm_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), dsum.data_ptr(),
         None if kpm is None else kpm.data_ptr(), B, H, Tq, Tk, D, 1.0 / math.sqrt(D),
-        int(q.dtype == torch.float32), _lib.stream_handle(q))
+        int(in_f32), int(bool(zero_attn)), int(tiled), _lib.stream_handle(q))
     _lib.check_launch("attention_bwd", rc, shape=(B, H, Tq, Tk, D))
     return dq, dk, dv
 
@@ -535,26 +666,29 @@ class FusedAttention(torch.autograd.Function):
     :func:`attention_bwd_plain` backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_padding_mask, zero_attn):
+    def forward(ctx, q, k, v, key_padding_mask, zero_attn, route=None):
         out, stats = fused_attention(q, k, v, key_padding_mask, None, zero_attn,
-                                     return_stats=True)
+                                     return_stats=True, route=route)
         ctx.save_for_backward(q, k, v, key_padding_mask, stats, out)
-        ctx.zero_attn = zero_attn
+        ctx.zero_attn, ctx.route = zero_attn, route
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, kpm, stats, out = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, kpm, g.to(q.dtype), ctx.zero_attn, stats, out)
-        return dq, dk, dv, None, None
+        dq, dk, dv = attention_bwd(q, k, v, kpm, g.to(q.dtype), ctx.zero_attn, stats, out,
+                                   ctx.route)
+        return dq, dk, dv, None, None, None
 
 
 def differentiable_attention(q, k, v, key_padding_mask=None, attn_mask=None,
-                             zero_attn: bool = True) -> torch.Tensor:
-    """Attention that autograd can differentiate: :class:`FusedAttention`;
-    with an additive ``attn_mask``, where the JAX package's backward kernel
-    raises and its VJP recomputes through XLA (``_fa_am_bwd``,
-    ``_fa_both_bwd``), autograd through :func:`fused_attention_plain`."""
+                             zero_attn: bool = True, route: Optional[str] = None
+                             ) -> torch.Tensor:
+    """Attention that autograd can differentiate: :class:`FusedAttention`
+    (``route`` as :func:`fused_attention` takes it); with an additive
+    ``attn_mask``, where the JAX package's backward kernel raises and its
+    VJP recomputes through XLA (``_fa_am_bwd``, ``_fa_both_bwd``), autograd
+    through :func:`fused_attention_plain`."""
     if attn_mask is not None:
         return fused_attention_plain(q, k, v, key_padding_mask, attn_mask, zero_attn)
-    return FusedAttention.apply(q, k, v, key_padding_mask, zero_attn)
+    return FusedAttention.apply(q, k, v, key_padding_mask, zero_attn, route)
