@@ -249,20 +249,26 @@ __device__ void attention_phase(const Params& p, char* smem) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) sa_block_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) char smem[];
+  stamp(p, 0);
   ln_phase(p);
   grid_sync(g_bar);
+  stamp(p, 1);
   qkv_phase(p, smem, [&](int row, int col, float v0, float v1) {
     *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.qkv) + (size_t)row * 3 * p.E + col) =
         mm::pack_bf16x2(v0, v1);
   });
   grid_sync(g_bar);
+  stamp(p, 2);
   if (!(p.flags & kSkipAttn)) attention_phase<D>(p, smem);
   grid_sync(g_bar);
+  stamp(p, 3);
   if (p.flags & kQuant) {
     quant_attn_phase(p);
     grid_sync(g_bar);
+    stamp(p, 4);
   }
   out_phase(p, smem);
+  stamp_end(p);
 }
 
 template <int D>
@@ -289,7 +295,8 @@ extern "C" int mm_sa_block(const void* x, const void* scale, long long lds, cons
                            const void* s_qkv, const void* w_o, const void* b_o, const void* s_o,
                            const void* kpm, void* out, void* xn, void* xs, void* qkv, void* attn,
                            void* a8, void* as, int B, int T, int Tp, int E, int H, int rows,
-                           int flags, float attn_scale, float eps, int grid, void* stream) {
+                           int flags, float attn_scale, float eps, void* stamps, int grid,
+                           void* stream) {
   if (!shape_ok(B, T, Tp, E, H, grid) || rows < 1 || B % rows)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
@@ -312,6 +319,7 @@ extern "C" int mm_sa_block(const void* x, const void* scale, long long lds, cons
   p.attn = attn;
   p.a8 = static_cast<int8_t*>(a8);
   p.as = static_cast<float*>(as);
+  p.stamps = static_cast<unsigned long long*>(stamps);
   p.B = B;
   p.T = T;
   p.Tp = Tp;

@@ -318,10 +318,12 @@ __device__ void i8x_attention_phase(const Params& p, char* smem) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) sa_block_i8x_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) char smem[];
+  stamp(p, 0);
   if (blockIdx.x == 0)
     for (int i = threadIdx.x; i < 3 * p.B; i += kThreads) p.amax[i] = 0.f;
   ln_phase(p);
   grid_sync(g_bar);
+  stamp(p, 1);
 
   // The f32 projection, and each sequence's max |q|, |k|, |v|: a thread's
   // row max over its 8 columns, the quad's over the warp's 32 columns of one
@@ -356,6 +358,7 @@ __global__ void __launch_bounds__(kThreads, 1) sa_block_i8x_kernel(const __grid_
         rmax = 0.f;
       });
   grid_sync(g_bar);
+  stamp(p, 2);
 
   switch ((p.flags & kQqk ? 1 : 0) + (p.flags & kQpv ? 2 : 0)) {
     case 0: i8x_attention_phase<D, false, false>(p, smem); break;
@@ -364,9 +367,12 @@ __global__ void __launch_bounds__(kThreads, 1) sa_block_i8x_kernel(const __grid_
     default: i8x_attention_phase<D, true, true>(p, smem);
   }
   grid_sync(g_bar);
+  stamp(p, 3);
   quant_attn_phase(p);
   grid_sync(g_bar);
+  stamp(p, 4);
   out_phase(p, smem);
+  stamp_end(p);
 }
 
 template <int D>
@@ -390,7 +396,7 @@ extern "C" int mm_sa_block_i8x(const void* x, const void* scale, long long lds,
                                void* xn, void* xs, void* qkv, void* attn, void* a8, void* as,
                                void* amax, int B, int T, int Tp, int E, int H, int flags,
                                float attn_scale, float eps, float inv_static, float static_as,
-                               int grid, void* stream) {
+                               void* stamps, int grid, void* stream) {
   if (!shape_ok(B, T, Tp, E, H, grid) || !(flags & kQuant))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
@@ -414,6 +420,7 @@ extern "C" int mm_sa_block_i8x(const void* x, const void* scale, long long lds,
   p.a8 = static_cast<int8_t*>(a8);
   p.as = static_cast<float*>(as);
   p.amax = static_cast<float*>(amax);
+  p.stamps = static_cast<unsigned long long*>(stamps);
   p.B = B;
   p.T = T;
   p.Tp = Tp;

@@ -116,6 +116,7 @@ struct Params {
   int8_t* a8;         // (M, E) the attention output quantised (kQuant)
   float* as;          // (M,) its scales
   float* amax;        // (3, B) sa_block_i8x: max |q|, |k|, |v| per sequence
+  unsigned long long* stamps;  // (kStamps,) phase times of a reading, or null
   int B, T, Tp, E, H, rows, flags;
   float attn_scale, eps, inv_static, static_as;
 };
@@ -149,6 +150,29 @@ __device__ __forceinline__ float ex2(float x) {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Phase stamps (a reading, never a timed run: the wrapper passes a buffer
+// only inside ops.sa_variants.phase_stamps()): %globaltimer in ns, slot 0
+// when block 0 starts, slot i after the i-th grid barrier (block 0, thread
+// 0), the last slot the latest block's end (atomicMax).
+constexpr int kStamps = 8;
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void stamp(const Params& p, int i) {
+  if (p.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) p.stamps[i] = now_ns();
+}
+
+// Every thread of the block, after its last phase.
+__device__ __forceinline__ void stamp_end(const Params& p) {
+  if (p.stamps == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0) atomicMax(p.stamps + kStamps - 1, now_ns());
 }
 
 // The grid-wide barrier (see the top of this file): bar[0] counts

@@ -54,6 +54,7 @@ bf16 where the JAX kernels round twice; the CPU tests compare in f32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -434,6 +435,45 @@ def _check_args(name, x, scale, shift, w: SAWeights, key_padding_mask, n_heads, 
     return x, mods[0], mods[1], kpm
 
 
+STAMPS = 8  # csrc/sa_common.cuh kStamps
+_stamp_log: Optional[list] = None
+
+
+def phase_names(flags: int, i8x: bool) -> tuple:
+    """The phases of one launch in order, one per grid barrier and the last
+    (``csrc/sa_block*.cu``): LayerNorm, the QKV product, attention, the
+    per-row quantisation of the attention output (int8 forms), the
+    out-projection."""
+    return ("ln", "qkv", "attention") + (("quant_attn",) if i8x or flags & F_QUANT else ()) \
+        + ("out",)
+
+
+@contextlib.contextmanager
+def phase_stamps():
+    """A reading of the phases' device time: inside the block each launch
+    of ``sa_block`` / ``sa_block_i8x`` passes a buffer that its block 0
+    stamps with ``%globaltimer`` at the start and after each grid barrier
+    (the last slot: the latest block's end), and the yielded list gets one
+    ``(phase names, buffer)`` per launch; :func:`phase_ns` reads one.
+    Outside the block the kernels get a null pointer, so timed runs carry
+    no stamp."""
+    global _stamp_log
+    prev, _stamp_log = _stamp_log, []
+    try:
+        yield _stamp_log
+    finally:
+        _stamp_log = prev
+
+
+def phase_ns(entry) -> dict:
+    """One ``(names, buffer)`` of :func:`phase_stamps` -> ns per phase
+    (after a synchronisation)."""
+    names, buf = entry
+    t = [int(v) for v in buf.tolist()]
+    ends = t[1:len(names)] + [t[STAMPS - 1]]
+    return {n: e - s for n, s, e in zip(names, t[:len(names)], ends)}
+
+
 def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, eps,
             i8x=False, inv_static=0.0, static_as=0.0, intermediates=None):
     B, T, E = x.shape
@@ -462,13 +502,17 @@ def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, e
               ptr(kpm), ptr(out), *scratch[:6])
     lib = _lib.library()
     scale_ = 1.0 / math.sqrt(D)
+    stamps = None
+    if _stamp_log is not None:
+        stamps = torch.zeros((STAMPS,), dtype=torch.int64, device=x.device)
+        _stamp_log.append((phase_names(flags, i8x), stamps))
     if i8x:
         rc = lib.mm_sa_block_i8x(*common, scratch[6], B, T, Tp, E, n_heads, flags, scale_,
-                                 float(eps), inv_static, static_as, grid,
+                                 float(eps), inv_static, static_as, ptr(stamps), grid,
                                  _lib.stream_handle(x))
     else:
         rc = lib.mm_sa_block(*common, B, T, Tp, E, n_heads, rows, flags, scale_, float(eps),
-                             grid, _lib.stream_handle(x))
+                             ptr(stamps), grid, _lib.stream_handle(x))
     _lib.check_launch(name, rc, shape=(B, T, E, n_heads, flags, rows))
     if intermediates is not None:
         f32 = lambda i, n: ws.narrow(0, offsets[i], 4 * M * n).view(torch.float32)  # noqa: E731
