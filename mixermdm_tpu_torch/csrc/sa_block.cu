@@ -9,16 +9,20 @@
 // _sa_abl_kernel / _abl_q8 (sa_ablate, with LayerNorm, attention or softmax
 // switched off, timing only; :433).  Their options are runtime flags of one
 // kernel (sa_common.cuh) and the phases are sa_common.cuh's; this file holds
-// the attention phase:
-// - work units: (group of `rows` sequences, head, 128-row query tile), or
-//   with kHeadBatch (sequence, query tile) walking all heads; a unit walks
-//   its sequences and heads in turn, so the output does not depend on the
-//   schedule;
-// - per unit, the Q tile (bf16 rows of the packed projection) sits in
-//   shared memory and each warp keeps its 16 rows' A fragments in
-//   registers; K and V come 64 keys at a time, V stored transposed so that
-//   the P.V fragments are 32-bit loads; S = Q K^T and O += P V on mma.sync
-//   m16n8k16, f32 sums;
+// the attention phase, the design of csrc/attention.cu's bf16 forward:
+// - work units: (group of `rows` sequences, head, 64-row query tile), or
+//   with kHeadBatch (sequence, query tile) walking all heads, one unit a
+//   consumer warpgroup; a unit walks its sequences and heads in turn, so
+//   the output does not depend on the schedule.  64-row tiles keep 3 of 4
+//   warps busy in Tp 304's last tile (a 128-row tile left 5 of 8 idle);
+// - each consumer warpgroup has its own producer thread, Q tile and ring
+//   of 64-key K/V tiles, loaded by TMA straight out of the packed (B, Tp,
+//   3E) projection (rows past Tp zero-filled); the producer issues the
+//   next tile's Q once the warpgroup's last Q K^T of the current tile is
+//   done, after the first K/V stages it can refill;
+// - S = Q K^T on wgmma m64n64k16 from shared memory, O += P V on wgmma
+//   m64nDk16 with P from registers (S's fragment packed to bf16) and V read
+//   MN-major, f32 sums;
 // - an online softmax in f32 started at (max 0, sum 1) for the zero key of
 //   add_zero_attn, one ex2.approx per logit (as the port's attention
 //   kernel); the bias -1e30 at padded (T <= key < Tp) and masked keys,
@@ -29,11 +33,9 @@
 // The output is bf16 (f32 with kQuant, for the per-row quantisation).
 //
 // What bounds it on an H100: the two products' tensor-core operations,
-// 2 B Tp E (4E + 2 Tp) at the JAX cost estimate (exp_kernels.py:214), 0.077
-// ms at B 40, T 299, E 1024 over 989 TFLOP/s bf16.  The design is the simple
-// one: mma.sync tiles (wgmma is what reaches that rate), a cp.async ring,
-// one block per SM, the intermediates through device memory (L2 holds most
-// of them); what it buys is one launch where the shipped block takes four.
+// 2 B Tp E (4E + 2 Tp) at the JAX cost estimate (exp_kernels.py:214):
+// 117 GFLOP at B 40, T 299, E 1024, 0.118 ms at 989 TFLOP/s bf16 (0.116 on
+// the T rows, the bound chip_smoke.py prints).
 #include "sa_common.cuh"
 
 namespace {
@@ -43,231 +45,219 @@ using namespace mm::sa;
 
 __device__ unsigned int g_bar[2];  // the grid barrier's state (sa_common.cuh)
 
-// One attention unit: sequence b, head h, query rows q0..q0+127.
+// The producer thread of consumer warpgroup cw: for each of its tiles the
+// K/V ring (K and V slabs of the packed projection), and the Q tile after
+// the first stages it can refill.
 template <int D>
-__device__ void attention_tile(const Params& p, int b, int h, int q0, char* smem) {
-  constexpr int QS = 2 * D + 16;       // bytes per Q / K row
-  constexpr int VS = 2 * kKeys + 16;   // bytes per V^T row
-  constexpr int KT = D / 16;           // k-steps of S over D
-  constexpr int NT = D / 8;            // n8 tiles of O
-  char* sQ = smem;
-  char* sK = sQ + kQRows * QS;
-  char* sV = sK + kKeys * QS;
-  float* sBias = reinterpret_cast<float*>(sV + D * VS);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int E3 = 3 * p.E, Tp = p.Tp, f = p.flags;
-  const bool skip_sm = f & kSkipSoftmax;
-  const bf16* qkv = static_cast<const bf16*>(p.qkv) + (size_t)b * Tp * E3 + h * D;
-
-  __syncthreads();  // the previous unit is done with the tiles
-  for (int c = tid; c < kQRows * (D / 8); c += kThreads) {
-    const int r = c / (D / 8), d = (c % (D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < Tp) v = __ldcg(reinterpret_cast<const uint4*>(qkv + (size_t)(q0 + r) * E3 + d));
-    *reinterpret_cast<uint4*>(sQ + r * QS + 2 * d) = v;
-  }
-  __syncthreads();
-
-  const int wr = warp * 16;
-  const bool active = q0 + wr < Tp;
-  uint32_t qf[KT][4];
+__device__ __forceinline__ void attention_produce(const Maps& maps, const Params& p, const Smem& sm, int cw) {
+  constexpr int kSlabs = D / 64, S = attn_stages(D);
+  uint64_t* qfull = sm.qfull(cw);
+  uint64_t* qempty = sm.qempty(cw);
+  uint64_t* full = sm.kvfull(cw);
+  uint64_t* empty = sm.kvempty(cw);
+  uint8_t* sQ = sm.q_tile<D>(cw);
+  const int nkv = (p.Tp + kKeys - 1) / kKeys, q_after = min(S - 1, nkv);
+  Ring r;
+  int n = 0;
+  attention_walk(p, cw * gridDim.x + blockIdx.x, [&](int b, int h, int q0) {
+    for (int j = 0; j < nkv; ++j) {
+      sm90::mbar_wait(&empty[r.s], r.ph ^ 1);
+      uint8_t* st = sm.kv_stage<D>(cw, r.s);
+      sm90::mbar_expect_tx(&full[r.s], kv_stage_bytes(D));
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const char* pq = sQ + (wr + g) * QS + kk * 32 + 4 * t;
-    qf[kk][0] = ld32(pq);
-    qf[kk][1] = ld32(pq + 8 * QS);
-    qf[kk][2] = ld32(pq + 16);
-    qf[kk][3] = ld32(pq + 8 * QS + 16);
-  }
-  // Running state of rows g and g + 8; the sum per thread (a quarter of the
-  // keys), so the zero key's 1 goes to one lane of the four.
-  float m[2], l[2], o[NT][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    m[i] = (f & kZeroAttn) ? 0.f : -INFINITY;
-    l[i] = ((f & kZeroAttn) && t == 0) ? 1.f : 0.f;
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int k0 = 0; k0 < Tp; k0 += kKeys) {
-    __syncthreads();  // every warp is done with the previous K / V tile
-    for (int c = tid; c < kKeys * (D / 8); c += kThreads) {
-      const int j = c / (D / 8), d = (c % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + j < Tp) {
-        const bf16* src = qkv + (size_t)(k0 + j) * E3 + d;
-        kv = __ldcg(reinterpret_cast<const uint4*>(src + p.E));
-        vv = __ldcg(reinterpret_cast<const uint4*>(src + 2 * p.E));
+      for (int s = 0; s < kSlabs; ++s) {
+        sm90::tma_load_3d(st + s * kBoxBytes, &maps.k, &full[r.s], p.E + h * D + 64 * s,
+                          j * kKeys, b);
+        sm90::tma_load_3d(st + kv_stage_bytes(D) / 2 + s * kBoxBytes, &maps.v, &full[r.s],
+                          2 * p.E + h * D + 64 * s, j * kKeys, b);
       }
-      *reinterpret_cast<uint4*>(sK + j * QS + 2 * d) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+      r.next(S);
+      if (j + 1 == q_after) {
+        if (n > 0) sm90::mbar_wait(qempty, (n - 1) & 1);
+        sm90::mbar_expect_tx(qfull, q_tile_bytes(D));
 #pragma unroll
-      for (int i = 0; i < 8; ++i) *reinterpret_cast<bf16*>(sV + (d + i) * VS + 2 * j) = ve[i];
+        for (int s = 0; s < kSlabs; ++s)
+          sm90::tma_load_3d(sQ + s * kBoxBytes, &maps.q, qfull, h * D + 64 * s, q0, b);
+      }
     }
-    if (tid < kKeys) {
-      const int key = k0 + tid;
-      float bias = 0.f;
-      if (key >= Tp)
-        bias = -INFINITY;
-      else if (key >= p.T || (p.kpm != nullptr && p.kpm[(size_t)b * p.T + key]))
-        bias = kMasked;
-      sBias[tid] = bias;
-    }
-    __syncthreads();
-    if (!active) continue;
+    ++n;
+  });
+}
 
-    // S = Q K^T for 16 rows x 64 keys: thread holds s[n][e] at row g + 8 (e / 2),
-    // key k0 + 8 n + 2 t + e % 2.
-    float s[8][4];
+// A consumer warpgroup's attention tiles.
+template <int D>
+__device__ __forceinline__ void attention_consume(const Params& p, const Smem& sm) {
+  constexpr int S = attn_stages(D), NT = D / 8;
+  const int cw = (threadIdx.x >> 7) - 1, tid = threadIdx.x & 127;
+  const int t = threadIdx.x & 3;
+  // 32-bit shared addresses: the Q tile, K/V stage 0 (stage st at
+  // + st * kv_stage_bytes, V at half of it), the mbarriers.
+  const uint32_t sQ = mm::smem_u32(sm.q_tile<D>(cw)), sKV = mm::smem_u32(sm.kv_stage<D>(cw, 0));
+  const uint32_t qfull = mm::smem_u32(sm.qfull(cw)), qempty = qfull + 8;
+  const uint32_t full = qfull + 16, empty = full + 8 * kMaxAttnStages;
+  const int nkv = (p.Tp + kKeys - 1) / kKeys;
+  Ring r;
+  int n = 0;
+  attention_walk(p, cw * gridDim.x + blockIdx.x, [&](int b, int h, int q0) {
+    const bool* kpm_b = p.kpm != nullptr ? p.kpm + (size_t)b * p.T : nullptr;
+    Online st;
+    st.start(p.flags & kZeroAttn, t);
+    float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const char* pk = sK + (n * 8 + g) * QS + kk * 32 + 4 * t;
-        const uint32_t bk[2] = {ld32(pk), ld32(pk + 16)};
-        mma(s[n], qf[kk], bk);
-      }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = fmaf(s[n][e], p.attn_scale, sBias[n * 8 + 2 * t + (e & 1)]);
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    mbar_wait_s(qfull, n & 1);
+    int last = 0;
+    for (int j = 0; j < nkv; ++j) {
+      mbar_wait_s(full + 8 * r.s, r.ph);
+      const uint32_t sK = sKV + r.s * kv_stage_bytes(D), sV = sK + kv_stage_bytes(D) / 2;
 
-    // P as bf16 A fragments: k-step kk covers keys 16 kk .. 16 kk + 15.
-    uint32_t pf[4][4];
-    if (skip_sm) {
+      // S = Q K^T: 64 rows x 64 keys, K-major operands; thread holds
+      // s[4 c + e] at row g + 8 (e / 2) of its warp's 16, key
+      // 64 j + 8 c + 2 t + e % 2.
+      float s[32];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        float pv[4];
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      sm90::wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pv[e] = s[n][e] == -INFINITY ? 0.f : s[n][e];
-        pf[n >> 1][(n & 1) * 2 + 0] = mm::pack_bf16x2(pv[0], pv[1]);
-        pf[n >> 1][(n & 1) * 2 + 1] = mm::pack_bf16x2(pv[2], pv[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int slab = kk / 4, step = kk % 4;
+        sm90::wgmma_bf16<64>(s, kdesc_s(opaque(sQ) + slab * kBoxBytes, 128) + 2 * step,
+                             kdesc_s(opaque(sK) + slab * kBoxBytes, 128) + 2 * step, kk != 0);
       }
-    } else {
-      float mx[2] = {-INFINITY, -INFINITY};
+      sm90::wgmma_commit();
+      const int k0 = j * kKeys;
+      const uint32_t mask = key_mask(kpm_b, p.T, k0, t);  // while it runs
+      sm90::wgmma_wait<0>();
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int i = 0; i < 32; ++i) sm90::reg_fence(s[i]);
+      if (j == nkv - 1 && tid == 0) mbar_arrive_s(qempty);  // the tile's Q is done
 #pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      float mref[2];
+      for (int i = 0; i < 32; ++i)
+        s[i] = fmaf(s[i], p.attn_scale, key_bias(mask, i, k0, t, p.T, p.Tp));
+
+      // P as bf16 A fragments: k-step kk covers keys 16 kk .. 16 kk + 15.
+      uint32_t pf[4][4];
+      if (p.flags & kSkipSoftmax) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float mnew = fmaxf(m[i], mx[i]);
-        mref[i] = mnew == -INFINITY ? 0.f : mnew;
-        const float alpha = ex2((m[i] - mref[i]) * kLog2e);
-        m[i] = mnew;
-        l[i] *= alpha;
+        for (int c = 0; c < 8; ++c) {
+          float pv[4];
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          o[n][2 * i] *= alpha;
-          o[n][2 * i + 1] *= alpha;
+          for (int e = 0; e < 4; ++e) pv[e] = s[4 * c + e] == -INFINITY ? 0.f : s[4 * c + e];
+          pf[c >> 1][(c & 1) * 2 + 0] = mm::pack_bf16x2(pv[0], pv[1]);
+          pf[c >> 1][(c & 1) * 2 + 1] = mm::pack_bf16x2(pv[2], pv[3]);
+        }
+      } else {
+        float mref[2], alpha[2];
+        st.update(s, mref, alpha);
+#pragma unroll
+        for (int c = 0; c < NT; ++c) {
+          o[4 * c + 0] *= alpha[0];
+          o[4 * c + 1] *= alpha[0];
+          o[4 * c + 2] *= alpha[1];
+          o[4 * c + 3] *= alpha[1];
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float pv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pv[e] = ex2((s[4 * c + e] - mref[e >> 1]) * kLog2e);
+            st.l[e >> 1] += pv[e];
+          }
+          pf[c >> 1][(c & 1) * 2 + 0] = mm::pack_bf16x2(pv[0], pv[1]);
+          pf[c >> 1][(c & 1) * 2 + 1] = mm::pack_bf16x2(pv[2], pv[3]);
         }
       }
+
+      // O += P V: V [key][d] is N-major; 16 keys per k-step, 2048 bytes.
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        float pv[4];
+      for (int i = 0; i < D / 2; ++i) sm90::reg_fence(o[i]);
+      sm90::wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pv[e] = ex2((s[n][e] - mref[e >> 1]) * kLog2e);
-          l[e >> 1] += pv[e];
-        }
-        pf[n >> 1][(n & 1) * 2 + 0] = mm::pack_bf16x2(pv[0], pv[1]);
-        pf[n >> 1][(n & 1) * 2 + 1] = mm::pack_bf16x2(pv[2], pv[3]);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_bf16_rs<D>(o, pf[kk], mndesc_s(opaque(sV) + kk * 2048, kBoxBytes));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) sm90::reg_fence(o[i]);
+      // The stage is free, but the last one's: it stages the output.
+      if (j < nkv - 1 && tid == 0) mbar_arrive_s(empty + 8 * r.s);
+      last = r.s;
+      r.next(S);
     }
+    ++n;
 
-    // O += P V: V^T rows are d, 64 keys each.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const char* pv = sV + (n * 8 + g) * VS + kk * 32 + 4 * t;
-        const uint32_t bv[2] = {ld32(pv), ld32(pv + 16)};
-        mma(o[n], pf[kk], bv);
-      }
-  }
-  if (!active) return;
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / l[i];
-  }
-  const bool f32_out = f & kQuant;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + wr + g + 8 * i;
-    if (row >= Tp) continue;
-    const size_t base = ((size_t)b * Tp + row) * p.E + h * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float y0 = o[n][2 * i], y1 = o[n][2 * i + 1];
+    const int f = p.flags;
+    const bool skip_sm = f & kSkipSoftmax, f32_out = f & kQuant, recip = f & kRecip;
+    const bool round_attn = f & kRoundAttn;
+    st.reduce();
+    const float inv[2] = {1.f / st.l[0], 1.f / st.l[1]};
+    float amax[2] = {0.f, 0.f};  // of the values quant_attn_phase quantises
+    auto val = [&](int c, int i, float& y0, float& y1) {
+      y0 = o[4 * c + 2 * i];
+      y1 = o[4 * c + 2 * i + 1];
       if (!skip_sm) {
-        if (f & kRecip) {
+        if (recip) {
           y0 = __fmul_rn(y0, inv[i]);
           y1 = __fmul_rn(y1, inv[i]);
         } else {
-          y0 = __fdiv_rn(y0, l[i]);
-          y1 = __fdiv_rn(y1, l[i]);
+          y0 = __fdiv_rn(y0, st.l[i]);
+          y1 = __fdiv_rn(y1, st.l[i]);
         }
       }
-      if (f32_out)
-        *reinterpret_cast<float2*>(static_cast<float*>(p.attn) + base + n * 8) =
-            make_float2(y0, y1);
-      else
-        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.attn) + base + n * 8) =
-            mm::pack_bf16x2(y0, y1);
-    }
-  }
-}
-
-template <int D>
-__device__ void attention_phase(const Params& p, char* smem) {
-  const int QT = (p.Tp + kQRows - 1) / kQRows;
-  const bool hb = p.flags & kHeadBatch;
-  const int HU = hb ? 1 : p.H;
-  const int units = (p.B / p.rows) * HU * QT;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int qt = u % QT, hu = (u / QT) % HU, bg = u / (QT * HU);
-    for (int r = 0; r < p.rows; ++r)
-      for (int h = hb ? 0 : hu; h < (hb ? p.H : hu + 1); ++h)
-        attention_tile<D>(p, bg * p.rows + r, h, qt * kQRows, smem);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) sa_block_kernel(const __grid_constant__ Params p) {
-  extern __shared__ __align__(16) char smem[];
-  stamp(p, 0);
-  ln_phase(p);
-  grid_sync(g_bar);
-  stamp(p, 1);
-  qkv_phase(p, smem, [&](int row, int col, float v0, float v1) {
-    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.qkv) + (size_t)row * 3 * p.E + col) =
-        mm::pack_bf16x2(v0, v1);
+      if (f32_out) {
+        const float a0 = round_attn ? bf16_round(y0) : y0, a1 = round_attn ? bf16_round(y1) : y1;
+        amax[i] = fmaxf(amax[i], fmaxf(fabsf(a0), fabsf(a1)));
+      }
+    };
+    uint8_t* stg = sm.kv_stage<D>(cw, last);
+    const size_t at = ((size_t)b * p.Tp + q0) * p.E + h * D;
+    const int rows = min(kRows, p.Tp - q0);
+    if (f32_out)
+      stage_out<true, D>(stg, 1 + cw, val, static_cast<float*>(p.attn) + at, p.E, rows);
+    else
+      stage_out<false, D>(stg, 1 + cw, val, static_cast<bf16*>(p.attn) + at, p.E, rows);
+    if (tid == 0) mbar_arrive_s(empty + 8 * last);
+    if (f32_out) row_max_out(p, amax, b, q0);
   });
-  grid_sync(g_bar);
-  stamp(p, 2);
-  if (!(p.flags & kSkipAttn)) attention_phase<D>(p, smem);
-  grid_sync(g_bar);
-  stamp(p, 3);
-  if (p.flags & kQuant) {
-    quant_attn_phase(p);
-    grid_sync(g_bar);
-    stamp(p, 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    sa_block_kernel(const __grid_constant__ Maps maps, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  const Smem sm = smem_layout<D>(smem_raw);
+  __syncthreads();
+  stamp(p, 0);
+  const int f = p.flags;
+  // In the product and attention phases, warpgroup 0 produces: thread 0
+  // feeds the products' ring, threads 0 and 32 the consumer warpgroups'
+  // attention rings.
+  const bool producer = threadIdx.x < 128;
+  int k = 0;
+  Ring r;  // the products' ring position, carried from phase 2 to phase 4
+  ln_phase(p);
+  grid_sync(g_bar, p, k);
+  if (!producer)
+    qkv_consume(p, sm, r, RowsOut{static_cast<bf16*>(p.qkv), 3 * p.E});
+  else if (threadIdx.x == 0)
+    qkv_produce(maps, p, sm, r);
+  grid_sync(g_bar, p, k);
+  if (!(f & kSkipAttn)) {
+    if (!producer)
+      attention_consume<D>(p, sm);
+    else if ((threadIdx.x & 31) == 0 && threadIdx.x < 64)
+      attention_produce<D>(maps, p, sm, threadIdx.x >> 5);
   }
-  out_phase(p, smem);
+  grid_sync(g_bar, p, k);
+  if (f & kQuant) {
+    quant_attn_phase(p);
+    grid_sync(g_bar, p, k);
+  }
+  if (!producer)
+    out_consume(p, sm, r);
+  else if (threadIdx.x == 0)
+    out_produce(maps, p, sm, r);
   stamp_end(p);
 }
 
@@ -275,7 +265,7 @@ template <int D>
 int occupancy() {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, sa_block_kernel<D>, kThreads, sa_smem_bytes(D, false));
+      &n, sa_block_kernel<D>, kThreads, sa_smem_bytes(D));
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
@@ -286,15 +276,17 @@ int occupancy() {
 // int8 with flags & 1 (then s_qkv, s_o: their f32 row scales); b_qkv,
 // b_o: f32; kpm: (B, T) bool or null; out: (B, T, E) bf16.  Scratch, rows
 // M = B * Tp: xn (M, E) bf16 or int8, xs (M,) f32, qkv (M, 3E) bf16, attn
-// (M, E) bf16 or f32, a8 (M, E) int8, as (M,) f32 (the int8 ones with
-// flags & 1 only).  grid: blocks the card holds at once
+// (M, E) bf16 or f32, a8 (M, E) int8, as, ramax (M,) f32 (the int8 ones
+// with flags & 1 only), 256-byte aligned.  stamps: (8,) u64 for a reading of the
+// phases, or null.  grid: blocks the card holds at once
 // (mm_sa_block_occupancy per SM; the host plan, ops/sa_variants.py:
 // sa_block_plan), launched cooperatively.
 extern "C" int mm_sa_block(const void* x, const void* scale, long long lds, const void* shift,
                            long long ldh, const void* w_qkv, const void* b_qkv,
                            const void* s_qkv, const void* w_o, const void* b_o, const void* s_o,
                            const void* kpm, void* out, void* xn, void* xs, void* qkv, void* attn,
-                           void* a8, void* as, int B, int T, int Tp, int E, int H, int rows,
+                           void* a8, void* as, void* ramax, int B, int T, int Tp, int E, int H,
+                           int rows,
                            int flags, float attn_scale, float eps, void* stamps, int grid,
                            void* stream) {
   if (!shape_ok(B, T, Tp, E, H, grid) || rows < 1 || B % rows)
@@ -305,10 +297,8 @@ extern "C" int mm_sa_block(const void* x, const void* scale, long long lds, cons
   p.lds = lds;
   p.shift = static_cast<const bf16*>(shift);
   p.ldh = ldh;
-  p.w_qkv = w_qkv;
   p.b_qkv = static_cast<const float*>(b_qkv);
   p.s_qkv = static_cast<const float*>(s_qkv);
-  p.w_o = w_o;
   p.b_o = static_cast<const float*>(b_o);
   p.s_o = static_cast<const float*>(s_o);
   p.kpm = static_cast<const bool*>(kpm);
@@ -319,6 +309,7 @@ extern "C" int mm_sa_block(const void* x, const void* scale, long long lds, cons
   p.attn = attn;
   p.a8 = static_cast<int8_t*>(a8);
   p.as = static_cast<float*>(as);
+  p.ramax = static_cast<float*>(ramax);
   p.stamps = static_cast<unsigned long long*>(stamps);
   p.B = B;
   p.T = T;
@@ -329,10 +320,16 @@ extern "C" int mm_sa_block(const void* x, const void* scale, long long lds, cons
   p.flags = flags;
   p.attn_scale = attn_scale;
   p.eps = eps;
+  Maps m;
+  if (!product_maps(&m, p, w_qkv, w_o) ||
+      !rows_map(&m.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qkv, 3 * E, Tp, B, 2, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  m.k = m.q;
+  m.v = m.q;
   const int D = E / H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch(sa_block_kernel<64>, p, grid, sa_smem_bytes(64, false), s)
-                 : launch(sa_block_kernel<128>, p, grid, sa_smem_bytes(128, false), s);
+  return D == 64 ? launch(sa_block_kernel<64>, m, p, grid, sa_smem_bytes(64), s)
+                 : launch(sa_block_kernel<128>, m, p, grid, sa_smem_bytes(128), s);
 }
 
 // Blocks of the kernel for head dim D that one SM holds at once (negative:
@@ -347,8 +344,7 @@ extern "C" int mm_sa_block_occupancy(int D) {
 // instantiations, never inside a launch that a graph may capture.
 extern "C" int mm_sa_block_init() {
   const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t e = cudaFuncSetAttribute(sa_block_kernel<64>, attr, sa_smem_bytes(64, false));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(sa_block_kernel<128>, attr, sa_smem_bytes(128, false));
+  cudaError_t e = cudaFuncSetAttribute(sa_block_kernel<64>, attr, sa_smem_bytes(64));
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(sa_block_kernel<128>, attr, sa_smem_bytes(128));
   return static_cast<int>(e);
 }

@@ -191,13 +191,13 @@ ARGTYPES = {
                              _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp],
     "mm_linear_q8_gelu_q8_clusters": [_i32, _i32, _i32],
     "mm_sa_block": [_vp, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                    _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _f32, _f32,
+                    _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _f32, _f32,
                     _vp, _i32, _vp],
     "mm_sa_block_occupancy": [_i32],
     "mm_sa_block_init": [],
     "mm_sa_block_i8x": [_vp, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                        _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _f32,
-                        _f32, _f32, _f32, _vp, _i32, _vp],
+                        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                        _i32, _i32, _f32, _f32, _f32, _f32, _vp, _i32, _vp],
     "mm_sa_block_i8x_occupancy": [_i32],
     "mm_sa_block_i8x_init": [],
 }

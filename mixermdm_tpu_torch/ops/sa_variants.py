@@ -25,10 +25,14 @@ card holds at once: :func:`sa_block_plan`; launched cooperatively, so that
 a grid that does not fit is refused) in phases separated by grid-wide
 barriers: LayerNorm and modulation (with the per-row int8 quantisation of
 ``quant``) of the padded rows into device memory, the merged QKV product,
-attention by (sequence, head, query tile), the per-row quantisation of the
+(``sa_block_i8x``) the attention's operands, attention by (sequence, head,
+64-row query tile) per consumer warpgroup, the per-row quantisation of the
 attention output (``quant``), and the out-projection with its bias, the cast
-and the residual.  The products run on ``mma.sync`` tiles (bf16, or s8 with
-s32 sums).
+and the residual.  A block is a producer warpgroup issuing TMA loads and two
+consumer warpgroups on ``wgmma``: the products in 128 x 128 tiles (bf16, or
+s8 with s32 sums) from one ring of stages that runs through both product
+phases, the attention from a K/V ring per warpgroup (:func:`gemm_walk`,
+:func:`attention_walk` model the work each one takes).
 
 The sequence is padded as the JAX functions pad it, to Tp = a multiple of
 8: the padded rows are modulated (LayerNorm of a zero row is 0, so they
@@ -72,13 +76,25 @@ from .quant import quant_rows_plain, quantize_weight
 KV_PAD = 8                      # sequence padding multiple (the JAX package's KV_PAD)
 HEAD_DIMS = (64, 128)           # instantiated in csrc/sa_block*.cu
 E_MULTIPLE = 128                # the products' 128-column tiles
-THREADS = 256                   # one block of 8 warps per SM
+# csrc/sa_common.cuh: a block is a producer warpgroup and two consumer
+# warpgroups; the products' 128 x 128 tiles come through a ring of
+# GEMM_STAGES stages of 128-byte K slabs; attention takes 64 query rows per
+# consumer warpgroup and 64 keys per K/V tile, ATTN_STAGES[D] stages.
+THREADS = 384
+GEMM_TILE = 128
+GEMM_STAGES = 6
+ATTN_ROWS = ATTN_KEYS = 64
+ATTN_STAGES = {64: 4, 128: 3}
+EPI_STRIDE = 144                # the products' epilogue staging: 64 rows of 128 + 16 bytes
+SMEM_LIMIT = 232448             # 227 KB, the most an H100 block may ask for
+V_KEYS = 32                     # sa_block_i8x: int8 v's key blocks (Tv, KEY_POSITION)
 
 # Flags of the kernels' ``flags`` argument (csrc/sa_common.cuh).
 F_QUANT, F_RECIP, F_HEADBATCH = 1, 2, 4
 F_SKIP_LN, F_SKIP_ATTN, F_SKIP_SOFTMAX = 8, 16, 32
 F_ROUND_ATTN, F_RESIDUAL, F_ZERO_ATTN = 64, 128, 256
 F_STATIC, F_QPV, F_QQK = 512, 1024, 2048
+F_KEEP_QKV = 4096               # sa_block_i8x: keep the whole f32 projection (intermediates)
 
 
 def padded_len(T: int) -> int:
@@ -316,6 +332,51 @@ def quant_v(v: torch.Tensor, n_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
     return _heads(torch.round(v / vs[:, None, None]).clamp_(-127, 127), n_heads), vs
 
 
+# The position of key r of a 32-key block in ``sa_block_i8x``'s int8 v
+# (``csrc/sa_block_i8x.cu``: ``key_position``): a thread's logits at keys
+# 8 c + 2 t + e fill positions 16 (c // 2) + 4 t + 2 (c % 2) + e of the s8
+# wgmma A fragment, so v's keys are stored in that order.
+KEY_POSITION = tuple(16 * (r >> 4) + 4 * ((r >> 1) & 3) + 2 * ((r >> 3) & 1) + (r & 1)
+                     for r in range(V_KEYS))
+
+
+def v_keys(Tp: int) -> int:
+    """Tv: the keys of each (sequence, head, d) row of ``sa_block_i8x``'s
+    int8 v, Tp rounded up to a whole 32-key block."""
+    return -(-Tp // V_KEYS) * V_KEYS
+
+
+def i8x_operands_plain(qkv: torch.Tensor, n_heads: int, *, qqk: bool, qpv: bool,
+                       compute_dtype=torch.bfloat16):
+    """Plain version of ``sa_block_i8x``'s operand pass, from the f32
+    projections (B, Tp, 3E): q and k (B, Tp, E) as int8 with one scale per
+    sequence (``qqk``, the values of :func:`int8_attention_probs`), else
+    cast to ``compute_dtype``; v cast, or (``qpv``) :func:`quant_v`'s int8
+    values laid out (B, H, D, Tv): the keys of a (sequence, head, d)
+    contiguous, those of each 32-key block at :data:`KEY_POSITION`, zeros
+    past Tp."""
+    B, Tp, E3 = qkv.shape
+    E = E3 // 3
+    q, k, v = qkv.split(E, dim=-1)
+
+    def q8(t):
+        s = _seq_scale(t)
+        return torch.round(t / s[:, None, None]).clamp_(-127, 127).to(torch.int8)
+
+    qop, kop = (q8(t) if qqk else t.to(compute_dtype) for t in (q, k))
+    if not qpv:
+        return qop, kop, v.to(compute_dtype)
+    v8, _ = quant_v(v, n_heads)
+    Tv = v_keys(Tp)
+    keys = v8.new_zeros(B, n_heads, E // n_heads, Tv)
+    keys[..., :Tp] = v8.transpose(-1, -2)
+    pos = torch.tensor([blk + p for blk in range(0, Tv, V_KEYS) for p in KEY_POSITION],
+                       device=qkv.device)
+    vop = torch.empty_like(keys)
+    vop[..., pos] = keys
+    return qop, kop, vop.to(torch.int8)
+
+
 def static_scales(static_as: float) -> tuple[float, float]:
     """(1 / static_as, static_as), each as the f32 the JAX kernel multiplies
     by: the reciprocal is taken in double (Python) and then rounded."""
@@ -379,22 +440,76 @@ def _occupancy(D: int, i8x: bool) -> int:
     return n
 
 
+def sa_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one block at head dim D
+    (``csrc/sa_common.cuh``: ``sa_smem_bytes``, both kernels): the
+    swizzle's 1024-byte alignment slack; the ring, the larger of the
+    products' (GEMM_STAGES stages of a 128-row slab of each operand, 128
+    bytes deep, then each consumer warpgroup's epilogue staging and column
+    vectors) and the two consumer warpgroups' attention tiles (a bf16 Q
+    tile and ATTN_STAGES[D] K/V stages each); the mbarriers."""
+    gemm = GEMM_STAGES * 2 * GEMM_TILE * 128 + 2 * (64 * EPI_STRIDE + 2 * GEMM_TILE * 4)
+    attn = 2 * (ATTN_ROWS * 2 * D + ATTN_STAGES[D] * 2 * ATTN_KEYS * 2 * D)
+    barriers = 2 * GEMM_STAGES + 2 * (2 + 2 * max(ATTN_STAGES.values()))
+    return 1024 + max(gemm, attn) + 8 * barriers
+
+
 @functools.lru_cache(maxsize=256)
 def sa_block_plan(E: int, H: int, *, i8x: bool = False, sms: int = H100_SMS,
                   occupancy=None) -> int:
     """The persistent grid, cached: as many blocks as the card holds at once
-    (``occupancy(D, i8x)`` per SM, :func:`_occupancy` on the card), so that
-    every block reaches each grid-wide barrier; each phase walks its work
-    (tiles of the products, (sequence, head, query tile) units of the
-    attention) over them, so the grid does not depend on B or T.  Raises
-    ``RuntimeError`` before any launch if no block fits an SM.  The launch is
-    cooperative besides: a grid the card cannot hold at once is refused
-    instead of letting the barrier wait for blocks that never run."""
+    (``occupancy(D, i8x)`` per SM, :func:`_occupancy` on the card: one
+    block of THREADS threads and :func:`sa_smem_bytes`), so that every
+    block reaches each grid-wide barrier; each phase walks its work over
+    them (:func:`gemm_walk`, :func:`attention_walk`), so the grid does not
+    depend on B or T.  On an H100 (132 blocks) at T 299 (Tp 304), E 1024,
+    H 8: the QKV product's 128 x 128 tiles are 19 x 24 = 456 at B 8 (3.45
+    waves), 95 x 24 = 2280 at B 40 (17.3); the out-projection's 152 (1.15)
+    and 760 (5.8); the attention's 64-row units, one per consumer
+    warpgroup (264), 320 (1.2) and 1600 (6.1).  Raises ``RuntimeError``
+    before any launch if no block fits an SM.  The launch is cooperative
+    besides: a grid the card cannot hold at once is refused instead of
+    letting the barrier wait for blocks that never run."""
     per_sm = (occupancy or _occupancy)(E // H, i8x)
     if per_sm < 1:
         raise RuntimeError(f"sa_block: no block of {THREADS} threads with the shared memory "
                            f"of head dim {E // H} fits an SM")
     return sms * per_sm
+
+
+def gemm_walk(M: int, N: int, grid: int) -> list:
+    """The product tiles each block takes (``csrc/sa_common.cuh``:
+    ``gemm_produce`` / ``gemm_consume``): block i the 128 x 128 tiles i,
+    i + grid, ..., numbered N-tiles fastest -> per block a list of (m0,
+    n0)."""
+    tiles_n = N // GEMM_TILE
+    tiles = -(-M // GEMM_TILE) * tiles_n
+    return [[(t // tiles_n * GEMM_TILE, t % tiles_n * GEMM_TILE) for t in range(blk, tiles, grid)]
+            for blk in range(grid)]
+
+
+def attention_walk(B: int, Tp: int, H: int, grid: int, *, rows: int = 1,
+                   head_batch: bool = False) -> list:
+    """The attention tiles each consumer warpgroup takes
+    (``csrc/sa_common.cuh``: ``attention_walk``, walked alike by its
+    producer thread): warpgroup cw of block i is number cw * grid + i and
+    takes units gw, gw + 2 grid, ...; a unit is (group of ``rows``
+    sequences, head, 64-row query tile), or with ``head_batch`` (group,
+    query tile) over all heads, and walks its sequences and heads in turn
+    -> per warpgroup a list of (b, h, q0)."""
+    QT = -(-Tp // ATTN_ROWS)
+    HU = 1 if head_batch else H
+    units = (B // rows) * HU * QT
+    out = []
+    for gw in range(2 * grid):
+        tiles = []
+        for u in range(gw, units, 2 * grid):
+            qt, hu, bg = u % QT, (u // QT) % HU, u // (QT * HU)
+            for r in range(rows):
+                for h in (range(H) if head_batch else (hu,)):
+                    tiles.append((bg * rows + r, h, qt * ATTN_ROWS))
+        out.append(tiles)
+    return out
 
 
 def _check_args(name, x, scale, shift, w: SAWeights, key_padding_mask, n_heads, quant):
@@ -441,11 +556,12 @@ _stamp_log: Optional[list] = None
 
 def phase_names(flags: int, i8x: bool) -> tuple:
     """The phases of one launch in order, one per grid barrier and the last
-    (``csrc/sa_block*.cu``): LayerNorm, the QKV product, attention, the
-    per-row quantisation of the attention output (int8 forms), the
-    out-projection."""
-    return ("ln", "qkv", "attention") + (("quant_attn",) if i8x or flags & F_QUANT else ()) \
-        + ("out",)
+    (``csrc/sa_block*.cu``): LayerNorm, the QKV product, (``sa_block_i8x``
+    with int8 q.k^T or p.v) the attention's int8 operands, attention, the per-row quantisation of the
+    attention output (int8 forms), the out-projection."""
+    operands = i8x and flags & (F_QQK | F_QPV)
+    return ("ln", "qkv") + (("operands",) if operands else ()) + ("attention",) \
+        + (("quant_attn",) if i8x or flags & F_QUANT else ()) + ("out",)
 
 
 @contextlib.contextmanager
@@ -484,11 +600,14 @@ def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, e
     grid = sa_block_plan(E, n_heads, i8x=i8x, sms=sm_count(x))
     out = torch.empty((B, T, E), dtype=x.dtype, device=x.device)
     # The scratch of the phases, one allocation carved at 256-byte offsets:
-    # xn, xs, qkv, attn, a8, as, amax (bytes; 0 where the form has none).
+    # xn, xs, qkv, attn, a8, as, ramax, and sa_block_i8x's amax and
+    # attention operands q, k, v (bytes; 0 where the form has none).
     e2 = x.element_size()
+    op = M * E * e2 if i8x else 0
     sizes = (M * E * (1 if quant else e2), 4 * M if quant else 0, M * 3 * E * (4 if i8x else e2),
              M * E * (4 if quant else e2), M * E if quant else 0, 4 * M if quant else 0,
-             12 * B if i8x else 0)
+             4 * M if quant else 0, 12 * B if i8x else 0, op, op,
+             max(op, B * E * v_keys(Tp)) if i8x else 0)
     offsets, total = [], 0
     for n in sizes:
         offsets.append(total if n else None)
@@ -499,7 +618,7 @@ def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, e
     common = (ptr(x), ptr(scale), scale.stride(0), ptr(shift), shift.stride(0),
               ptr(w.w8_qkv if quant else w.w_qkv), ptr(w.b_qkv), ptr(w.s_qkv if quant else None),
               ptr(w.w8_o if quant else w.w_o), ptr(w.b_o), ptr(w.s_o if quant else None),
-              ptr(kpm), ptr(out), *scratch[:6])
+              ptr(kpm), ptr(out), *scratch[:7])
     lib = _lib.library()
     scale_ = 1.0 / math.sqrt(D)
     stamps = None
@@ -507,7 +626,7 @@ def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, e
         stamps = torch.zeros((STAMPS,), dtype=torch.int64, device=x.device)
         _stamp_log.append((phase_names(flags, i8x), stamps))
     if i8x:
-        rc = lib.mm_sa_block_i8x(*common, scratch[6], B, T, Tp, E, n_heads, flags, scale_,
+        rc = lib.mm_sa_block_i8x(*common, *scratch[7:], B, T, Tp, E, n_heads, flags, scale_,
                                  float(eps), inv_static, static_as, ptr(stamps), grid,
                                  _lib.stream_handle(x))
     else:
@@ -609,7 +728,7 @@ def sa_int8x(x, scale, shift, w: SAWeights, key_padding_mask=None, *, n_heads: i
                                        n_heads, True)
     flags = (F_QUANT | (F_RESIDUAL if residual else 0) | (F_ZERO_ATTN if zero_attn else 0)
              | (F_STATIC if static_as is not None else 0) | (F_QPV if qpv else 0)
-             | (F_QQK if qqk else 0))
+             | (F_QQK if qqk else 0) | (F_KEEP_QKV if intermediates is not None else 0))
     inv, sa = static_scales(static_as) if static_as is not None else (0.0, 0.0)
     return _launch("sa_block_i8x", x, scale, shift, w, kpm, n_heads=n_heads, rows=1,
                    flags=flags, eps=eps, i8x=True, inv_static=inv, static_as=sa,

@@ -246,9 +246,14 @@ def test_output_does_not_depend_on_rows(data, quant):
 
 
 def test_plan_is_one_resident_grid_and_refuses_what_does_not_fit():
-    """One block per SM (or as many as the occupancy query allows) whatever
-    B and T: every block reaches each grid-wide barrier; a card that holds
-    none raises before any launch."""
+    """One block of THREADS (a producer and two consumer warpgroups) per SM,
+    or as many as the occupancy query allows, whatever B and T: every block
+    reaches each grid-wide barrier; the shared memory of a block fits the
+    227 KB an H100 block may have at both head dims, and no two fit an SM;
+    a card that holds none raises before any launch."""
+    assert sv.THREADS == 384
+    for D in sv.HEAD_DIMS:
+        assert sv.sa_smem_bytes(D) <= sv.SMEM_LIMIT < 2 * sv.sa_smem_bytes(D)
     for i8x in (False, True):
         asked = []
         occupancy = lambda D, i, n: asked.append((D, i)) or n  # noqa: E731
@@ -271,22 +276,171 @@ def _constexprs(path):
 
 
 def test_constants_match_the_kernels():
-    c, _ = _constexprs(os.path.join(CSRC, "sa_common.cuh"))
+    """The flags, the block (THREADS), the products' tile and ring, the
+    attention tiles and stages and the shared memory formula of
+    csrc/sa_common.cuh are the host plan's; both head dims are
+    instantiated in both kernels."""
+    c, src = _constexprs(os.path.join(CSRC, "sa_common.cuh"))
     flags = {"kQuant": sv.F_QUANT, "kRecip": sv.F_RECIP, "kHeadBatch": sv.F_HEADBATCH,
              "kSkipLn": sv.F_SKIP_LN, "kSkipAttn": sv.F_SKIP_ATTN,
              "kSkipSoftmax": sv.F_SKIP_SOFTMAX, "kRoundAttn": sv.F_ROUND_ATTN,
              "kResidual": sv.F_RESIDUAL, "kZeroAttn": sv.F_ZERO_ATTN, "kStatic": sv.F_STATIC,
-             "kQpv": sv.F_QPV, "kQqk": sv.F_QQK}
+             "kQpv": sv.F_QPV, "kQqk": sv.F_QQK, "kKeepQkv": sv.F_KEEP_QKV}
     assert {k: c[k] for k in flags} == flags
     assert c["kThreads"] == sv.THREADS
+    assert c["kBM"] == c["kBN"] == sv.GEMM_TILE and c["kSlab"] == 128
+    assert c["kGemmStages"] == sv.GEMM_STAGES and c["kEpiStride"] == sv.EPI_STRIDE
+    assert c["kRows"] == sv.ATTN_ROWS and c["kKeys"] == sv.ATTN_KEYS
+    assert c["kMaxAttnStages"] == max(sv.ATTN_STAGES.values())
+    assert "return D == 64 ? %d : %d;" % (sv.ATTN_STAGES[64], sv.ATTN_STAGES[128]) in src
+    for formula in ("kGemmStage = (kBM + kBN) * kSlab;",
+                    "kEpiWgBytes = 64 * kEpiStride + 2 * kBN * 4;",
+                    "kGemmBytes = kGemmStages * kGemmStage + 2 * kEpiWgBytes;",
+                    "return kRows * 2 * D;", "return 2 * kKeys * 2 * D;",
+                    "return q_tile_bytes(D) + attn_stages(D) * kv_stage_bytes(D);",
+                    "return kGemmBytes > 2 * attn_wg_bytes(D) ? kGemmBytes : 2 * attn_wg_bytes(D);",
+                    "kWgBarriers = 2 + 2 * kMaxAttnStages;",
+                    "kBarriers = 2 * kGemmStages + 2 * kWgBarriers;",
+                    "return sm90::kSmemAlign + ring_bytes(D) + 8 * kBarriers;"):
+        assert formula in src, formula
     for name in ("sa_block.cu", "sa_block_i8x.cu"):
         with open(os.path.join(CSRC, name)) as f:
             kernel = f.read()
+        kern = "sa_block_i8x_kernel" if "i8x" in name else "sa_block_kernel"
+        assert f"&n, {kern}<D>, kThreads, sa_smem_bytes(D));" in kernel
         for D in sv.HEAD_DIMS:
-            assert f"_kernel<{D}>" in kernel
+            assert f"cudaFuncSetAttribute({kern}<{D}>, attr, sa_smem_bytes({D}));" in kernel
+            assert f"launch({kern}<{D}>, m, p, grid, sa_smem_bytes({D}), s)" in kernel
     assert {"sa_block.cu", "sa_block_i8x.cu"} <= set(_lib.SOURCES)
     assert "sa_common.cuh" in _lib.HEADERS
     assert {"mm_sa_block_init", "mm_sa_block_i8x_init"} <= set(_lib.INIT_FUNCTIONS)
+
+
+# The shapes whose tile walks the kernels take: the SA blocks' (B 8), the
+# experiment script's (B 40), the mixer's width (D 64) and the tests' own.
+WALK_SHAPES = [(8, 299, 1024, 8), (40, 299, 1024, 8), (8, 299, 512, 8), (2, 7, 128, 2),
+               (2, 8, 128, 2)]
+
+
+@pytest.mark.parametrize("B,T,E,H", WALK_SHAPES, ids=[f"{b}x{t}x{e}" for b, t, e, _ in WALK_SHAPES])
+@pytest.mark.parametrize("grid", [132, 7])
+def test_product_walks_cover_every_tile_once(B, T, E, H, grid):
+    """The QKV product's and the out-projection's 128 x 128 tiles: each
+    block's list, all of them together, every tile of (B Tp, N) once."""
+    M = B * sv.padded_len(T)
+    for N in (3 * E, E):
+        walk = sv.gemm_walk(M, N, grid)
+        assert len(walk) == grid
+        tiles = [t for blk in walk for t in blk]
+        want = {(m, n) for m in range(0, M, 128) for n in range(0, N, 128)}
+        assert len(tiles) == len(want) and set(tiles) == want
+        assert max(map(len, walk)) - min(map(len, walk)) <= 1  # one wave apart at most
+
+
+@pytest.mark.parametrize("B,T,E,H", WALK_SHAPES, ids=[f"{b}x{t}x{e}" for b, t, e, _ in WALK_SHAPES])
+@pytest.mark.parametrize("grid", [132, 7])
+def test_attention_walks_cover_every_tile_once(B, T, E, H, grid):
+    """Every (sequence, head, 64-row query tile) once over the 2 grid
+    consumer warpgroups, for rows 1 and 2 and the head-batched walk; a
+    unit's tiles follow each other in one warpgroup."""
+    Tp = sv.padded_len(T)
+    want = {(b, h, q) for b in range(B) for h in range(H) for q in range(0, Tp, 64)}
+    for rows, hb in ((1, False), (2, False), (1, True)):
+        walk = sv.attention_walk(B, Tp, H, grid, rows=rows, head_batch=hb)
+        assert len(walk) == 2 * grid
+        tiles = [t for wg in walk for t in wg]
+        assert len(tiles) == len(want) and set(tiles) == want
+        per_unit = rows * (H if hb else 1)
+        for wg in walk:
+            for u in range(0, len(wg), per_unit):
+                unit = wg[u:u + per_unit]
+                assert len({q for _, _, q in unit}) == 1
+                assert len({b // rows for b, _, _ in unit}) == 1
+
+
+def test_phase_stamps_read_as_phases():
+    """The phases of each form, one per grid barrier (and the last), and
+    the stamps of a reading turned into ns per phase."""
+    assert sv.phase_names(sv.F_RESIDUAL, False) == ("ln", "qkv", "attention", "out")
+    assert sv.phase_names(sv.F_QUANT, False) == ("ln", "qkv", "attention", "quant_attn", "out")
+    assert sv.phase_names(sv.F_QUANT | sv.F_STATIC, True) == (
+        "ln", "qkv", "attention", "quant_attn", "out")
+    assert sv.phase_names(sv.F_QUANT | sv.F_QPV, True) == (
+        "ln", "qkv", "operands", "attention", "quant_attn", "out")
+    names = sv.phase_names(sv.F_QUANT, False)
+    buf = torch.tensor([100, 110, 130, 160, 170, 0, 0, 200])
+    assert sv.phase_ns((names, buf)) == {"ln": 10, "qkv": 20, "attention": 30,
+                                         "quant_attn": 10, "out": 30}
+
+
+def _c_key_position(r):
+    """csrc/sa_block_i8x.cu key_position, line for line."""
+    c, t, e = r >> 3, (r >> 1) & 3, r & 1
+    return 16 * (c >> 1) + 4 * t + 2 * (c & 1) + e
+
+
+def test_int8_pv_fragment_order_gives_the_integer_sums():
+    """int8 p.v on s8 wgmma: a thread's p8 values (its logits' fragment,
+    s[4 c + e] at row 16 w + g + 8 (e / 2), key 8 c + 2 t + e % 2) packed
+    into A-fragment registers as csrc/sa_block_i8x.cu packs them (register
+    w of k-step kk: logits c0 = 4 kk + 2 (w / 2), e0 = 2 (w % 2), bytes
+    (c0, e0), (c0, e0 + 1), (c0 + 1, e0), (c0 + 1, e0 + 1)), read at the
+    positions of the m16n8k32 A fragment, times v8 stored at KEY_POSITION,
+    equal p8 . v8 in key order, exactly."""
+    assert tuple(_c_key_position(r) for r in range(32)) == sv.KEY_POSITION
+    rng = np.random.default_rng(0)
+    P = rng.integers(0, 128, (64, 64))
+    V = rng.integers(-127, 128, (64, 32))
+    A = np.zeros((64, 64), np.int64)
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            s = {4 * c + e: P[16 * w + g + 8 * (e >> 1), 8 * c + 2 * t + (e & 1)]
+                 for c in range(8) for e in range(4)}
+            for kk in range(2):
+                for reg in range(4):
+                    c0, e0 = 4 * kk + 2 * (reg >> 1), 2 * (reg & 1)
+                    for byte in range(4):
+                        # a0 row g, a1 row g + 8; a0 / a1 bytes 4 t.., a2 / a3 16 + 4 t..
+                        row = 16 * w + g + 8 * (reg & 1)
+                        A[row, 32 * kk + 16 * (reg >> 1) + 4 * t + byte] = \
+                            s[4 * (c0 + (byte >> 1)) + e0 + (byte & 1)]
+    Vt = np.zeros((64, 32), np.int64)
+    for key in range(64):
+        Vt[(key // 32) * 32 + sv.KEY_POSITION[key % 32]] = V[key]
+    assert np.array_equal(A @ Vt, P @ V)
+
+
+@pytest.mark.parametrize("qqk,qpv", [(False, False), (True, False), (False, True), (True, True)],
+                         ids=["bf16", "qqk", "qpv", "qqk+qpv"])
+def test_i8x_operands_are_the_plain_arithmetic(qqk, qpv):
+    """sa_block_i8x's operand pass (its plain version) holds, bit for bit,
+    the values the plain attention uses: q and k as int8_attention_probs
+    quantises them (or cast to bf16), v as quant_v's int8 (or cast), laid
+    out (B, H, D, Tv) with each 32-key block's keys at KEY_POSITION and
+    zeros past Tp."""
+    Bq, Tp, Eq, Hq = 2, 40, 128, 2
+    D = Eq // Hq
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy((rng.standard_normal((Bq, Tp, 3 * Eq)) * 0.3).astype(np.float32))
+    q, k, v = qkv.split(Eq, dim=-1)
+    qop, kop, vop = sv.i8x_operands_plain(qkv, Hq, qqk=qqk, qpv=qpv)
+    for op, t in ((qop, q), (kop, k)):
+        if qqk:
+            want = torch.round(t / sv._seq_scale(t)[:, None, None]).clamp_(-127, 127)
+            assert op.dtype == torch.int8 and torch.equal(op.float(), want)
+        else:
+            assert op.dtype == torch.bfloat16 and torch.equal(op, t.to(torch.bfloat16))
+    if not qpv:
+        assert torch.equal(vop, v.to(torch.bfloat16))
+        return
+    Tv = sv.v_keys(Tp)
+    assert vop.shape == (Bq, Hq, D, Tv) and vop.dtype == torch.int8 and Tv == 64
+    keys = torch.stack([vop[..., blk + sv.KEY_POSITION[r]] for blk in range(0, Tv, 32)
+                        for r in range(32)], dim=-1)
+    v8, _ = sv.quant_v(v, Hq)
+    assert torch.equal(keys[..., :Tp].float(), v8.transpose(-1, -2))
+    assert not keys[..., Tp:].any()
 
 
 # ------------------------------------------------ the W8A8 blocks' route
