@@ -45,60 +45,54 @@ using namespace mm::sa;
 
 __device__ unsigned int g_bar[2];  // the grid barrier's state (sa_common.cuh)
 
-// The producer thread of consumer warpgroup cw: for each of its tiles the
-// K/V ring (K and V slabs of the packed projection), and the Q tile after
-// the first stages it can refill.
+// The attention phase, every warpgroup of the block: its tiles (Walk), each
+// 64 query rows against the sequence's keys in 32-key steps.  Thread 0 of
+// the warpgroup issues its loads: the Q tile of tile n, and load i (tile
+// i / nkv, keys 32 (i % nkv)..) into K/V stage i % S, refilled once the
+// warpgroup is done with it (the next tile's first loads and Q overlap the
+// current tile's last steps; the last step's stage stages the output, and
+// is refilled after).
 template <int D>
-__device__ __forceinline__ void attention_produce(const Maps& maps, const Params& p, const Smem& sm, int cw) {
-  constexpr int kSlabs = D / 64, S = attn_stages(D);
-  uint64_t* qfull = sm.qfull(cw);
-  uint64_t* qempty = sm.qempty(cw);
-  uint64_t* full = sm.kvfull(cw);
-  uint64_t* empty = sm.kvempty(cw);
-  uint8_t* sQ = sm.q_tile<D>(cw);
-  const int nkv = (p.Tp + kKeys - 1) / kKeys, q_after = min(S - 1, nkv);
-  Ring r;
-  int n = 0;
-  attention_walk(p, cw * gridDim.x + blockIdx.x, [&](int b, int h, int q0) {
-    for (int j = 0; j < nkv; ++j) {
-      sm90::mbar_wait(&empty[r.s], r.ph ^ 1);
-      uint8_t* st = sm.kv_stage<D>(cw, r.s);
-      sm90::mbar_expect_tx(&full[r.s], kv_stage_bytes(D));
+__device__ __forceinline__ void attention_phase(const Maps& maps, const Params& p, const Smem& sm) {
+  constexpr int S = attn_stages(D), NT = D / 8, KS = D / 64;
+  const int w = threadIdx.x >> 7, tid = threadIdx.x & 127, t = threadIdx.x & 3;
+  const Walk walk(p, w * gridDim.x + blockIdx.x);
+  const int nt = walk.count(), nkv = (p.Tp + kKeys - 1) / kKeys, loads = nt * nkv;
+  uint8_t* q_tile = sm.q_tile<D>(w);
+  uint8_t* kv0 = sm.kv_stage<D>(w, 0);
+  uint64_t* qbar = sm.qfull(w);
+  uint64_t* fbar = sm.kvfull(w);
+  const uint32_t sQ = mm::smem_u32(q_tile), sKV = mm::smem_u32(kv0);
+  const uint32_t qfull = mm::smem_u32(qbar), full = qfull + 8;
+  auto issue_q = [&](int n) {
+    int b, h, q0;
+    walk.tile(n, b, h, q0);
+    sm90::mbar_expect_tx(qbar, q_tile_bytes(D));
 #pragma unroll
-      for (int s = 0; s < kSlabs; ++s) {
-        sm90::tma_load_3d(st + s * kBoxBytes, &maps.k, &full[r.s], p.E + h * D + 64 * s,
-                          j * kKeys, b);
-        sm90::tma_load_3d(st + kv_stage_bytes(D) / 2 + s * kBoxBytes, &maps.v, &full[r.s],
-                          2 * p.E + h * D + 64 * s, j * kKeys, b);
-      }
-      r.next(S);
-      if (j + 1 == q_after) {
-        if (n > 0) sm90::mbar_wait(qempty, (n - 1) & 1);
-        sm90::mbar_expect_tx(qfull, q_tile_bytes(D));
+    for (int s = 0; s < KS; ++s)
+      sm90::tma_load_3d(q_tile + s * kBoxBytes, &maps.q, qbar, h * D + 64 * s, q0, b);
+  };
+  auto issue_kv = [&](int i) {
+    int b, h, q0;
+    walk.tile(i / nkv, b, h, q0);
+    const int j = i % nkv, st = i % S;
+    uint8_t* dst = kv0 + st * kv_stage_bytes(D);
+    sm90::mbar_expect_tx(&fbar[st], kv_stage_bytes(D));
 #pragma unroll
-        for (int s = 0; s < kSlabs; ++s)
-          sm90::tma_load_3d(sQ + s * kBoxBytes, &maps.q, qfull, h * D + 64 * s, q0, b);
-      }
+    for (int s = 0; s < KS; ++s) {
+      sm90::tma_load_3d(dst + s * kKvBoxBytes, &maps.k, &fbar[st], p.E + h * D + 64 * s,
+                        j * kKeys, b);
+      sm90::tma_load_3d(dst + kv_stage_bytes(D) / 2 + s * kKvBoxBytes, &maps.v, &fbar[st],
+                        2 * p.E + h * D + 64 * s, j * kKeys, b);
     }
-    ++n;
-  });
-}
-
-// A consumer warpgroup's attention tiles.
-template <int D>
-__device__ __forceinline__ void attention_consume(const Params& p, const Smem& sm) {
-  constexpr int S = attn_stages(D), NT = D / 8;
-  const int cw = (threadIdx.x >> 7) - 1, tid = threadIdx.x & 127;
-  const int t = threadIdx.x & 3;
-  // 32-bit shared addresses: the Q tile, K/V stage 0 (stage st at
-  // + st * kv_stage_bytes, V at half of it), the mbarriers.
-  const uint32_t sQ = mm::smem_u32(sm.q_tile<D>(cw)), sKV = mm::smem_u32(sm.kv_stage<D>(cw, 0));
-  const uint32_t qfull = mm::smem_u32(sm.qfull(cw)), qempty = qfull + 8;
-  const uint32_t full = qfull + 16, empty = full + 8 * kMaxAttnStages;
-  const int nkv = (p.Tp + kKeys - 1) / kKeys;
-  Ring r;
-  int n = 0;
-  attention_walk(p, cw * gridDim.x + blockIdx.x, [&](int b, int h, int q0) {
+  };
+  if (tid == 0 && nt > 0) {
+    issue_q(0);
+    for (int i = 0; i < min(S, loads); ++i) issue_kv(i);
+  }
+  for (int n = 0; n < nt; ++n) {
+    int b, h, q0;
+    walk.tile(n, b, h, q0);
     const bool* kpm_b = p.kpm != nullptr ? p.kpm + (size_t)b * p.T : nullptr;
     Online st;
     st.start(p.flags & kZeroAttn, t);
@@ -106,40 +100,44 @@ __device__ __forceinline__ void attention_consume(const Params& p, const Smem& s
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     mbar_wait_s(qfull, n & 1);
-    int last = 0;
-    for (int j = 0; j < nkv; ++j) {
-      mbar_wait_s(full + 8 * r.s, r.ph);
-      const uint32_t sK = sKV + r.s * kv_stage_bytes(D), sV = sK + kv_stage_bytes(D) / 2;
+    int i = n * nkv;
+    for (int j = 0; j < nkv; ++j, ++i) {
+      const int sg = i % S;
+      mbar_wait_s(full + 8 * sg, (i / S) & 1);
+      const uint32_t sK = sKV + sg * kv_stage_bytes(D), sV = sK + kv_stage_bytes(D) / 2;
 
-      // S = Q K^T: 64 rows x 64 keys, K-major operands; thread holds
-      // s[4 c + e] at row g + 8 (e / 2) of its warp's 16, key
-      // 64 j + 8 c + 2 t + e % 2.
-      float s[32];
+      // S = Q K^T: 64 rows x 32 keys, K-major operands (32-row K boxes,
+      // 4096 bytes a slab); thread holds s[4 c + e] at row g + 8 (e / 2)
+      // of its warp's 16, key k0 + 8 c + 2 t + e % 2.
+      const int k0 = j * kKeys;
+      float s[16];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      for (int e = 0; e < 16; ++e) s[e] = 0.f;
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int slab = kk / 4, step = kk % 4;
-        sm90::wgmma_bf16<64>(s, kdesc_s(opaque(sQ) + slab * kBoxBytes, 128) + 2 * step,
-                             kdesc_s(opaque(sK) + slab * kBoxBytes, 128) + 2 * step, kk != 0);
+        wgmma_n32(s, kdesc_s(opaque(sQ) + slab * kBoxBytes, 128) + 2 * step,
+                  kdesc_s(opaque(sK) + slab * kKvBoxBytes, 128) + 2 * step, kk != 0);
       }
       sm90::wgmma_commit();
-      const int k0 = j * kKeys;
       const uint32_t mask = key_mask(kpm_b, p.T, k0, t);  // while it runs
       sm90::wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sm90::reg_fence(s[i]);
-      if (j == nkv - 1 && tid == 0) mbar_arrive_s(qempty);  // the tile's Q is done
+      for (int e = 0; e < 16; ++e) sm90::reg_fence(s[e]);
+      if (j == nkv - 1) {  // the tile's Q is done: the next tile's
+        sm90::named_sync(1 + w);
+        if (tid == 0 && n + 1 < nt) issue_q(n + 1);
+      }
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
-        s[i] = fmaf(s[i], p.attn_scale, key_bias(mask, i, k0, t, p.T, p.Tp));
+      for (int e = 0; e < 16; ++e)
+        s[e] = fmaf(s[e], p.attn_scale, key_bias(mask, e, k0, t, p.T, p.Tp));
 
       // P as bf16 A fragments: k-step kk covers keys 16 kk .. 16 kk + 15.
-      uint32_t pf[4][4];
+      uint32_t pf[2][4];
       if (p.flags & kSkipSoftmax) {
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
+        for (int c = 0; c < 4; ++c) {
           float pv[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) pv[e] = s[4 * c + e] == -INFINITY ? 0.f : s[4 * c + e];
@@ -157,7 +155,7 @@ __device__ __forceinline__ void attention_consume(const Params& p, const Smem& s
           o[4 * c + 3] *= alpha[1];
         }
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
+        for (int c = 0; c < 4; ++c) {
           float pv[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -169,23 +167,24 @@ __device__ __forceinline__ void attention_consume(const Params& p, const Smem& s
         }
       }
 
-      // O += P V: V [key][d] is N-major; 16 keys per k-step, 2048 bytes.
+      // O += P V: V [key][d] is N-major in 32-key slabs of 64 columns
+      // (4096 bytes apart); 16 keys per k-step, 2048 bytes.
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) sm90::reg_fence(o[i]);
+      for (int e = 0; e < D / 2; ++e) sm90::reg_fence(o[e]);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        sm90::wgmma_bf16_rs<D>(o, pf[kk], mndesc_s(opaque(sV) + kk * 2048, kBoxBytes));
+      for (int kk = 0; kk < 2; ++kk)
+        sm90::wgmma_bf16_rs<D>(o, pf[kk], mndesc_s(opaque(sV) + kk * 2048, kKvBoxBytes));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) sm90::reg_fence(o[i]);
-      // The stage is free, but the last one's: it stages the output.
-      if (j < nkv - 1 && tid == 0) mbar_arrive_s(empty + 8 * r.s);
-      last = r.s;
-      r.next(S);
+      for (int e = 0; e < D / 2; ++e) sm90::reg_fence(o[e]);
+      if (j < nkv - 1) {  // the stage is free (the last one stages the output)
+        sm90::named_sync(1 + w);
+        if (tid == 0 && i + S < loads) issue_kv(i + S);
+      }
     }
-    ++n;
+    --i;  // the tile's last load
 
     const int f = p.flags;
     const bool skip_sm = f & kSkipSoftmax, f32_out = f & kQuant, recip = f & kRecip;
@@ -193,33 +192,33 @@ __device__ __forceinline__ void attention_consume(const Params& p, const Smem& s
     st.reduce();
     const float inv[2] = {1.f / st.l[0], 1.f / st.l[1]};
     float amax[2] = {0.f, 0.f};  // of the values quant_attn_phase quantises
-    auto val = [&](int c, int i, float& y0, float& y1) {
-      y0 = o[4 * c + 2 * i];
-      y1 = o[4 * c + 2 * i + 1];
+    auto val = [&](int c, int r, float& y0, float& y1) {
+      y0 = o[4 * c + 2 * r];
+      y1 = o[4 * c + 2 * r + 1];
       if (!skip_sm) {
         if (recip) {
-          y0 = __fmul_rn(y0, inv[i]);
-          y1 = __fmul_rn(y1, inv[i]);
+          y0 = __fmul_rn(y0, inv[r]);
+          y1 = __fmul_rn(y1, inv[r]);
         } else {
-          y0 = __fdiv_rn(y0, st.l[i]);
-          y1 = __fdiv_rn(y1, st.l[i]);
+          y0 = __fdiv_rn(y0, st.l[r]);
+          y1 = __fdiv_rn(y1, st.l[r]);
         }
       }
       if (f32_out) {
         const float a0 = round_attn ? bf16_round(y0) : y0, a1 = round_attn ? bf16_round(y1) : y1;
-        amax[i] = fmaxf(amax[i], fmaxf(fabsf(a0), fabsf(a1)));
+        amax[r] = fmaxf(amax[r], fmaxf(fabsf(a0), fabsf(a1)));
       }
     };
-    uint8_t* stg = sm.kv_stage<D>(cw, last);
+    uint8_t* stg = kv0 + (i % S) * kv_stage_bytes(D);
     const size_t at = ((size_t)b * p.Tp + q0) * p.E + h * D;
     const int rows = min(kRows, p.Tp - q0);
     if (f32_out)
-      stage_out<true, D>(stg, 1 + cw, val, static_cast<float*>(p.attn) + at, p.E, rows);
+      stage_out<true, D>(stg, 1 + w, val, static_cast<float*>(p.attn) + at, p.E, rows);
     else
-      stage_out<false, D>(stg, 1 + cw, val, static_cast<bf16*>(p.attn) + at, p.E, rows);
-    if (tid == 0) mbar_arrive_s(empty + 8 * last);
+      stage_out<false, D>(stg, 1 + w, val, static_cast<bf16*>(p.attn) + at, p.E, rows);
+    if (tid == 0 && i + S < loads) issue_kv(i + S);
     if (f32_out) row_max_out(p, amax, b, q0);
-  });
+  }
 }
 
 template <int D>
@@ -230,9 +229,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   stamp(p, 0);
   const int f = p.flags;
-  // In the product and attention phases, warpgroup 0 produces: thread 0
-  // feeds the products' ring, threads 0 and 32 the consumer warpgroups'
-  // attention rings.
+  // In the product phases warpgroup 0 produces (thread 0 feeds the ring)
+  // and warpgroups 1 and 2 consume; all three take attention tiles.
   const bool producer = threadIdx.x < 128;
   int k = 0;
   Ring r;  // the products' ring position, carried from phase 2 to phase 4
@@ -243,12 +241,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   else if (threadIdx.x == 0)
     qkv_produce(maps, p, sm, r);
   grid_sync(g_bar, p, k);
-  if (!(f & kSkipAttn)) {
-    if (!producer)
-      attention_consume<D>(p, sm);
-    else if ((threadIdx.x & 31) == 0 && threadIdx.x < 64)
-      attention_produce<D>(maps, p, sm, threadIdx.x >> 5);
-  }
+  if (!(f & kSkipAttn)) attention_phase<D>(maps, p, sm);
   grid_sync(g_bar, p, k);
   if (f & kQuant) {
     quant_attn_phase(p);
@@ -321,11 +314,11 @@ extern "C" int mm_sa_block(const void* x, const void* scale, long long lds, cons
   p.attn_scale = attn_scale;
   p.eps = eps;
   Maps m;
-  if (!product_maps(&m, p, w_qkv, w_o) ||
-      !rows_map(&m.q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, qkv, 3 * E, Tp, B, 2, 64))
+  const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!product_maps(&m, p, w_qkv, w_o) || !rows_map(&m.q, bf, qkv, 3 * E, Tp, B, 2, 64, kRows) ||
+      !rows_map(&m.k, bf, qkv, 3 * E, Tp, B, 2, 64, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  m.k = m.q;
-  m.v = m.q;
+  m.v = m.k;
   const int D = E / H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return D == 64 ? launch(sa_block_kernel<64>, m, p, grid, sa_smem_bytes(64), s)

@@ -100,8 +100,9 @@ __device__ __forceinline__ void wgmma_s8_rs<128>(int* d, const uint32_t* a, uint
 }
 
 // The tiles of one lever set: q / k rows of D int8 (QQK) or 2D bytes, in
-// slabs of up to 128 bytes (64-byte rows take the 64-byte swizzle); v as
-// D rows of 64 int8 keys (QPV) or 64 key rows of D bf16 in 128-byte slabs.
+// slabs of up to 128 bytes (64-byte rows take the 64-byte swizzle); a K/V
+// stage of 32 keys: K rows, then v as D rows of 32 int8 keys (QPV, the
+// 32-byte swizzle) or 32 key rows of D bf16 in 128-byte slabs.
 template <int D, bool QQK, bool QPV>
 struct Tiles8 {
   static constexpr int kQkBytes = QQK ? D : 2 * D;
@@ -252,87 +253,34 @@ __device__ __forceinline__ void operands_phase(const Params& p) {
 // Attention
 // ---------------------------------------------------------------------------
 
-// The producer thread of consumer warpgroup cw: for each tile, pass 1's K
-// tiles then pass 2's K and V tiles through the ring, and the Q tile after
-// the first stages it can refill.
-template <int D, bool QQK, bool QPV>
-__device__ __forceinline__ void i8x_produce(const Maps& maps, const Params& p, const Smem& sm, int cw) {
-  using T8 = Tiles8<D, QQK, QPV>;
-  constexpr int S = attn_stages(D);
-  uint64_t* qfull = sm.qfull(cw);
-  uint64_t* qempty = sm.qempty(cw);
-  uint64_t* full = sm.kvfull(cw);
-  uint64_t* empty = sm.kvempty(cw);
-  uint8_t* sQ = sm.q_tile<D>(cw);
-  const int nkv = (p.Tp + kKeys - 1) / kKeys, loads = 2 * nkv, q_after = min(S - 1, loads);
-  Ring r;
-  int n = 0;
-  attention_walk(p, cw * gridDim.x + blockIdx.x, [&](int b, int h, int q0) {
-    for (int i = 0; i < loads; ++i) {
-      const int j = i < nkv ? i : i - nkv;
-      const bool with_v = i >= nkv;
-      sm90::mbar_wait(&empty[r.s], r.ph ^ 1);
-      uint8_t* st = sm.kv_stage<D>(cw, r.s);
-      sm90::mbar_expect_tx(&full[r.s], T8::kKBytes + (with_v ? T8::kVBytes : 0));
-#pragma unroll
-      for (int s = 0; s < T8::kQkSlabs; ++s)
-        sm90::tma_load_3d(st + s * kKeys * T8::kQkSlab, &maps.k, &full[r.s],
-                          h * D + s * T8::kQkSlabCols, j * kKeys, b);
-      if (with_v) {
-        uint8_t* sv = st + kv_stage_bytes(D) / 2;
-        if constexpr (QPV) {
-          sm90::tma_load_2d(sv, &maps.v, &full[r.s], j * kKeys, (b * p.H + h) * D);
-        } else {
-#pragma unroll
-          for (int s = 0; s < D / 64; ++s)
-            sm90::tma_load_3d(sv + s * kBoxBytes, &maps.v, &full[r.s], h * D + 64 * s, j * kKeys, b);
-        }
-      }
-      r.next(S);
-      if (i + 1 == q_after) {
-        if (n > 0) sm90::mbar_wait(qempty, (n - 1) & 1);
-        sm90::mbar_expect_tx(qfull, T8::kQBytes);
-#pragma unroll
-        for (int s = 0; s < T8::kQkSlabs; ++s)
-          sm90::tma_load_3d(sQ + s * kRows * T8::kQkSlab, &maps.q, qfull,
-                            h * D + s * T8::kQkSlabCols, q0, b);
-      }
-    }
-    ++n;
-  });
-}
-
-// The biased logits of a warpgroup's 64 rows and the keys k0.. of one K
-// tile: s[4 c + e] at row g + 8 (e / 2) of the warp's 16, key k0 + 8 c +
+// The biased logits of a warpgroup's 64 rows and the 32 keys k0.. of one
+// K stage: s[4 c + e] at row g + 8 (e / 2) of the warp's 16, key k0 + 8 c +
 // 2 t + e % 2.  QQK: float(q8 . k8) * (qs ks scale) + bias, else the bf16
 // product's f32 sum * scale + bias (each step rounded on its own).
 template <int D, bool QQK>
 __device__ __forceinline__ void i8x_logits(uint32_t sQ, uint32_t sK, float qk_scale,
                                            const bool* kpm_b, int T, int Tp, int k0, float* s) {
-  const int t = threadIdx.x & 3;
   using T8 = Tiles8<D, QQK, false>;
   using Acc = typename std::conditional<QQK, int, float>::type;
-  Acc acc[32];
+  const int t = threadIdx.x & 3;
+  Acc acc[16];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0;
+  for (int i = 0; i < 16; ++i) acc[i] = 0;
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < T8::kQkBytes / 32; ++kk) {
     const int slab = kk * 32 / T8::kQkSlab, off = (kk * 32 % T8::kQkSlab) >> 4;
     const uint64_t da = kdesc_s(opaque(sQ) + slab * kRows * T8::kQkSlab, T8::kQkSlab) + off;
     const uint64_t db = kdesc_s(opaque(sK) + slab * kKeys * T8::kQkSlab, T8::kQkSlab) + off;
-    if constexpr (QQK)
-      sm90::wgmma_s8<64>(acc, da, db, kk != 0);
-    else
-      sm90::wgmma_bf16<64>(acc, da, db, kk != 0);
+    wgmma_n32(acc, da, db, kk != 0);
   }
   sm90::wgmma_commit();
   const uint32_t mask = key_mask(kpm_b, T, k0, t);  // while it runs
   sm90::wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 32; ++i) sm90::reg_fence(acc[i]);
+  for (int i = 0; i < 16; ++i) sm90::reg_fence(acc[i]);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < 16; ++i) {
     const float bias = key_bias(mask, i, k0, t, T, Tp);
     if constexpr (QQK)
       s[i] = __fadd_rn(__fmul_rn(static_cast<float>(acc[i]), qk_scale), bias);
@@ -341,124 +289,170 @@ __device__ __forceinline__ void i8x_logits(uint32_t sQ, uint32_t sK, float qk_sc
   }
 }
 
-// A consumer warpgroup's attention tiles (32-bit shared addresses, as in
-// sa_block.cu).
+// The attention phase, every warpgroup of the block (sa_block.cu's walk and
+// loads): per tile, pass 1's K stages (loads 0 .. nkv - 1 of the tile) for
+// each row's max and denominator, then pass 2's K and V stages (loads
+// nkv .. 2 nkv - 1): p = exp(s - max) / denominator, then P V.
 template <int D, bool QQK, bool QPV>
-__device__ __forceinline__ void i8x_consume(const Params& p, const Smem& sm) {
+__device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p, const Smem& sm) {
+  using T8 = Tiles8<D, QQK, QPV>;
   constexpr int S = attn_stages(D), NT = D / 8;
-  const int cw = (threadIdx.x >> 7) - 1, tid = threadIdx.x & 127, t = threadIdx.x & 3;
-  const uint32_t sQ = mm::smem_u32(sm.q_tile<D>(cw)), sKV = mm::smem_u32(sm.kv_stage<D>(cw, 0));
-  const uint32_t qfull = mm::smem_u32(sm.qfull(cw)), qempty = qfull + 8;
-  const uint32_t full = qfull + 16, empty = full + 8 * kMaxAttnStages;
-  const int nkv = (p.Tp + kKeys - 1) / kKeys;
+  const int w = threadIdx.x >> 7, tid = threadIdx.x & 127, t = threadIdx.x & 3;
+  const Walk walk(p, w * gridDim.x + blockIdx.x);
+  const int nkv = (p.Tp + kKeys - 1) / kKeys, L = 2 * nkv, nt = walk.count(), loads = nt * L;
+  uint8_t* q_tile = sm.q_tile<D>(w);
+  uint8_t* kv0 = sm.kv_stage<D>(w, 0);
+  uint64_t* qbar = sm.qfull(w);
+  uint64_t* fbar = sm.kvfull(w);
+  const uint32_t sQ = mm::smem_u32(q_tile), sKV = mm::smem_u32(kv0);
+  const uint32_t qfull = mm::smem_u32(qbar), full = qfull + 8;
+  auto issue_q = [&](int n) {
+    int b, h, q0;
+    walk.tile(n, b, h, q0);
+    sm90::mbar_expect_tx(qbar, T8::kQBytes);
+#pragma unroll
+    for (int s = 0; s < T8::kQkSlabs; ++s)
+      sm90::tma_load_3d(q_tile + s * kRows * T8::kQkSlab, &maps.q, qbar,
+                        h * D + s * T8::kQkSlabCols, q0, b);
+  };
+  auto issue_kv = [&](int i) {
+    int b, h, q0;
+    walk.tile(i / L, b, h, q0);
+    const int x = i % L, j = x < nkv ? x : x - nkv, st = i % S;
+    const bool with_v = x >= nkv;
+    uint8_t* dst = kv0 + st * kv_stage_bytes(D);
+    sm90::mbar_expect_tx(&fbar[st], T8::kKBytes + (with_v ? T8::kVBytes : 0));
+#pragma unroll
+    for (int s = 0; s < T8::kQkSlabs; ++s)
+      sm90::tma_load_3d(dst + s * kKeys * T8::kQkSlab, &maps.k, &fbar[st],
+                        h * D + s * T8::kQkSlabCols, j * kKeys, b);
+    if (with_v) {
+      uint8_t* sv = dst + kv_stage_bytes(D) / 2;
+      if constexpr (QPV) {
+        sm90::tma_load_2d(sv, &maps.v, &fbar[st], j * kKeys, (b * p.H + h) * D);
+      } else {
+#pragma unroll
+        for (int s = 0; s < D / 64; ++s)
+          sm90::tma_load_3d(sv + s * kKvBoxBytes, &maps.v, &fbar[st], h * D + 64 * s, j * kKeys,
+                            b);
+      }
+    }
+  };
+  if (tid == 0 && nt > 0) {
+    issue_q(0);
+    for (int i = 0; i < min(S, loads); ++i) issue_kv(i);
+  }
   using OAcc = typename std::conditional<QPV, int, float>::type;
-  Ring r;
-  int n = 0;
-  attention_walk(p, cw * gridDim.x + blockIdx.x, [&](int b, int h, int q0) {
+  for (int n = 0; n < nt; ++n) {
+    int b, h, q0;
+    walk.tile(n, b, h, q0);
     const bool* kpm_b = p.kpm != nullptr ? p.kpm + (size_t)b * p.T : nullptr;
     const float qk_scale =
         QQK ? __fmul_rn(__fmul_rn(seq_scale(p, 0, b), seq_scale(p, 1, b)), p.attn_scale)
             : p.attn_scale;
     mbar_wait_s(qfull, n & 1);
+    int i = n * L;
 
     // Pass 1: each row's max (the zero key's 0 included) and denominator.
     Online st;
     st.start(p.flags & kZeroAttn, t);
-    for (int j = 0; j < nkv; ++j) {
-      mbar_wait_s(full + 8 * r.s, r.ph);
-      float s[32];
-      i8x_logits<D, QQK>(sQ, sKV + r.s * kv_stage_bytes(D), qk_scale, kpm_b, p.T, p.Tp,
+    for (int j = 0; j < nkv; ++j, ++i) {
+      const int sg = i % S;
+      mbar_wait_s(full + 8 * sg, (i / S) & 1);
+      float s[16];
+      i8x_logits<D, QQK>(sQ, sKV + sg * kv_stage_bytes(D), qk_scale, kpm_b, p.T, p.Tp,
                          j * kKeys, s);
-      if (tid == 0) mbar_arrive_s(empty + 8 * r.s);
-      r.next(S);
+      sm90::named_sync(1 + w);  // the stage is free
+      if (tid == 0 && i + S < loads) issue_kv(i + S);
       float mref[2], alpha[2];
       st.update(s, mref, alpha);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) st.l[(i >> 1) & 1] += ex2((s[i] - mref[(i >> 1) & 1]) * kLog2e);
+      for (int e = 0; e < 16; ++e) st.l[(e >> 1) & 1] += ex2((s[e] - mref[(e >> 1) & 1]) * kLog2e);
     }
     st.reduce();
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (st.m[i] == -INFINITY) st.m[i] = 0.f;
+    for (int r = 0; r < 2; ++r)
+      if (st.m[r] == -INFINITY) st.m[r] = 0.f;
 
     // Pass 2: p = exp(s - max) / denominator, then P V.
     OAcc o[D / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0;
-    int last = 0;
-    for (int j = 0; j < nkv; ++j) {
-      mbar_wait_s(full + 8 * r.s, r.ph);
-      const uint32_t sK = sKV + r.s * kv_stage_bytes(D), sV = sK + kv_stage_bytes(D) / 2;
-      float s[32];
+    for (int e = 0; e < D / 2; ++e) o[e] = 0;
+    for (int j = 0; j < nkv; ++j, ++i) {
+      const int sg = i % S;
+      mbar_wait_s(full + 8 * sg, (i / S) & 1);
+      const uint32_t sK = sKV + sg * kv_stage_bytes(D), sV = sK + kv_stage_bytes(D) / 2;
+      float s[16];
       i8x_logits<D, QQK>(sQ, sK, qk_scale, kpm_b, p.T, p.Tp, j * kKeys, s);
-      if (j == nkv - 1 && tid == 0) mbar_arrive_s(qempty);  // the tile's Q is done
+      if (j == nkv - 1) {  // the tile's Q is done: the next tile's
+        sm90::named_sync(1 + w);
+        if (tid == 0 && n + 1 < nt) issue_q(n + 1);
+      }
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
-        s[i] = __fdiv_rn(ex2((s[i] - st.m[(i >> 1) & 1]) * kLog2e), st.l[(i >> 1) & 1]);
+      for (int e = 0; e < 16; ++e)
+        s[e] = __fdiv_rn(ex2((s[e] - st.m[(e >> 1) & 1]) * kLog2e), st.l[(e >> 1) & 1]);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) sm90::reg_fence(o[i]);
+      for (int e = 0; e < D / 2; ++e) sm90::reg_fence(o[e]);
       if constexpr (QPV) {
-        // p8 = round(127 p) (p <= 1) into the s8 A fragment of each
-        // 32-key k-step: bytes of logits (c, e), c = 4 kk + 0..3.
-        uint32_t a[2][4];
+        // p8 = round(127 p) (p <= 1) into the s8 A fragment of the step's
+        // k32: register r holds the bytes of logits (c0, e0), (c0, e0 + 1),
+        // (c0 + 1, e0), (c0 + 1, e0 + 1), c0 = 2 (r / 2), e0 = 2 (r % 2).
+        uint32_t a[4];
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
+        for (int r = 0; r < 4; ++r) {
+          const int c0 = 2 * (r >> 1), e0 = 2 * (r & 1);
+          uint32_t word = 0;
 #pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            const int c0 = 4 * kk + 2 * (w >> 1), e0 = 2 * (w & 1);
-            uint32_t word = 0;
-#pragma unroll
-            for (int byte = 0; byte < 4; ++byte) {
-              const float v = s[4 * (c0 + (byte >> 1)) + e0 + (byte & 1)];
-              word |= (static_cast<uint32_t>(static_cast<int>(rintf(__fmul_rn(v, 127.f)))) & 0xffu)
-                      << (8 * byte);
-            }
-            a[kk][w] = word;
+          for (int byte = 0; byte < 4; ++byte) {
+            const float v = s[4 * (c0 + (byte >> 1)) + e0 + (byte & 1)];
+            word |= (static_cast<uint32_t>(static_cast<int>(rintf(__fmul_rn(v, 127.f)))) & 0xffu)
+                    << (8 * byte);
           }
+          a[r] = word;
+        }
         sm90::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) wgmma_s8_rs<D>(o, a[kk], kdesc_s(opaque(sV), 64) + 2 * kk);
+        wgmma_s8_rs<D>(o, a, kdesc_s(opaque(sV), 32));
       } else {
-        uint32_t pf[4][4];
+        uint32_t pf[2][4];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
+        for (int c = 0; c < 4; ++c) {
           pf[c >> 1][(c & 1) * 2 + 0] = mm::pack_bf16x2(s[4 * c + 0], s[4 * c + 1]);
           pf[c >> 1][(c & 1) * 2 + 1] = mm::pack_bf16x2(s[4 * c + 2], s[4 * c + 3]);
         }
         sm90::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          sm90::wgmma_bf16_rs<D>(o, pf[kk], mndesc_s(opaque(sV) + kk * 2048, kBoxBytes));
+        for (int kk = 0; kk < 2; ++kk)
+          sm90::wgmma_bf16_rs<D>(o, pf[kk], mndesc_s(opaque(sV) + kk * 2048, kKvBoxBytes));
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) sm90::reg_fence(o[i]);
-      // The stage is free, but the last one's: it stages the output.
-      if (j < nkv - 1 && tid == 0) mbar_arrive_s(empty + 8 * r.s);
-      last = r.s;
-      r.next(S);
+      for (int e = 0; e < D / 2; ++e) sm90::reg_fence(o[e]);
+      if (j < nkv - 1) {  // the stage is free (the last one stages the output)
+        sm90::named_sync(1 + w);
+        if (tid == 0 && i + S < loads) issue_kv(i + S);
+      }
     }
-    ++n;
+    --i;  // the tile's last load
 
     const float v_scale = seq_scale(p, 2, b) / 127.f;
     float amax[2] = {0.f, 0.f};
-    auto val = [&](int c, int i, float& y0, float& y1) {
+    auto val = [&](int c, int r, float& y0, float& y1) {
       if constexpr (QPV) {
-        y0 = __fmul_rn(static_cast<float>(o[4 * c + 2 * i]), v_scale);
-        y1 = __fmul_rn(static_cast<float>(o[4 * c + 2 * i + 1]), v_scale);
+        y0 = __fmul_rn(static_cast<float>(o[4 * c + 2 * r]), v_scale);
+        y1 = __fmul_rn(static_cast<float>(o[4 * c + 2 * r + 1]), v_scale);
       } else {
-        y0 = o[4 * c + 2 * i];
-        y1 = o[4 * c + 2 * i + 1];
+        y0 = o[4 * c + 2 * r];
+        y1 = o[4 * c + 2 * r + 1];
       }
-      amax[i] = fmaxf(amax[i], fmaxf(fabsf(y0), fabsf(y1)));
+      amax[r] = fmaxf(amax[r], fmaxf(fabsf(y0), fabsf(y1)));
     };
-    stage_out<true, D>(sm.kv_stage<D>(cw, last), 1 + cw, val,
+    stage_out<true, D>(kv0 + (i % S) * kv_stage_bytes(D), 1 + w, val,
                        static_cast<float*>(p.attn) + ((size_t)b * p.Tp + q0) * p.E + h * D, p.E,
                        min(kRows, p.Tp - q0));
-    if (tid == 0) mbar_arrive_s(empty + 8 * last);
+    if (tid == 0 && i + S < loads) issue_kv(i + S);
     row_max_out(p, amax, b, q0);
-  });
+  }
 }
 
 template <int D>
@@ -501,21 +495,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     grid_sync(g_bar, p, k);
   }
-  if (!producer) {
-    switch (lever) {
-      case 0: i8x_consume<D, false, false>(p, sm); break;
-      case 1: i8x_consume<D, true, false>(p, sm); break;
-      case 2: i8x_consume<D, false, true>(p, sm); break;
-      default: i8x_consume<D, true, true>(p, sm);
-    }
-  } else if ((threadIdx.x & 31) == 0 && threadIdx.x < 64) {
-    const int cw = threadIdx.x >> 5;
-    switch (lever) {
-      case 0: i8x_produce<D, false, false>(maps, p, sm, cw); break;
-      case 1: i8x_produce<D, true, false>(maps, p, sm, cw); break;
-      case 2: i8x_produce<D, false, true>(maps, p, sm, cw); break;
-      default: i8x_produce<D, true, true>(maps, p, sm, cw);
-    }
+  switch (lever) {
+    case 0: i8x_attention<D, false, false>(maps, p, sm); break;
+    case 1: i8x_attention<D, true, false>(maps, p, sm); break;
+    case 2: i8x_attention<D, false, true>(maps, p, sm); break;
+    default: i8x_attention<D, true, true>(maps, p, sm);
   }
   grid_sync(g_bar, p, k);
   quant_attn_phase(p);
@@ -597,17 +581,18 @@ extern "C" int mm_sa_block_i8x(const void* x, const void* scale, long long lds,
   Maps m;
   bool ok = product_maps(&m, p, w_qkv, w_o);
   if (qqk)
-    ok = ok && rows_map(&m.q, u8, qop, E, Tp, B, 1, D < 128 ? D : 128) &&
-         rows_map(&m.k, u8, kop, E, Tp, B, 1, D < 128 ? D : 128);
+    ok = ok && rows_map(&m.q, u8, qop, E, Tp, B, 1, D < 128 ? D : 128, kRows) &&
+         rows_map(&m.k, u8, kop, E, Tp, B, 1, D < 128 ? D : 128, kKeys);
   else
-    ok = ok && rows_map(&m.q, bf, qop, E, Tp, B, 2, 64) && rows_map(&m.k, bf, kop, E, Tp, B, 2, 64);
+    ok = ok && rows_map(&m.q, bf, qop, E, Tp, B, 2, 64, kRows) &&
+         rows_map(&m.k, bf, kop, E, Tp, B, 2, 64, kKeys);
   if (qpv) {
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.Tv), static_cast<cuuint64_t>(B) * E};
     const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.Tv)};
     const cuuint32_t box[2] = {kKeys, static_cast<cuuint32_t>(D)};
-    ok = ok && encode_map(&m.v, u8, vop, 2, dims, strides, box, 64);
+    ok = ok && encode_map(&m.v, u8, vop, 2, dims, strides, box, 32);
   } else {
-    ok = ok && rows_map(&m.v, bf, vop, E, Tp, B, 2, 64);
+    ok = ok && rows_map(&m.v, bf, vop, E, Tp, B, 2, 64, kKeys);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -101,27 +101,30 @@ constexpr int kEpiStride = 144;
 constexpr int kEpiWgBytes = 64 * kEpiStride + 2 * kBN * 4;
 constexpr int kGemmBytes = kGemmStages * kGemmStage + 2 * kEpiWgBytes;
 
-// Attention: 64 query rows per consumer warpgroup, 64 keys per K/V tile;
-// each consumer warpgroup has its own Q tile and K/V ring (in the shared
-// memory of the products' ring, idle then), sized for bf16 tiles (the int8
-// ones of sa_block_i8x are smaller).
+// Attention: all three warpgroups of a block take attention tiles of 64
+// query rows, each with its own Q tile and ring of K/V stages of 32 keys
+// (in the shared memory of the products' ring, idle then), sized for bf16
+// tiles (the int8 ones of sa_block_i8x are smaller).
+constexpr int kAttnWarpgroups = kThreads / 128;
 constexpr int kRows = 64;
-constexpr int kKeys = 64;
-constexpr int kBoxBytes = kRows * 128;  // a box of 64 rows of 128 bytes, one swizzled slab
-constexpr int kMaxAttnStages = 4;
-__host__ __device__ constexpr int attn_stages(int D) { return D == 64 ? 4 : 3; }
+constexpr int kKeys = 32;
+constexpr int kBoxBytes = kRows * 128;    // a Q box: 64 rows of 128 bytes, one swizzled slab
+constexpr int kKvBoxBytes = kKeys * 128;  // a K or V box: 32 rows of 128 bytes
+constexpr int kMaxAttnStages = 6;
+__host__ __device__ constexpr int attn_stages(int D) { return D == 64 ? 6 : 3; }
 __host__ __device__ constexpr int q_tile_bytes(int D) { return kRows * 2 * D; }
 __host__ __device__ constexpr int kv_stage_bytes(int D) { return 2 * kKeys * 2 * D; }
 __host__ __device__ constexpr int attn_wg_bytes(int D) {
   return q_tile_bytes(D) + attn_stages(D) * kv_stage_bytes(D);
 }
 __host__ __device__ constexpr int ring_bytes(int D) {
-  return kGemmBytes > 2 * attn_wg_bytes(D) ? kGemmBytes : 2 * attn_wg_bytes(D);
+  return kGemmBytes > kAttnWarpgroups * attn_wg_bytes(D) ? kGemmBytes
+                                                         : kAttnWarpgroups * attn_wg_bytes(D);
 }
-// The mbarriers: the products' full / empty pairs, then per consumer
-// warpgroup its Q full / empty pair and its K/V ring's pairs.
-constexpr int kWgBarriers = 2 + 2 * kMaxAttnStages;
-constexpr int kBarriers = 2 * kGemmStages + 2 * kWgBarriers;
+// The mbarriers: the products' full / empty pairs, then per warpgroup its
+// Q barrier and its K/V stages' (each warpgroup refills its own stages).
+constexpr int kWgBarriers = 1 + kMaxAttnStages;
+constexpr int kBarriers = 2 * kGemmStages + kAttnWarpgroups * kWgBarriers;
 
 // Dynamic shared memory of one block: the 1024-byte alignment slack of the
 // swizzle, the ring, the mbarriers (ops/sa_variants.py: sa_smem_bytes).
@@ -182,21 +185,17 @@ struct Smem {
   uint8_t* epi;     // the products' epilogue staging, after their ring
   uint64_t* full;   // the products' ring
   uint64_t* empty;
-  uint64_t* bars;   // per consumer warpgroup: Q full, Q empty, K/V full[4], K/V empty[4]
-  __device__ __forceinline__ uint64_t* qfull(int cw) const { return bars + cw * kWgBarriers; }
-  __device__ __forceinline__ uint64_t* qempty(int cw) const { return qfull(cw) + 1; }
-  __device__ __forceinline__ uint64_t* kvfull(int cw) const { return qfull(cw) + 2; }
-  __device__ __forceinline__ uint64_t* kvempty(int cw) const {
-    return qfull(cw) + 2 + kMaxAttnStages;
-  }
-  // Consumer warpgroup cw's Q tile and K/V stage st (K, then V at half).
+  uint64_t* bars;   // per warpgroup: Q full, then K/V full[kMaxAttnStages]
+  __device__ __forceinline__ uint64_t* qfull(int w) const { return bars + w * kWgBarriers; }
+  __device__ __forceinline__ uint64_t* kvfull(int w) const { return qfull(w) + 1; }
+  // Warpgroup w's Q tile and K/V stage st (K, then V at half).
   template <int D>
-  __device__ __forceinline__ uint8_t* q_tile(int cw) const {
-    return ring + cw * attn_wg_bytes(D);
+  __device__ __forceinline__ uint8_t* q_tile(int w) const {
+    return ring + w * attn_wg_bytes(D);
   }
   template <int D>
-  __device__ __forceinline__ uint8_t* kv_stage(int cw, int st) const {
-    return ring + cw * attn_wg_bytes(D) + q_tile_bytes(D) + st * kv_stage_bytes(D);
+  __device__ __forceinline__ uint8_t* kv_stage(int w, int st) const {
+    return ring + w * attn_wg_bytes(D) + q_tile_bytes(D) + st * kv_stage_bytes(D);
   }
 };
 
@@ -216,7 +215,7 @@ __device__ __forceinline__ Smem smem_layout(uint8_t* raw) {
       sm90::mbar_init(&m.full[s], 1);   // the producer's arrive, plus the TMA bytes
       sm90::mbar_init(&m.empty[s], 2);  // one arrive per consumer warpgroup
     }
-    for (int i = 0; i < 2 * kWgBarriers; ++i) sm90::mbar_init(&m.bars[i], 1);
+    for (int i = 0; i < kAttnWarpgroups * kWgBarriers; ++i) sm90::mbar_init(&m.bars[i], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   return m;
@@ -279,10 +278,10 @@ __device__ __forceinline__ uint32_t opaque(uint32_t v) {
   return v;
 }
 
-// K-major, rows of rb (64 or 128) bytes with that swizzle (kmajor_desc).
+// K-major, rows of rb (32, 64 or 128) bytes with that swizzle (kmajor_desc).
 __device__ __forceinline__ uint64_t kdesc_s(uint32_t addr, int rb) {
   return ((addr >> 4) & 0x3FFF) | (uint64_t(1) << 16) | (uint64_t((8 * rb) >> 4) << 32) |
-         (uint64_t(rb == 128 ? 1 : 2) << 62);
+         (uint64_t(rb == 128 ? 1 : rb == 64 ? 2 : 3) << 62);
 }
 
 // MN-major, 128-byte swizzle, mn_stride bytes between 64-element blocks of
@@ -813,21 +812,21 @@ __device__ __forceinline__ void out_consume(const Params& p, const Smem& sm, Rin
 // Attention, shared by both kernels
 // ---------------------------------------------------------------------------
 
-// The mask bits of this thread's 16 keys k0 + 8 (c / 2) + 2 t + c % 2 of
-// a sequence (kpm_b: its mask bytes, or null), bit c set where the key is
-// masked; read with unconditional loads (clamped to the row), so that all
-// 16 are in flight at once.
+// The mask bits of this thread's 8 keys k0 + 8 (c / 2) + 2 t + c % 2 of a
+// 32-key step of a sequence (kpm_b: its mask bytes, or null), bit c set
+// where the key is masked; read with unconditional loads (clamped to the
+// row), so that all 8 are in flight at once.
 __device__ __forceinline__ uint32_t key_mask(const bool* kpm_b, int T, int k0, int t) {
   uint32_t m = 0;
   if (kpm_b != nullptr) {
 #pragma unroll
-    for (int c = 0; c < 16; ++c)
+    for (int c = 0; c < 8; ++c)
       m |= static_cast<uint32_t>(kpm_b[min(k0 + (c >> 1) * 8 + 2 * t + (c & 1), T - 1)]) << c;
   }
   return m;
 }
 
-// The bias of logit s[i] of a tile (key k0 + 8 (i / 4) + 2 t + i % 2): -inf
+// The bias of logit s[i] of a step (key k0 + 8 (i / 4) + 2 t + i % 2): -inf
 // past Tp, -1e30 at padded (T <= key < Tp) and masked keys, else 0.
 __device__ __forceinline__ float key_bias(uint32_t mask, int i, int k0, int t, int T, int Tp) {
   const int c = 2 * (i >> 2) + (i & 1), key = k0 + (c >> 1) * 8 + 2 * t + (c & 1);
@@ -876,23 +875,65 @@ __device__ __forceinline__ void stage_out(uint8_t* stg, int bar, Val val, void* 
   }
 }
 
-// The attention tiles of consumer warpgroup ``gw`` (of 2 * gridDim.x, the
-// first warpgroups of all blocks first): units (group of ``rows``
-// sequences, head, 64-row query tile), or with kHeadBatch (group, query
-// tile) walking all heads; a unit walks its sequences and heads in turn,
-// so the output does not depend on the schedule.  fn(b, h, q0) for each
-// tile in order; the warpgroup's producer thread walks the same tiles.
-template <typename Fn>
-__device__ __forceinline__ void attention_walk(const Params& p, int gw, Fn fn) {
-  const int QT = (p.Tp + kRows - 1) / kRows;
-  const bool hb = p.flags & kHeadBatch;
-  const int HU = hb ? 1 : p.H;
-  const int units = (p.B / p.rows) * HU * QT;
-  for (int u = gw; u < units; u += 2 * gridDim.x) {
-    const int qt = u % QT, hu = (u / QT) % HU, bg = u / (QT * HU);
-    for (int r = 0; r < p.rows; ++r)
-      for (int h = hb ? 0 : hu; h < (hb ? p.H : hu + 1); ++h) fn(bg * p.rows + r, h, qt * kRows);
+// The attention tiles of warpgroup gw of the grid's kAttnWarpgroups *
+// gridDim.x (warpgroup w of block i is w * gridDim.x + i): units gw,
+// gw + 3 gridDim.x, ...; a unit is (group of ``rows`` sequences, head,
+// 64-row query tile), or with kHeadBatch (group, query tile) over all
+// heads, and walks its sequences and heads in turn, so the output does not
+// depend on the schedule.  count() tiles, tile(n) the n-th
+// (ops/sa_variants.py: attention_walk).
+struct Walk {
+  int gw, stride, QT, HU, per_unit, rows, H, units;
+  bool hb;
+  __device__ __forceinline__ Walk(const Params& p, int gw_)
+      : gw(gw_),
+        stride(kAttnWarpgroups * gridDim.x),
+        QT((p.Tp + kRows - 1) / kRows),
+        HU(p.flags & kHeadBatch ? 1 : p.H),
+        per_unit(p.flags & kHeadBatch ? p.rows * p.H : p.rows),
+        rows(p.rows),
+        H(p.H),
+        units((p.B / p.rows) * (p.flags & kHeadBatch ? 1 : p.H) * ((p.Tp + kRows - 1) / kRows)),
+        hb(p.flags & kHeadBatch) {}
+  __device__ __forceinline__ int count() const {
+    return gw < units ? (units - gw + stride - 1) / stride * per_unit : 0;
   }
+  __device__ __forceinline__ void tile(int n, int& b, int& h, int& q0) const {
+    const int k = n / per_unit, r = n - k * per_unit, u = gw + k * stride;
+    const int qt = u % QT, hu = (u / QT) % HU, bg = u / (QT * HU);
+    const int nh = hb ? H : 1, rr = r / nh;
+    b = bg * rows + rr;
+    h = hb ? r - rr * nh : hu;
+    q0 = qt * kRows;
+  }
+};
+
+// Q K^T of one 32-key step: D(64 x 32) (+)= A . B^T, bf16 with f32 sums
+// (m64n32k16) or s8 with s32 sums (m64n32k32), both operands K-major in
+// shared memory.  A thread holds d[4 c + e] at row g + 8 (e / 2) of its
+// warp's 16, key 8 c + 2 t + e % 2 of the step.
+__device__ __forceinline__ void wgmma_n32(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n32(int* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // The running softmax state of a thread's two rows (g and g + 8 of its
@@ -907,13 +948,13 @@ struct Online {
       l[i] = (zero_attn && t == 0) ? 1.f : 0.f;
     }
   }
-  // A tile's 16 logits per row (s[4 n + e]: row e / 2, key 8 n + 2 t + e % 2):
+  // A step's 8 logits per row (s[4 c + e]: row e / 2, key 8 c + 2 t + e % 2):
   // the new max, the rescale of l (returned as alpha for the output), and
   // mref, the max the exponents subtract (0 for a row with no finite logit).
   __device__ __forceinline__ void update(const float* s, float* mref, float* alpha) {
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    for (int i = 0; i < 16; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
@@ -947,31 +988,32 @@ inline bool shape_ok(int B, int T, int Tp, int E, int H, int grid) {
 }
 
 // A tensor map with the swizzle of ``swizzle_bytes`` (128: through the
-// shipped GEMM's cache, sm90::tensor_map; 64: encoded here), zero fill out
-// of bounds.  False if the driver refuses.
+// shipped GEMM's cache, sm90::tensor_map; 64 or 32: encoded here), zero
+// fill out of bounds.  False if the driver refuses.
 inline bool encode_map(CUtensorMap* out, CUtensorMapDataType dtype, const void* ptr, int rank,
                        const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
                        int swizzle_bytes) {
   if (swizzle_bytes == 128) return sm90::tensor_map(out, dtype, ptr, rank, dims, strides, box);
   const sm90::EncodeTiledFn encode = sm90::encode_tiled();
-  if (encode == nullptr || swizzle_bytes != 64) return false;
+  if (encode == nullptr || (swizzle_bytes != 64 && swizzle_bytes != 32)) return false;
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return encode(out, dtype, rank, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A row-major (B, Tp, cols) tensor as the 3-D map {cols, Tp, B}: boxes of
-// box_cols columns by 64 rows of one sequence (rows past Tp zero-filled),
-// swizzled by the box's row bytes (64 or 128).
+// box_cols columns by box_rows rows of one sequence (rows past Tp
+// zero-filled), swizzled by the box's row bytes (64 or 128).
 inline bool rows_map(CUtensorMap* m, CUtensorMapDataType dtype, const void* ptr, int cols, int Tp,
-                     int B, int elem_bytes, unsigned box_cols) {
+                     int B, int elem_bytes, unsigned box_cols, unsigned box_rows) {
   const cuuint64_t row = static_cast<cuuint64_t>(cols) * elem_bytes;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(Tp),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {row, row * Tp};
-  const cuuint32_t box[3] = {box_cols, kRows, 1};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
   return encode_map(m, dtype, ptr, 3, dims, strides, box, static_cast<int>(box_cols) * elem_bytes);
 }
 

@@ -76,15 +76,16 @@ from .quant import quant_rows_plain, quantize_weight
 KV_PAD = 8                      # sequence padding multiple (the JAX package's KV_PAD)
 HEAD_DIMS = (64, 128)           # instantiated in csrc/sa_block*.cu
 E_MULTIPLE = 128                # the products' 128-column tiles
-# csrc/sa_common.cuh: a block is a producer warpgroup and two consumer
-# warpgroups; the products' 128 x 128 tiles come through a ring of
-# GEMM_STAGES stages of 128-byte K slabs; attention takes 64 query rows per
-# consumer warpgroup and 64 keys per K/V tile, ATTN_STAGES[D] stages.
+# csrc/sa_common.cuh: a block is three warpgroups; in the product phases one
+# produces and two consume 128 x 128 tiles through a ring of GEMM_STAGES
+# stages of 128-byte K slabs; in the attention phase all three take tiles
+# of 64 query rows, with rings of ATTN_STAGES[D] stages of 32 keys.
 THREADS = 384
 GEMM_TILE = 128
 GEMM_STAGES = 6
-ATTN_ROWS = ATTN_KEYS = 64
-ATTN_STAGES = {64: 4, 128: 3}
+ATTN_WARPGROUPS = 3
+ATTN_ROWS, ATTN_KEYS = 64, 32
+ATTN_STAGES = {64: 6, 128: 3}
 EPI_STRIDE = 144                # the products' epilogue staging: 64 rows of 128 + 16 bytes
 SMEM_LIMIT = 232448             # 227 KB, the most an H100 block may ask for
 V_KEYS = 32                     # sa_block_i8x: int8 v's key blocks (Tv, KEY_POSITION)
@@ -446,11 +447,11 @@ def sa_smem_bytes(D: int) -> int:
     swizzle's 1024-byte alignment slack; the ring, the larger of the
     products' (GEMM_STAGES stages of a 128-row slab of each operand, 128
     bytes deep, then each consumer warpgroup's epilogue staging and column
-    vectors) and the two consumer warpgroups' attention tiles (a bf16 Q
-    tile and ATTN_STAGES[D] K/V stages each); the mbarriers."""
+    vectors) and the three warpgroups' attention tiles (a bf16 Q tile and
+    ATTN_STAGES[D] K/V stages each); the mbarriers."""
     gemm = GEMM_STAGES * 2 * GEMM_TILE * 128 + 2 * (64 * EPI_STRIDE + 2 * GEMM_TILE * 4)
-    attn = 2 * (ATTN_ROWS * 2 * D + ATTN_STAGES[D] * 2 * ATTN_KEYS * 2 * D)
-    barriers = 2 * GEMM_STAGES + 2 * (2 + 2 * max(ATTN_STAGES.values()))
+    attn = ATTN_WARPGROUPS * (ATTN_ROWS * 2 * D + ATTN_STAGES[D] * 2 * ATTN_KEYS * 2 * D)
+    barriers = 2 * GEMM_STAGES + ATTN_WARPGROUPS * (1 + max(ATTN_STAGES.values()))
     return 1024 + max(gemm, attn) + 8 * barriers
 
 
@@ -465,8 +466,8 @@ def sa_block_plan(E: int, H: int, *, i8x: bool = False, sms: int = H100_SMS,
     depend on B or T.  On an H100 (132 blocks) at T 299 (Tp 304), E 1024,
     H 8: the QKV product's 128 x 128 tiles are 19 x 24 = 456 at B 8 (3.45
     waves), 95 x 24 = 2280 at B 40 (17.3); the out-projection's 152 (1.15)
-    and 760 (5.8); the attention's 64-row units, one per consumer
-    warpgroup (264), 320 (1.2) and 1600 (6.1).  Raises ``RuntimeError``
+    and 760 (5.8); the attention's 64-row units, one per warpgroup (396),
+    320 (0.81) and 1600 (4.04).  Raises ``RuntimeError``
     before any launch if no block fits an SM.  The launch is cooperative
     besides: a grid the card cannot hold at once is refused instead of
     letting the barrier wait for blocks that never run."""
@@ -490,20 +491,20 @@ def gemm_walk(M: int, N: int, grid: int) -> list:
 
 def attention_walk(B: int, Tp: int, H: int, grid: int, *, rows: int = 1,
                    head_batch: bool = False) -> list:
-    """The attention tiles each consumer warpgroup takes
-    (``csrc/sa_common.cuh``: ``attention_walk``, walked alike by its
-    producer thread): warpgroup cw of block i is number cw * grid + i and
-    takes units gw, gw + 2 grid, ...; a unit is (group of ``rows``
-    sequences, head, 64-row query tile), or with ``head_batch`` (group,
-    query tile) over all heads, and walks its sequences and heads in turn
-    -> per warpgroup a list of (b, h, q0)."""
+    """The attention tiles each warpgroup takes (``csrc/sa_common.cuh``:
+    ``Walk``): warpgroup w of block i is number w * grid + i of
+    ATTN_WARPGROUPS * grid and takes units gw, gw + 3 grid, ...; a unit is
+    (group of ``rows`` sequences, head, 64-row query tile), or with
+    ``head_batch`` (group, query tile) over all heads, and walks its
+    sequences and heads in turn -> per warpgroup a list of (b, h, q0)."""
     QT = -(-Tp // ATTN_ROWS)
     HU = 1 if head_batch else H
     units = (B // rows) * HU * QT
+    stride = ATTN_WARPGROUPS * grid
     out = []
-    for gw in range(2 * grid):
+    for gw in range(stride):
         tiles = []
-        for u in range(gw, units, 2 * grid):
+        for u in range(gw, units, stride):
             qt, hu, bg = u % QT, (u // QT) % HU, u // (QT * HU)
             for r in range(rows):
                 for h in (range(H) if head_batch else (hu,)):

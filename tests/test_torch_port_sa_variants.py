@@ -293,14 +293,15 @@ def test_constants_match_the_kernels():
     assert c["kRows"] == sv.ATTN_ROWS and c["kKeys"] == sv.ATTN_KEYS
     assert c["kMaxAttnStages"] == max(sv.ATTN_STAGES.values())
     assert "return D == 64 ? %d : %d;" % (sv.ATTN_STAGES[64], sv.ATTN_STAGES[128]) in src
+    assert "kAttnWarpgroups = kThreads / 128;" in src and sv.THREADS // 128 == sv.ATTN_WARPGROUPS
     for formula in ("kGemmStage = (kBM + kBN) * kSlab;",
                     "kEpiWgBytes = 64 * kEpiStride + 2 * kBN * 4;",
                     "kGemmBytes = kGemmStages * kGemmStage + 2 * kEpiWgBytes;",
                     "return kRows * 2 * D;", "return 2 * kKeys * 2 * D;",
                     "return q_tile_bytes(D) + attn_stages(D) * kv_stage_bytes(D);",
-                    "return kGemmBytes > 2 * attn_wg_bytes(D) ? kGemmBytes : 2 * attn_wg_bytes(D);",
-                    "kWgBarriers = 2 + 2 * kMaxAttnStages;",
-                    "kBarriers = 2 * kGemmStages + 2 * kWgBarriers;",
+                    "return kGemmBytes > kAttnWarpgroups * attn_wg_bytes(D) ? kGemmBytes",
+                    "kWgBarriers = 1 + kMaxAttnStages;",
+                    "kBarriers = 2 * kGemmStages + kAttnWarpgroups * kWgBarriers;",
                     "return sm90::kSmemAlign + ring_bytes(D) + 8 * kBarriers;"):
         assert formula in src, formula
     for name in ("sa_block.cu", "sa_block_i8x.cu"):
@@ -340,14 +341,14 @@ def test_product_walks_cover_every_tile_once(B, T, E, H, grid):
 @pytest.mark.parametrize("B,T,E,H", WALK_SHAPES, ids=[f"{b}x{t}x{e}" for b, t, e, _ in WALK_SHAPES])
 @pytest.mark.parametrize("grid", [132, 7])
 def test_attention_walks_cover_every_tile_once(B, T, E, H, grid):
-    """Every (sequence, head, 64-row query tile) once over the 2 grid
-    consumer warpgroups, for rows 1 and 2 and the head-batched walk; a
-    unit's tiles follow each other in one warpgroup."""
+    """Every (sequence, head, 64-row query tile) once over the 3 grid
+    warpgroups, for rows 1 and 2 and the head-batched walk; a unit's tiles
+    follow each other in one warpgroup."""
     Tp = sv.padded_len(T)
     want = {(b, h, q) for b in range(B) for h in range(H) for q in range(0, Tp, 64)}
     for rows, hb in ((1, False), (2, False), (1, True)):
         walk = sv.attention_walk(B, Tp, H, grid, rows=rows, head_batch=hb)
-        assert len(walk) == 2 * grid
+        assert len(walk) == 3 * grid
         tiles = [t for wg in walk for t in wg]
         assert len(tiles) == len(want) and set(tiles) == want
         per_unit = rows * (H if hb else 1)
