@@ -50,8 +50,7 @@ __device__ unsigned int g_bar[2];  // the grid barrier's state (sa_common.cuh)
 // the warpgroup issues its loads: the Q tile of tile n, and load i (tile
 // i / nkv, keys 32 (i % nkv)..) into K/V stage i % S, refilled once the
 // warpgroup is done with it (the next tile's first loads and Q overlap the
-// current tile's last steps; the last step's stage stages the output, and
-// is refilled after).
+// current tile's last steps and its output).
 template <int D>
 __device__ __forceinline__ void attention_phase(const Maps& maps, const Params& p, const Smem& sm) {
   constexpr int S = attn_stages(D), NT = D / 8, KS = D / 64;
@@ -179,12 +178,9 @@ __device__ __forceinline__ void attention_phase(const Maps& maps, const Params& 
       sm90::wgmma_wait<0>();
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) sm90::reg_fence(o[e]);
-      if (j < nkv - 1) {  // the stage is free (the last one stages the output)
-        sm90::named_sync(1 + w);
-        if (tid == 0 && i + S < loads) issue_kv(i + S);
-      }
+      sm90::named_sync(1 + w);  // the stage is free
+      if (tid == 0 && i + S < loads) issue_kv(i + S);
     }
-    --i;  // the tile's last load
 
     const int f = p.flags;
     const bool skip_sm = f & kSkipSoftmax, f32_out = f & kQuant, recip = f & kRecip;
@@ -209,14 +205,13 @@ __device__ __forceinline__ void attention_phase(const Maps& maps, const Params& 
         amax[r] = fmaxf(amax[r], fmaxf(fabsf(a0), fabsf(a1)));
       }
     };
-    uint8_t* stg = kv0 + (i % S) * kv_stage_bytes(D);
+    uint8_t* stg = sm.attn_stg<D>(w);
     const size_t at = ((size_t)b * p.Tp + q0) * p.E + h * D;
     const int rows = min(kRows, p.Tp - q0);
     if (f32_out)
       stage_out<true, D>(stg, 1 + w, val, static_cast<float*>(p.attn) + at, p.E, rows);
     else
       stage_out<false, D>(stg, 1 + w, val, static_cast<bf16*>(p.attn) + at, p.E, rows);
-    if (tid == 0 && i + S < loads) issue_kv(i + S);
     if (f32_out) row_max_out(p, amax, b, q0);
   }
 }
@@ -315,8 +310,9 @@ extern "C" int mm_sa_block(const void* x, const void* scale, long long lds, cons
   p.eps = eps;
   Maps m;
   const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!product_maps(&m, p, w_qkv, w_o) || !rows_map(&m.q, bf, qkv, 3 * E, Tp, B, 2, 64, kRows) ||
-      !rows_map(&m.k, bf, qkv, 3 * E, Tp, B, 2, 64, kKeys))
+  if (!product_maps(&m, p, w_qkv, w_o) ||
+      !rows_map(&m.q, bf, qkv, 3 * E, 3 * E, Tp, B, 2, 64, kRows) ||
+      !rows_map(&m.k, bf, qkv, 3 * E, 3 * E, Tp, B, 2, 64, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
   m.v = m.k;
   const int D = E / H;

@@ -428,12 +428,9 @@ __device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p,
       sm90::wgmma_wait<0>();
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) sm90::reg_fence(o[e]);
-      if (j < nkv - 1) {  // the stage is free (the last one stages the output)
-        sm90::named_sync(1 + w);
-        if (tid == 0 && i + S < loads) issue_kv(i + S);
-      }
+      sm90::named_sync(1 + w);  // the stage is free
+      if (tid == 0 && i + S < loads) issue_kv(i + S);
     }
-    --i;  // the tile's last load
 
     const float v_scale = seq_scale(p, 2, b) / 127.f;
     float amax[2] = {0.f, 0.f};
@@ -447,10 +444,9 @@ __device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p,
       }
       amax[r] = fmaxf(amax[r], fmaxf(fabsf(y0), fabsf(y1)));
     };
-    stage_out<true, D>(kv0 + (i % S) * kv_stage_bytes(D), 1 + w, val,
+    stage_out<true, D>(sm.attn_stg<D>(w), 1 + w, val,
                        static_cast<float*>(p.attn) + ((size_t)b * p.Tp + q0) * p.E + h * D, p.E,
                        min(kRows, p.Tp - q0));
-    if (tid == 0 && i + S < loads) issue_kv(i + S);
     row_max_out(p, amax, b, q0);
   }
 }
@@ -473,7 +469,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // The projection (QkvOut), and each sequence's max |q|, |k|, |v|
   // (AmaxHook).
-  if (!producer) {
+  if (!producer && !(p.flags & (kQqk | kQpv | kKeepQkv))) {
+    qkv_consume(p, sm, r, RowsOut{static_cast<bf16*>(p.qop), 3 * p.E});  // packed, as sa_block's
+  } else if (!producer) {
     const int qqk = p.flags & kQqk ? 3 : 0, qpv = p.flags & kQpv ? 4 : 0;
     const QkvOut out{static_cast<float*>(p.qkv),  static_cast<bf16*>(p.qop),
                      static_cast<bf16*>(p.kop),   static_cast<bf16*>(p.vop),
@@ -522,9 +520,11 @@ int occupancy() {
 }  // namespace
 
 // As mm_sa_block (sa_block.cu) with int8 weights always (flags & 1): qkv is
-// (M, 3E) f32; amax: (3, B) f32 scratch for the per-sequence maxima; qop,
-// kop: (M, E) bf16 scratch (int8 with flags & 2048); vop: (M, E) bf16
-// scratch, or with flags & 1024 (B, E, Tv) int8, Tv = Tp rounded up to 32;
+// (M, 3E) f32 (with flags & (1024 | 2048 | 4096) only); amax: (3, B) f32
+// scratch for the per-sequence maxima; qop, kop: (M, E) bf16 scratch
+// (int8 with flags & 2048), or without flags 1024 | 2048 | 4096 qop is the
+// packed (M, 3E) bf16 projection; vop: (M, E) bf16 scratch, or with flags &
+// 1024 (B, E, Tv) int8, Tv = Tp rounded up to 32;
 // inv_static, static_as: 1 / static_as and static_as as f32 (flags & 512);
 // flags & 1024 int8 p.v, flags & 2048 int8 q.k^T.
 extern "C" int mm_sa_block_i8x(const void* x, const void* scale, long long lds,
@@ -580,19 +580,28 @@ extern "C" int mm_sa_block_i8x(const void* x, const void* scale, long long lds,
   const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   Maps m;
   bool ok = product_maps(&m, p, w_qkv, w_o);
-  if (qqk)
-    ok = ok && rows_map(&m.q, u8, qop, E, Tp, B, 1, D < 128 ? D : 128, kRows) &&
-         rows_map(&m.k, u8, kop, E, Tp, B, 1, D < 128 ? D : 128, kKeys);
+  // Without int8 operands (and without a reading of the f32 projection)
+  // the QKV product writes the bf16 projection packed, (M, 3E) in qop, as
+  // sa_block's, and k and v are its columns E.. and 2E..
+  const bool packed = !(flags & (kQqk | kQpv | kKeepQkv));
+  const bf16* q16 = static_cast<const bf16*>(qop);
+  if (packed)
+    ok = ok && rows_map(&m.q, bf, q16, E, 3 * E, Tp, B, 2, 64, kRows) &&
+         rows_map(&m.k, bf, q16 + E, E, 3 * E, Tp, B, 2, 64, kKeys) &&
+         rows_map(&m.v, bf, q16 + 2 * E, E, 3 * E, Tp, B, 2, 64, kKeys);
+  else if (qqk)
+    ok = ok && rows_map(&m.q, u8, qop, E, E, Tp, B, 1, D < 128 ? D : 128, kRows) &&
+         rows_map(&m.k, u8, kop, E, E, Tp, B, 1, D < 128 ? D : 128, kKeys);
   else
-    ok = ok && rows_map(&m.q, bf, qop, E, Tp, B, 2, 64, kRows) &&
-         rows_map(&m.k, bf, kop, E, Tp, B, 2, 64, kKeys);
+    ok = ok && rows_map(&m.q, bf, qop, E, E, Tp, B, 2, 64, kRows) &&
+         rows_map(&m.k, bf, kop, E, E, Tp, B, 2, 64, kKeys);
   if (qpv) {
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.Tv), static_cast<cuuint64_t>(B) * E};
     const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.Tv)};
     const cuuint32_t box[2] = {kKeys, static_cast<cuuint32_t>(D)};
     ok = ok && encode_map(&m.v, u8, vop, 2, dims, strides, box, 32);
-  } else {
-    ok = ok && rows_map(&m.v, bf, vop, E, Tp, B, 2, 64, kKeys);
+  } else if (!packed) {
+    ok = ok && rows_map(&m.v, bf, vop, E, E, Tp, B, 2, 64, kKeys);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

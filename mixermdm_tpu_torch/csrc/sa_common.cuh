@@ -117,9 +117,14 @@ __host__ __device__ constexpr int kv_stage_bytes(int D) { return 2 * kKeys * 2 *
 __host__ __device__ constexpr int attn_wg_bytes(int D) {
   return q_tile_bytes(D) + attn_stages(D) * kv_stage_bytes(D);
 }
+// After the rings, each warpgroup's staging of its output tile, 128 bytes
+// of each of the 64 rows at a time (rows padded by 16).
+constexpr int kStgBytes = kRows * kEpiStride;
+__host__ __device__ constexpr int attn_bytes(int D) {
+  return kAttnWarpgroups * (attn_wg_bytes(D) + kStgBytes);
+}
 __host__ __device__ constexpr int ring_bytes(int D) {
-  return kGemmBytes > kAttnWarpgroups * attn_wg_bytes(D) ? kGemmBytes
-                                                         : kAttnWarpgroups * attn_wg_bytes(D);
+  return kGemmBytes > attn_bytes(D) ? kGemmBytes : attn_bytes(D);
 }
 // The mbarriers: the products' full / empty pairs, then per warpgroup its
 // Q barrier and its K/V stages' (each warpgroup refills its own stages).
@@ -196,6 +201,10 @@ struct Smem {
   template <int D>
   __device__ __forceinline__ uint8_t* kv_stage(int w, int st) const {
     return ring + w * attn_wg_bytes(D) + q_tile_bytes(D) + st * kv_stage_bytes(D);
+  }
+  template <int D>
+  __device__ __forceinline__ uint8_t* attn_stg(int w) const {
+    return ring + kAttnWarpgroups * attn_wg_bytes(D) + w * kStgBytes;
   }
 };
 
@@ -833,13 +842,11 @@ __device__ __forceinline__ float key_bias(uint32_t mask, int i, int k0, int t, i
   return key >= Tp ? -INFINITY : (key >= T || ((mask >> c) & 1)) ? kMasked : 0.f;
 }
 
-// A consumer warpgroup's 64-row attention output tile through ``stg`` (64
-// rows of kEpiStride bytes; 128 bytes of each row at a time, f32 or, unless
-// kF32, bf16): val(c, i, y0, y1) gives the thread's values at row g + 8 i
-// of its warp, columns 8 c + 2 t and + 1; the first ``rows`` rows go out as
-// 16-byte pieces to dst + r * ld (elements).  Each thread fences its
-// shared memory writes against the async proxy at the end (the stage is a
-// TMA destination again).
+// A warpgroup's 64-row attention output tile through ``stg`` (64 rows of
+// kEpiStride bytes; 128 bytes of each row at a time, f32 or, unless kF32,
+// bf16): val(c, i, y0, y1) gives the thread's values at row g + 8 i of its
+// warp, columns 8 c + 2 t and + 1; the first ``rows`` rows go out as
+// 16-byte pieces to dst + r * ld (elements).
 template <bool kF32, int D, typename Val>
 __device__ __forceinline__ void stage_out(uint8_t* stg, int bar, Val val, void* dst, size_t ld,
                                           int rows) {
@@ -870,7 +877,6 @@ __device__ __forceinline__ void stage_out(uint8_t* stg, int bar, Val val, void* 
                                   (i & 7) * 16) =
             *reinterpret_cast<const uint4*>(stg + rr * kEpiStride + (i & 7) * 16);
     }
-    if (ch == D / kCols - 1) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     sm90::named_sync(bar);
   }
 }
@@ -1004,12 +1010,13 @@ inline bool encode_map(CUtensorMap* out, CUtensorMapDataType dtype, const void* 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A row-major (B, Tp, cols) tensor as the 3-D map {cols, Tp, B}: boxes of
-// box_cols columns by box_rows rows of one sequence (rows past Tp
-// zero-filled), swizzled by the box's row bytes (64 or 128).
-inline bool rows_map(CUtensorMap* m, CUtensorMapDataType dtype, const void* ptr, int cols, int Tp,
-                     int B, int elem_bytes, unsigned box_cols, unsigned box_rows) {
-  const cuuint64_t row = static_cast<cuuint64_t>(cols) * elem_bytes;
+// The first ``cols`` columns of a row-major (B, Tp, ld) tensor as the 3-D
+// map {cols, Tp, B}: boxes of box_cols columns by box_rows rows of one
+// sequence (rows past Tp zero-filled), swizzled by the box's row bytes (64
+// or 128).
+inline bool rows_map(CUtensorMap* m, CUtensorMapDataType dtype, const void* ptr, int cols, int ld,
+                     int Tp, int B, int elem_bytes, unsigned box_cols, unsigned box_rows) {
+  const cuuint64_t row = static_cast<cuuint64_t>(ld) * elem_bytes;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(Tp),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {row, row * Tp};

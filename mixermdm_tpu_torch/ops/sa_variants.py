@@ -447,10 +447,12 @@ def sa_smem_bytes(D: int) -> int:
     swizzle's 1024-byte alignment slack; the ring, the larger of the
     products' (GEMM_STAGES stages of a 128-row slab of each operand, 128
     bytes deep, then each consumer warpgroup's epilogue staging and column
-    vectors) and the three warpgroups' attention tiles (a bf16 Q tile and
-    ATTN_STAGES[D] K/V stages each); the mbarriers."""
+    vectors) and the three warpgroups' attention tiles (a bf16 Q tile,
+    ATTN_STAGES[D] K/V stages and the output's staging each); the
+    mbarriers."""
     gemm = GEMM_STAGES * 2 * GEMM_TILE * 128 + 2 * (64 * EPI_STRIDE + 2 * GEMM_TILE * 4)
-    attn = ATTN_WARPGROUPS * (ATTN_ROWS * 2 * D + ATTN_STAGES[D] * 2 * ATTN_KEYS * 2 * D)
+    attn = ATTN_WARPGROUPS * (ATTN_ROWS * 2 * D + ATTN_STAGES[D] * 2 * ATTN_KEYS * 2 * D
+                              + ATTN_ROWS * EPI_STRIDE)
     barriers = 2 * GEMM_STAGES + ATTN_WARPGROUPS * (1 + max(ATTN_STAGES.values()))
     return 1024 + max(gemm, attn) + 8 * barriers
 
@@ -605,10 +607,15 @@ def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, e
     # attention operands q, k, v (bytes; 0 where the form has none).
     e2 = x.element_size()
     op = M * E * e2 if i8x else 0
-    sizes = (M * E * (1 if quant else e2), 4 * M if quant else 0, M * 3 * E * (4 if i8x else e2),
+    qkv, vop = M * 3 * E * (4 if i8x else e2), max(op, B * E * v_keys(Tp)) if i8x else 0
+    qop = kop = op
+    if i8x and not flags & (F_QQK | F_QPV | F_KEEP_QKV):
+        # sa_block_i8x without int8 operands: no f32 projection, the bf16
+        # one packed (M, 3E) in qop
+        qkv, qop, kop, vop = 0, 3 * op, 0, 0
+    sizes = (M * E * (1 if quant else e2), 4 * M if quant else 0, qkv,
              M * E * (4 if quant else e2), M * E if quant else 0, 4 * M if quant else 0,
-             4 * M if quant else 0, 12 * B if i8x else 0, op, op,
-             max(op, B * E * v_keys(Tp)) if i8x else 0)
+             4 * M if quant else 0, 12 * B if i8x else 0, qop, kop, vop)
     offsets, total = [], 0
     for n in sizes:
         offsets.append(total if n else None)

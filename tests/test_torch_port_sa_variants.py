@@ -299,7 +299,9 @@ def test_constants_match_the_kernels():
                     "kGemmBytes = kGemmStages * kGemmStage + 2 * kEpiWgBytes;",
                     "return kRows * 2 * D;", "return 2 * kKeys * 2 * D;",
                     "return q_tile_bytes(D) + attn_stages(D) * kv_stage_bytes(D);",
-                    "return kGemmBytes > kAttnWarpgroups * attn_wg_bytes(D) ? kGemmBytes",
+                    "kStgBytes = kRows * kEpiStride;",
+                    "return kAttnWarpgroups * (attn_wg_bytes(D) + kStgBytes);",
+                    "return kGemmBytes > attn_bytes(D) ? kGemmBytes : attn_bytes(D);",
                     "kWgBarriers = 1 + kMaxAttnStages;",
                     "kBarriers = 2 * kGemmStages + kAttnWarpgroups * kWgBarriers;",
                     "return sm90::kSmemAlign + ring_bytes(D) + 8 * kBarriers;"):
