@@ -34,8 +34,10 @@ Phases, each printing its wall-clock seconds:
    ``sa_variant`` rows 1 / 2 with and without the reciprocal softmax,
    ``sa_headbatch``, ``sa_ablate``'s five skip sets, bf16 and W8A8;
    ``sa_block_i8x``: ``sa_int8x``'s four lever sets) against their plain
-   versions at (8, 299, 1024) and (40, 299, 1024), H 8, and at B 8 with
-   keys masked; at B 8 timed beside the shipped composition and the bound;
+   versions at (8, 299, 1024), (8, 299, 512) and (40, 299, 1024), H 8, and
+   at B 8 with keys masked; at B 8 timed beside the shipped composition and
+   the bound, and at (8, 299, 1024) each phase's device time read from the
+   kernels' %globaltimer stamps;
    int8 p.v also held on the kernel's own q, k, v (the witness of its
    limit); the W8A8 blocks at shapes their fused plan refuses (16 heads;
    FFN 4096) through the unfused pair; then ``python -m
@@ -1479,8 +1481,14 @@ SA_L2_TOL = 1e-2
 # 300 off, would move 127 p by about 1e-3 at every key.
 SA_QPV_TOL = 6e-2
 SA_FLIP_REL = 1e-5
-SA_SHAPES = ((8, 299, 1024, 8), (40, 299, 1024, 8))  # the SA blocks' shape; the script's
+# The SA blocks' shape, the mixer's width (head dim 64, the kernels' other
+# instantiation) and the experiment script's B 40.
+SA_SHAPES = ((8, 299, 1024, 8), (8, 299, 512, 8), (40, 299, 1024, 8))
 SA_TIMED_B = 8  # B 40 is timed by the experiment script's own run
+# The cases whose phases (ops.sa_variants.phase_stamps) are printed at B 8,
+# E 1024: median ns of each phase over SA_PHASE_READS launches.
+SA_PHASE_CASES = ("rows=1 recip=0", "static act scale")
+SA_PHASE_READS = 5
 
 
 def _finite_rel(got, want):
@@ -1550,11 +1558,13 @@ def sa_variant_phase(seed):
     """Every configuration of ``sa_block`` (sa_variant rows 1 / 2 x recip x
     bf16 / W8A8; sa_headbatch; sa_ablate's five skip sets) and of
     ``sa_block_i8x`` (sa_int8x's four lever sets) against its plain version
-    at the SA blocks' shape (8, 299, 1024), H 8, and at the kernel
-    experiments' B 40; at B 8 also with keys masked (sa_variant, sa_int8x),
-    and there graph-replay ms beside the shipped composition
-    (fused_sa_block / fused_sa_block_q8 on the same inputs) and the H100's
-    bound, and host us per eager call.  The int8 p.v configurations also
+    at the SA blocks' shape (8, 299, 1024), H 8, at the mixer's width (8,
+    299, 512), H 8 (head dim 64), and at the kernel experiments' B 40; at
+    B 8 also with keys masked (sa_variant, sa_int8x), and there graph-replay
+    ms beside the shipped composition (fused_sa_block / fused_sa_block_q8 on
+    the same inputs) and the H100's bound, and host us per eager call; at
+    (8, 299, 1024) each phase's device time of sa_variant rows 1 (bf16,
+    W8A8) and sa_int8x static (ops.sa_variants.phase_stamps).  The int8 p.v configurations also
     hold the kernel's attention alone against the plain one on the kernel's
     q, k, v (:func:`_qpv_witness`) and the block's tail (quantised attention,
     out-projection, residual) against the plain tail on the kernel's
@@ -1574,6 +1584,7 @@ def sa_variant_phase(seed):
     results = []
     for B, T, E, H in SA_SHAPES:
         timed = B == SA_TIMED_B
+        at = f"B={B}" + (f" E={E}" if E != 1024 else "")
         inp = ek.make_inputs(B, T, E, H, seed=seed)
         w = ek.weights(inp)
         st = ek.static_scale(inp)
@@ -1621,7 +1632,7 @@ def sa_variant_phase(seed):
             tol = SA_QPV_TOL if qpv else SA_TOL
             ok = rel <= tol and l2 <= SA_L2_TOL
             res = {
-                "check": f"{kernel} {name} {'w8a8' if quant else 'bf16'} B={B}", "kind": kernel,
+                "check": f"{kernel} {name} {'w8a8' if quant else 'bf16'} {at}", "kind": kernel,
                 "shape": {"B": B, "T": T, "E": E, "H": H, "quant": quant, "masked_keys":
                           B * T - keys, **kw},
                 "max_abs_err": max_abs, "max_rel_err": rel, "tol_rel": tol,
@@ -1662,10 +1673,25 @@ def sa_variant_phase(seed):
                 for q in (False, True)}
         same["headbatch vs rows=1 bf16"] = torch.equal(outs["headbatch", False],
                                                        outs["rows=1 recip=0", False])
-        res = {"check": f"sa_block schedule B={B}", "kind": "sa_block", "bitwise": same,
+        res = {"check": f"sa_block schedule {at}", "kind": "sa_block", "bitwise": same,
                "ok": all(same.values())}
         print("   " + json.dumps(res), flush=True)
         results.append(res)
+        if timed and E == 1024:
+            # Each phase's device time (block 0's %globaltimer at the start
+            # and after each grid barrier, the latest block's end).
+            split = {}
+            for name, kernel, quant, kw, mask, run in cases:
+                if name not in SA_PHASE_CASES:
+                    continue
+                with sv.phase_stamps() as log:
+                    for _ in range(SA_PHASE_READS):
+                        run()
+                torch.cuda.synchronize()
+                reads = [sv.phase_ns(e) for e in log]
+                split[f"{kernel} {name} {'w8a8' if quant else 'bf16'}"] = {
+                    k: sorted(r[k] for r in reads)[len(reads) // 2] for k in reads[0]}
+            print("   " + json.dumps({"check": f"sa phases {at}", "phase_ns": split}), flush=True)
 
     # The W8A8 blocks where the fused plan refuses: 16 heads of 64 (SA, CA),
     # F 4096 (FFN), through attention / linear_q8 + quant_rows.

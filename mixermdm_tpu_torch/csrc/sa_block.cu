@@ -9,20 +9,24 @@
 // _sa_abl_kernel / _abl_q8 (sa_ablate, with LayerNorm, attention or softmax
 // switched off, timing only; :433).  Their options are runtime flags of one
 // kernel (sa_common.cuh) and the phases are sa_common.cuh's; this file holds
-// the attention phase, the design of csrc/attention.cu's bf16 forward:
+// the attention phase, after the design of csrc/attention.cu's bf16
+// forward:
 // - work units: (group of `rows` sequences, head, 64-row query tile), or
 //   with kHeadBatch (sequence, query tile) walking all heads, one unit a
-//   consumer warpgroup; a unit walks its sequences and heads in turn, so
-//   the output does not depend on the schedule.  64-row tiles keep 3 of 4
-//   warps busy in Tp 304's last tile (a 128-row tile left 5 of 8 idle);
-// - each consumer warpgroup has its own producer thread, Q tile and ring
-//   of 64-key K/V tiles, loaded by TMA straight out of the packed (B, Tp,
-//   3E) projection (rows past Tp zero-filled); the producer issues the
-//   next tile's Q once the warpgroup's last Q K^T of the current tile is
-//   done, after the first K/V stages it can refill;
-// - S = Q K^T on wgmma m64n64k16 from shared memory, O += P V on wgmma
+//   warpgroup, all three warpgroups of a block (sa_common.cuh: Walk); a
+//   unit walks its sequences and heads in turn, so the output does not
+//   depend on the schedule.  64-row tiles keep 3 of 4 warps busy in Tp
+//   304's last tile (a 128-row tile left 5 of 8 idle), and three
+//   warpgroups an SM hold B 8's 320 units in one wave (396 warpgroups);
+// - each warpgroup has its own Q tile and ring of 32-key K/V stages (32,
+//   not 64: three rings fit in shared memory), loaded by TMA straight out
+//   of the packed (B, Tp, 3E) projection (rows past Tp zero-filled); its
+//   thread 0 refills a stage once the warpgroup is done with it, and
+//   issues the next tile's Q once the current tile's last Q K^T is done;
+// - S = Q K^T on wgmma m64n32k16 from shared memory, O += P V on wgmma
 //   m64nDk16 with P from registers (S's fragment packed to bf16) and V read
-//   MN-major, f32 sums;
+//   MN-major, f32 sums; a key's 32 logits a step keep the loop under the
+//   168 registers of the launch bound;
 // - an online softmax in f32 started at (max 0, sum 1) for the zero key of
 //   add_zero_attn, one ex2.approx per logit (as the port's attention
 //   kernel); the bias -1e30 at padded (T <= key < Tp) and masked keys,
@@ -30,7 +34,10 @@
 // - kSkipSoftmax: p = the biased logit rounded to bf16, no max, exp or
 //   denominator (keys past Tp give 0); kSkipAttn skips the phase (the
 //   out-projection reads v).
-// The output is bf16 (f32 with kQuant, for the per-row quantisation).
+// The output is bf16, or f32 with kQuant for the per-row quantisation,
+// whose row maxima the tile's epilogue takes (row_max_out).  The output
+// tile goes out through the warpgroup's staging, 128 bytes of each row at
+// a time, as 16-byte pieces.
 //
 // What bounds it on an H100: the two products' tensor-core operations,
 // 2 B Tp E (4E + 2 Tp) at the JAX cost estimate (exp_kernels.py:214):

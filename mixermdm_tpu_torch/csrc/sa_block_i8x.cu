@@ -12,42 +12,45 @@
 //     (vs / 127) (:702-734);
 // (c) int8 q.k^T: q and k quantised with one scale per sequence each,
 //     logits = float(q8 . k8) * (qs * ks * 1/sqrt(D)), left to right (:695-714).
-// q, k and v stay f32 out of the QKV product (the JAX kernel casts them
-// only where it uses them in bf16), and the per-sequence scales are maxima
-// over the sequence's whole padded block, all E columns: Tp rows of q, k
-// and v (the padded rows hold shift-valued inputs, so they count).  They
-// are taken in the QKV product's epilogue, one atomicMax on the float bits
-// per warp and row group, and read after the next barrier.
+// q, k and v stay f32 out of the QKV product where they are quantised (the
+// JAX kernel casts them only where it uses them in bf16; the f32 values
+// cast to bf16 are the bf16 operands, written by the product's epilogue),
+// and the per-sequence scales are maxima over the sequence's whole padded
+// block, all E columns: Tp rows of q, k and v (the padded rows hold
+// shift-valued inputs, so they count).  They are taken in the QKV
+// product's epilogue, one atomicMax on the float bits per warp and row
+// group, and read after the next barrier.
 //
 // The phases are sa_common.cuh's with two of this file's between the QKV
 // product and the quantised attention output:
-// - the operands: once the maxima are known, one pass reads the f32 q, k
-//   and v and writes the attention's operands in the layouts TMA loads and
-//   wgmma reads: q and k as int8 (int8 q.k^T) or bf16 rows (M, E); v as
-//   bf16 rows, or (int8 p.v) as int8 (B, H, D, Tv) with the keys of each
-//   sequence contiguous (K-major, the only form s8 wgmma takes), Tv = Tp
-//   rounded up to 32, and the keys of each 32-key block stored in the order
-//   in which a thread's logits arrive in the A fragment (below).  The
-//   quantisations are the plain versions' (quant_v, int8_attention_probs:
-//   IEEE division, rintf), the casts round to nearest;
-// - attention, two passes over 64-key tiles per 64-row query tile of a
-//   consumer warpgroup (the TMA rings of sa_block.cu), because p is
-//   normalised before it is quantised: pass 1 the row max (zero key
-//   included) and denominator, pass 2 the logits again and p = exp(s -
-//   max) / denominator, then P V.  q.k^T on wgmma m64n64k32 s8 (int32 sums,
-//   exact) or m64n64k16 bf16; p.v on m64nDk32 s8 with P8 = round(127 p)
+// - (int8 q.k^T or p.v) the int8 operands: once the maxima are known, one
+//   pass reads the f32 q, k or v and writes them in the layouts TMA loads
+//   and wgmma reads: q and k as int8 rows (M, E); v as int8 (B, H, D, Tv)
+//   with the keys of each sequence contiguous (K-major, the only form s8
+//   wgmma takes), Tv = Tp rounded up to 32, and the keys of each 32-key
+//   block stored in the order in which a thread's logits arrive in the A
+//   fragment (below).  The quantisations are the plain versions' (quant_v,
+//   int8_attention_probs: IEEE division, rintf).  Without an int8 operand
+//   the epilogue writes the bf16 projection packed, as sa_block's;
+// - attention, two passes over 32-key steps per 64-row query tile of a
+//   warpgroup (sa_block.cu's walk and TMA rings), because p is normalised
+//   before it is quantised: pass 1 the row max (zero key included) and
+//   denominator, pass 2 the logits again and p = exp(s - max) /
+//   denominator, then P V.  q.k^T on wgmma m64n32k32 s8 (int32 sums,
+//   exact) or m64n32k16 bf16; p.v on m64nDk32 s8 with P8 = round(127 p)
 //   from registers (a thread's logits at keys 8 c + 2 t + e of a 32-key
-//   block fill A-fragment positions 16 (c / 2) + 4 t + 2 (c % 2) + e, and
+//   step fill A-fragment positions 16 (c / 2) + 4 t + 2 (c % 2) + e, and
 //   v's keys are stored in that order, so no shuffle is needed and the
 //   integer sums are those of the keys in order), or on m64nDk16 bf16 with
 //   P from registers and v read MN-major.  The f32 output is quantised per
-//   row (quant_rows' arithmetic) for the int8 out-projection, as the JAX
-//   kernel's _qdot does.
+//   row (quant_rows' arithmetic, the row maxima from the tiles' epilogues)
+//   for the int8 out-projection, as the JAX kernel's _qdot does.
 //
 // What bounds it on an H100: the products' int8 tensor-core operations,
 // 2 B Tp E (4E + 2 Tp) at the JAX cost estimate: 117 G at B 40, T 299,
-// E 1024, 0.059 ms at 1979 TOP/s; the f32 projection (B Tp 3E x 4 bytes,
-// 149 MB at B 40) is written and read once more by the operand pass.
+// E 1024, 0.059 ms at 1979 TOP/s; with an int8 operand the f32 projection
+// (B Tp 3E x 4 bytes, 149 MB at B 40) is written and read once more by the
+// operand pass.
 #include "sa_common.cuh"
 
 namespace {

@@ -15,7 +15,7 @@
 //   2. the merged QKV product (M = B * Tp, N = 3E, K = E), 128 x 128 tiles;
 //   3. attention (in the kernel files);
 //   3b. (W8A8) the attention output quantised per row, quant_rows'
-//      arithmetic;
+//      arithmetic (the row maxima taken by the attention's epilogues);
 //   4. the out-projection, + bias, cast to bf16, then + residual (the JAX
 //      kernels cast before they add), rows t < T only.
 // The barrier is a counter and a generation number in device memory: each
@@ -28,26 +28,30 @@
 // of letting it hang.  One launch at a time per device (the barrier state
 // is one global per kernel file).
 //
-// The block: in the product and attention phases warpgroup 0 is the
-// producer (one thread per TMA stream) and warpgroups 1 and 2 the
-// consumers; all 12 warps run the row-wise phases 1 and 3b.  (No
-// setmaxnreg: ptxas compiled the consumers to the 168 registers of the
+// The block: in the product phases warpgroup 0 is the producer (its
+// thread 0 issues the TMA loads) and warpgroups 1 and 2 the consumers; in
+// the attention phase all three take tiles, each issuing its own loads
+// (sa_block.cu); all 12 warps run the row-wise phases 1 and 3b.  (No
+// setmaxnreg: ptxas compiled the consumer code to the 168 registers of the
 // launch bound whatever the increase asked, spilling the same, so the
-// producer warps keep theirs for the row-wise work.)  The products
-// are the shipped GEMM's main loop (gemm_sm90.cuh, whose primitives this
-// file uses): TMA loads of 128-byte-deep K slabs of both operands with the
-// 128-byte swizzle into a ring of kGemmStages stages on full / empty
-// mbarrier pairs; each consumer warpgroup runs wgmma m64n128k16 (bf16) or
-// m64n128k32 (s8) on its 64 rows of the 128 x 128 tile.  The ring is not
-// drained between tiles or between the two product phases: the producer
-// keeps the next tile's slabs in flight through the current epilogue, and
-// both sides carry their ring position from phase 2 to phase 4.  The
-// epilogues write from the wgmma fragment.  The intermediates (xn, qkv,
-// attn, a8) live in the wrapper's scratch, and their tensor maps are
-// encoded on the host for each call and passed as __grid_constant__, so a
-// captured graph holds them.  Around each barrier every thread fences its
-// accesses against the async proxy, so the next phase's TMA loads see what
-// other blocks wrote.
+// producer warpgroup keeps its registers for the other phases.)  The
+// products are the shipped GEMM's main loop (gemm_sm90.cuh, whose
+// primitives this file uses): TMA loads of 128-byte-deep K slabs of both
+// operands with the 128-byte swizzle into a ring of kGemmStages stages on
+// full / empty mbarrier pairs; each consumer warpgroup runs wgmma
+// m64n128k16 (bf16) or m64n128k32 (s8) on its 64 rows of the 128 x 128
+// tile.  The ring is not drained between tiles or between the two product
+// phases: the producer keeps the next tile's slabs in flight through the
+// current epilogue, and both sides carry their ring position from phase 2
+// to phase 4.  The epilogue takes the tile's biases and column scales
+// (loaded when the tile starts) from shared memory, stages the values
+// through shared memory 128 bytes of each row at a time and writes 16-byte
+// row pieces (the residual read before the chunk's stores).  The
+// intermediates (xn, qkv, attn, a8) live in the wrapper's scratch, and
+// their tensor maps are encoded on the host for each call and passed as
+// __grid_constant__, so a captured graph holds them.  Around each barrier
+// every thread fences its accesses against the async proxy, so the next
+// phase's TMA loads see what other blocks wrote.
 //
 // Numerics as in the port's unfused kernels: the LayerNorm is adaln.cu's
 // (same order of sums, one bf16 rounding of the modulated value), the
@@ -240,18 +244,9 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// wgmma descriptor of a K-major tile of rows of ``rb`` bytes (64 or 128),
-// written by TMA with the swizzle of that width: 8-row atoms 8 rb bytes
-// apart; a step along K adds its bytes >> 4 (sm90::sw128_desc for 128).
-__device__ __forceinline__ uint64_t kmajor_desc(const void* tile, int rb) {
-  const uint64_t addr = (smem_u32(tile) >> 4) & 0x3FFF;
-  return addr | (uint64_t(1) << 16) | (uint64_t((8 * rb) >> 4) << 32) |
-         (uint64_t(rb == 128 ? 1 : 2) << 62);
-}
-
-// The attention consumers hold their tiles and mbarriers as 32-bit shared
+// The attention loops hold their tiles and mbarriers as 32-bit shared
 // addresses (a generic pointer takes two registers, and those loops are at
-// the 168 of the launch bound): the mbarrier wait and arrive and the wgmma
+// the 168 of the launch bound): the mbarrier wait and the wgmma
 // descriptors on such addresses.
 __device__ __forceinline__ void mbar_wait_s(uint32_t bar, uint32_t parity) {
   uint64_t t0 = 0;
@@ -275,10 +270,6 @@ __device__ __forceinline__ void mbar_wait_s(uint32_t bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void mbar_arrive_s(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
 // An opaque copy of a 32-bit value: the compiler recomputes what it feeds
 // where it is used instead of keeping the results of a loop's every
 // iteration in registers across the loop (the descriptors of each k-step).
@@ -287,7 +278,9 @@ __device__ __forceinline__ uint32_t opaque(uint32_t v) {
   return v;
 }
 
-// K-major, rows of rb (32, 64 or 128) bytes with that swizzle (kmajor_desc).
+// A K-major tile of rows of rb (32, 64 or 128) bytes, written by TMA with
+// the swizzle of that width: 8-row atoms 8 rb bytes apart; a step along K
+// adds its bytes >> 4 (sm90::sw128_desc for 128).
 __device__ __forceinline__ uint64_t kdesc_s(uint32_t addr, int rb) {
   return ((addr >> 4) & 0x3FFF) | (uint64_t(1) << 16) | (uint64_t((8 * rb) >> 4) << 32) |
          (uint64_t(rb == 128 ? 1 : rb == 64 ? 2 : 3) << 62);
