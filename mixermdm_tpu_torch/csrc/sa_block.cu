@@ -69,7 +69,6 @@ __device__ __forceinline__ void attention_phase(const Maps& maps, const Params& 
   uint64_t* qbar = sm.qfull(w);
   uint64_t* fbar = sm.kvfull(w);
   const uint32_t sQ = mm::smem_u32(q_tile), sKV = mm::smem_u32(kv0);
-  const uint32_t qfull = mm::smem_u32(qbar), full = qfull + 8;
   auto issue_q = [&](int n) {
     int b, h, q0;
     walk.tile(n, b, h, q0);
@@ -105,11 +104,11 @@ __device__ __forceinline__ void attention_phase(const Maps& maps, const Params& 
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    mbar_wait_s(qfull, n & 1);
+    sm90::mbar_wait(qbar, n & 1);
     int i = n * nkv;
     for (int j = 0; j < nkv; ++j, ++i) {
       const int sg = i % S;
-      mbar_wait_s(full + 8 * sg, (i / S) & 1);
+      sm90::mbar_wait(&fbar[sg], (i / S) & 1);
       const uint32_t sK = sKV + sg * kv_stage_bytes(D), sV = sK + kv_stage_bytes(D) / 2;
 
       // S = Q K^T: 64 rows x 32 keys, K-major operands (32-row K boxes,

@@ -144,7 +144,8 @@ struct AmaxHook {
     if (__all_sync(0xffffffffu, seq == seq0)) {
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if ((threadIdx.x & 31) == 0 && seq0 >= 0) atomicMax(amax + sec * B + seq0, __float_as_uint(m));
+      if ((threadIdx.x & 31) == 0 && seq0 >= 0)
+        atomicMax(amax + sec * B + seq0, __float_as_uint(m));
     } else if (t == 0 && seq >= 0) {
       atomicMax(amax + sec * B + seq, __float_as_uint(m));
     }
@@ -308,7 +309,6 @@ __device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p,
   uint64_t* qbar = sm.qfull(w);
   uint64_t* fbar = sm.kvfull(w);
   const uint32_t sQ = mm::smem_u32(q_tile), sKV = mm::smem_u32(kv0);
-  const uint32_t qfull = mm::smem_u32(qbar), full = qfull + 8;
   auto issue_q = [&](int n) {
     int b, h, q0;
     walk.tile(n, b, h, q0);
@@ -353,7 +353,7 @@ __device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p,
     const float qk_scale =
         QQK ? __fmul_rn(__fmul_rn(seq_scale(p, 0, b), seq_scale(p, 1, b)), p.attn_scale)
             : p.attn_scale;
-    mbar_wait_s(qfull, n & 1);
+    sm90::mbar_wait(qbar, n & 1);
     int i = n * L;
 
     // Pass 1: each row's max (the zero key's 0 included) and denominator.
@@ -361,7 +361,7 @@ __device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p,
     st.start(p.flags & kZeroAttn, t);
     for (int j = 0; j < nkv; ++j, ++i) {
       const int sg = i % S;
-      mbar_wait_s(full + 8 * sg, (i / S) & 1);
+      sm90::mbar_wait(&fbar[sg], (i / S) & 1);
       float s[16];
       i8x_logits<D, QQK>(sQ, sKV + sg * kv_stage_bytes(D), qk_scale, kpm_b, p.T, p.Tp,
                          j * kKeys, s);
@@ -383,7 +383,7 @@ __device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p,
     for (int e = 0; e < D / 2; ++e) o[e] = 0;
     for (int j = 0; j < nkv; ++j, ++i) {
       const int sg = i % S;
-      mbar_wait_s(full + 8 * sg, (i / S) & 1);
+      sm90::mbar_wait(&fbar[sg], (i / S) & 1);
       const uint32_t sK = sKV + sg * kv_stage_bytes(D), sV = sK + kv_stage_bytes(D) / 2;
       float s[16];
       i8x_logits<D, QQK>(sQ, sK, qk_scale, kpm_b, p.T, p.Tp, j * kKeys, s);

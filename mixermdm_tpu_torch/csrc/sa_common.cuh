@@ -244,32 +244,8 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The attention loops hold their tiles and mbarriers as 32-bit shared
-// addresses (a generic pointer takes two registers, and those loops are at
-// the 168 of the launch bound): the mbarrier wait and the wgmma
-// descriptors on such addresses.
-__device__ __forceinline__ void mbar_wait_s(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t i = 1;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((i & 0xFFFF) == 0) {  // as sm90::mbar_wait: more than 10 s is a fault
-      const uint64_t now = sm90::global_ns();
-      if (t0 == 0)
-        t0 = now;
-      else if (now - t0 > 10000000000ull)
-        asm volatile("trap;");
-    }
-  }
-}
-
+// The attention loops hold their tiles as 32-bit shared addresses, and
+// build the wgmma descriptors from them (kdesc_s, mndesc_s).
 // An opaque copy of a 32-bit value: the compiler recomputes what it feeds
 // where it is used instead of keeping the results of a loop's every
 // iteration in registers across the loop (the descriptors of each k-step).
@@ -497,7 +473,9 @@ struct TileIn {
   __device__ __forceinline__ void load(int deq, const float* b, const float* cs, float cmul,
                                        const float* rs, int M, int n0, int row0, int tid) {
     bias = b[n0 + tid];
-    cscale = deq == kDeqBf16 ? 1.f : deq == kDeqStatic ? __fmul_rn(cs[n0 + tid], cmul) : cs[n0 + tid];
+    cscale = deq == kDeqBf16     ? 1.f
+             : deq == kDeqStatic ? __fmul_rn(cs[n0 + tid], cmul)
+                                 : cs[n0 + tid];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       rscale[h] = deq == kDeqRow && row0 + 8 * h < M ? __ldcg(rs + row0 + 8 * h) : 0.f;
@@ -865,10 +843,11 @@ __device__ __forceinline__ void stage_out(uint8_t* stg, int bar, Val val, void* 
 #pragma unroll
     for (int pc = 0; pc < 4; ++pc) {
       const int i = tid + 128 * pc, rr = i >> 3;
-      if (rr < rows)
-        *reinterpret_cast<uint4*>(static_cast<uint8_t*>(dst) + ((size_t)rr * ld + ch * kCols) * kOut +
-                                  (i & 7) * 16) =
+      if (rr < rows) {
+        uint8_t* d = static_cast<uint8_t*>(dst) + ((size_t)rr * ld + ch * kCols) * kOut;
+        *reinterpret_cast<uint4*>(d + (i & 7) * 16) =
             *reinterpret_cast<const uint4*>(stg + rr * kEpiStride + (i & 7) * 16);
+      }
     }
     sm90::named_sync(bar);
   }

@@ -25,13 +25,14 @@ card holds at once: :func:`sa_block_plan`; launched cooperatively, so that
 a grid that does not fit is refused) in phases separated by grid-wide
 barriers: LayerNorm and modulation (with the per-row int8 quantisation of
 ``quant``) of the padded rows into device memory, the merged QKV product,
-(``sa_block_i8x``) the attention's operands, attention by (sequence, head,
-64-row query tile) per consumer warpgroup, the per-row quantisation of the
-attention output (``quant``), and the out-projection with its bias, the cast
-and the residual.  A block is a producer warpgroup issuing TMA loads and two
-consumer warpgroups on ``wgmma``: the products in 128 x 128 tiles (bf16, or
-s8 with s32 sums) from one ring of stages that runs through both product
-phases, the attention from a K/V ring per warpgroup (:func:`gemm_walk`,
+(``sa_block_i8x`` with int8 q.k^T or p.v) the attention's int8 operands,
+attention by (sequence, head, 64-row query tile) per warpgroup, the per-row
+quantisation of the attention output (``quant``), and the out-projection
+with its bias, the cast and the residual.  A block is three warpgroups on
+TMA and ``wgmma``: in the products one issues the loads and two take the
+128 x 128 tiles (bf16, or s8 with s32 sums) from one ring of stages that
+runs through both product phases; in the attention all three take tiles,
+each from its own ring of K/V stages (:func:`gemm_walk`,
 :func:`attention_walk` model the work each one takes).
 
 The sequence is padded as the JAX functions pad it, to Tp = a multiple of
@@ -560,8 +561,9 @@ _stamp_log: Optional[list] = None
 def phase_names(flags: int, i8x: bool) -> tuple:
     """The phases of one launch in order, one per grid barrier and the last
     (``csrc/sa_block*.cu``): LayerNorm, the QKV product, (``sa_block_i8x``
-    with int8 q.k^T or p.v) the attention's int8 operands, attention, the per-row quantisation of the
-    attention output (int8 forms), the out-projection."""
+    with int8 q.k^T or p.v) the attention's int8 operands, attention, the
+    per-row quantisation of the attention output (int8 forms), the
+    out-projection."""
     operands = i8x and flags & (F_QQK | F_QPV)
     return ("ln", "qkv") + (("operands",) if operands else ()) + ("attention",) \
         + (("quant_attn",) if i8x or flags & F_QUANT else ()) + ("out",)
