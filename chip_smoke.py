@@ -38,11 +38,12 @@ Phases, each printing its wall-clock seconds:
    at B 8 with keys masked; at B 8 timed beside the shipped composition and
    the bound, and at (8, 299, 1024) each phase's device time read from the
    kernels' %globaltimer stamps;
-   int8 p.v also held on the kernel's own q, k, v (the witness of its
-   limit); the W8A8 blocks at shapes their fused plan refuses (16 heads;
-   FFN 4096) through the unfused pair; then ``python -m
-   mixermdm_tpu_torch.scripts.exp_kernels`` in each of its modes, which
-   times B 40, with the launch counts of that run;
+   int8 p.v also held on the kernel's own operands (the operand pass
+   bitwise, the witness of its limit); the W8A8 blocks at shapes their
+   fused plan refuses (16 heads; FFN 4096) through the unfused pair; then
+   ``python -m mixermdm_tpu_torch.scripts.exp_kernels`` in each of its
+   modes, which times B 40 and reads its phases there, with the launch
+   counts of that run;
 4. the sampling path at full published width (two 1024-d in2IN denoisers,
    the 512-d mixer, the ViT-L/14 text tower with its f32 post-encoder heads;
    T = 299, CFG 3.5, mixing mode 4, random weights from a seed), on the
@@ -1515,15 +1516,15 @@ def _update_l2(got, want, x):
 
 
 def _qpv_witness(sv, mid, kpm, H, T, qqk):
-    """The int8 p.v of sa_block_i8x on its own q, k, v (``mid``, from the
-    launch) against the plain product: the integer sums p8.v8 of both, how
-    many differ, and how many differ by more than the keys whose 127 p lies
-    within SA_FLIP_REL (relative) of a rounding boundary can move them (each
-    such key moves a sum by at most |v8|)."""
+    """The int8 p.v of sa_block_i8x on its own q, k, v (``mid``: the
+    operands its launch wrote, ``sa_int8x(intermediates=)``) against the
+    plain product: the integer sums p8.v8 of both, how many differ, and how
+    many differ by more than the keys whose 127 p lies within SA_FLIP_REL
+    (relative) of a rounding boundary can move them (each such key moves a
+    sum by at most |v8|)."""
     import torch
 
-    E = mid["qkv"].shape[-1] // 3
-    q, k, v = mid["qkv"].split(E, dim=-1)
+    q, k, v = (mid[n].float() for n in "qkv")
     p = sv.int8_attention_probs(q, k, kpm, n_heads=H, qqk=qqk)
     v8, vs = sv.quant_v(v, H)
     step = (vs / 127.0)[:, None, None, None]
@@ -1564,15 +1565,18 @@ def sa_variant_phase(seed):
     ms beside the shipped composition (fused_sa_block / fused_sa_block_q8 on
     the same inputs) and the H100's bound, and host us per eager call; at
     (8, 299, 1024) each phase's device time of sa_variant rows 1 (bf16,
-    W8A8) and sa_int8x static (ops.sa_variants.phase_stamps).  The int8 p.v configurations also
-    hold the kernel's attention alone against the plain one on the kernel's
-    q, k, v (:func:`_qpv_witness`) and the block's tail (quantised attention,
-    out-projection, residual) against the plain tail on the kernel's
-    attention.  Then the W8A8 blocks at shapes whose fused plan refuses them
-    (16 heads; F 4096) through the unfused pair, against their plain
-    versions.  Then the slice's path: the experiment script
-    (``python -m mixermdm_tpu_torch.scripts.exp_kernels``) in each of its
-    modes at B 40, which times B 40, with the launch counts of that run.
+    W8A8) and sa_int8x static (ops.sa_variants.phase_stamps).  The int8 p.v
+    configurations also launch once more with the scratch kept (the same
+    output, bit for bit) and hold the int8 operands bitwise against the
+    plain operand pass on the kernel's q, k, v, the kernel's attention alone
+    against the plain one on those q, k, v (:func:`_qpv_witness`) and the
+    block's tail (quantised attention, out-projection, residual) against the
+    plain tail on the kernel's attention.  Then the W8A8 blocks at shapes
+    whose fused plan refuses them (16 heads; F 4096) through the unfused
+    pair, against their plain versions.  Then the slice's path: the
+    experiment script (``python -m mixermdm_tpu_torch.scripts.exp_kernels``)
+    in each of its modes at B 40, which times B 40 (and reads its phases
+    there), with the launch counts of that run.
     Returns (results, counts)."""
     import torch
 
@@ -1620,8 +1624,7 @@ def sa_variant_phase(seed):
         outs = {}
         for name, kernel, quant, kw, mask, run in cases:
             qpv = kw.get("qpv", False)
-            mid = {} if qpv else None
-            got = outs[name, quant] = run(intermediates=mid) if qpv else run()
+            got = outs[name, quant] = run()
             torch.cuda.synchronize()
             want = run(plain=True)
             max_abs, rel = _finite_rel(got, want)
@@ -1642,19 +1645,31 @@ def sa_variant_phase(seed):
                 "host_us": None, "plain_ms": None,
             }
             if qpv:
-                # Each stage alone: the projections, the attention on the
-                # kernel's q, k, v, and the tail on the kernel's attention
+                # Each stage alone, read from a second launch of the same
+                # route that keeps its scratch (its output bit for bit the
+                # checked one's): the projections, the int8 operands against
+                # the plain operand pass on the kernel's q, k, v, the
+                # attention on them, and the tail on the kernel's attention
                 # (the plain tail: quant_rows, linear_q8 with bias and cast,
                 # + x).
+                qqk = kw.get("qqk", False)
+                mid = {}
+                res["same_as_checked"] = torch.equal(run(intermediates=mid), got)
+                torch.cuda.synchronize()
                 _, kp = sv._pad(inp.x, mask)
+                ours = torch.cat([mid[n].float() for n in "qkv"], dim=-1)
                 qkv = sv.sa_int8x_qkv_plain(*args, static_as=kw.get("static_as"))
-                res["qkv_rel_err"] = _finite_rel(mid["qkv"], qkv)[1]
-                res["witness"] = wit = _qpv_witness(sv, mid, kp, H, T, kw.get("qqk", False))
+                res["qkv_rel_err"] = _finite_rel(ours, qkv)[1]
+                q8, k8, v8 = sv.i8x_operands_plain(ours, H, qqk=qqk, qpv=True)
+                res["operands_bitwise"] = torch.equal(mid["v8"], v8) and (
+                    not qqk or torch.equal(mid["q8"], q8) and torch.equal(mid["k8"], k8))
+                res["witness"] = wit = _qpv_witness(sv, mid, kp, H, T, qqk)
                 a8, as_ = sv.quant_rows_plain(mid["attn"])
                 tail = sv.linear_q8_plain(a8, as_, w.w8_o, w.s_o, w.b_o, dtype=inp.x.dtype,
                                           residual=sv._pad(inp.x, None)[0])[:, :T]
                 res["tail_rel_err"] = _finite_rel(got, tail)[1]
-                ok = (ok and res["qkv_rel_err"] <= SA_TOL and wit["unexplained"] == 0
+                ok = (ok and res["same_as_checked"] and res["qkv_rel_err"] <= SA_TOL
+                      and res["operands_bitwise"] and wit["unexplained"] == 0
                       and res["tail_rel_err"] <= SA_TOL)
             if timed and keys == B * T:
                 res["ms"] = ms = graph_timed(run)
@@ -1731,7 +1746,7 @@ def sa_variant_phase(seed):
     # The slice's path: the experiment script in each mode, counted; its
     # records are the B 40 times.
     for argv in ([], ["--quant"], ["--headbatch"], ["--headbatch", "--quant"], ["--ablate"],
-                 ["--ablate", "--quant"], ["--int8attn"]):
+                 ["--ablate", "--quant"], ["--int8attn"], ["--phases"]):
         print(f"   exp_kernels {' '.join(argv)}", flush=True)
         records = ek.run(argv)
         if records is None:

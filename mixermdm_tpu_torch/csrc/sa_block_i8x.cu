@@ -300,7 +300,7 @@ __device__ __forceinline__ void i8x_logits(uint32_t sQ, uint32_t sK, float qk_sc
 template <int D, bool QQK, bool QPV>
 __device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p, const Smem& sm) {
   using T8 = Tiles8<D, QQK, QPV>;
-  constexpr int S = attn_stages(D), NT = D / 8;
+  constexpr int S = attn_stages(D);
   const int w = threadIdx.x >> 7, tid = threadIdx.x & 127, t = threadIdx.x & 3;
   const Walk walk(p, w * gridDim.x + blockIdx.x);
   const int nkv = (p.Tp + kKeys - 1) / kKeys, L = 2 * nkv, nt = walk.count(), loads = nt * L;
@@ -454,14 +454,18 @@ __device__ __forceinline__ void i8x_attention(const Maps& maps, const Params& p,
   }
 }
 
-template <int D>
+// OPS: the forms with an int8 attention operand (int8 q.k^T or p.v); the
+// others (the static scale alone, or none) take the instantiation without,
+// so that each holds only its own attention's code and gets its own
+// register allocation.
+template <int D, bool OPS>
 __global__ void __launch_bounds__(kThreads, 1)
     sa_block_i8x_kernel(const __grid_constant__ Maps maps, const Params p) {
   extern __shared__ uint8_t smem_raw[];
   const Smem sm = smem_layout<D>(smem_raw);
   __syncthreads();
   stamp(p, 0);
-  const int lever = (p.flags & kQqk ? 1 : 0) + (p.flags & kQpv ? 2 : 0);
+  const int lever = OPS ? (p.flags & kQqk ? 1 : 0) + (p.flags & kQpv ? 2 : 0) : 0;
   const bool producer = threadIdx.x < 128;  // as in sa_block.cu
   int k = 0;
   Ring r;
@@ -472,35 +476,33 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // The projection (QkvOut), and each sequence's max |q|, |k|, |v|
   // (AmaxHook).
-  if (!producer && !(p.flags & (kQqk | kQpv | kKeepQkv))) {
+  if (!producer && !OPS) {
     qkv_consume(p, sm, r, RowsOut{static_cast<bf16*>(p.qop), 3 * p.E});  // packed, as sa_block's
   } else if (!producer) {
     const int qqk = p.flags & kQqk ? 3 : 0, qpv = p.flags & kQpv ? 4 : 0;
     const QkvOut out{static_cast<float*>(p.qkv),  static_cast<bf16*>(p.qop),
                      static_cast<bf16*>(p.kop),   static_cast<bf16*>(p.vop),
-                     p.E,                         p.flags & kKeepQkv ? 7 : qqk | qpv,
+                     p.E,                         qqk | qpv,
                      7 & ~(qqk | qpv)};
-    if (lever != 0)
-      qkv_consume(p, sm, r, out, AmaxHook{reinterpret_cast<unsigned int*>(p.amax), p.B, p.Tp, p.E});
-    else
-      qkv_consume(p, sm, r, out);
+    qkv_consume(p, sm, r, out, AmaxHook{reinterpret_cast<unsigned int*>(p.amax), p.B, p.Tp, p.E});
   } else if (threadIdx.x == 0) {
     qkv_produce(maps, p, sm, r);
   }
   grid_sync(g_bar, p, k);
-  if (lever != 0) {
+  if constexpr (OPS) {
     switch (lever) {
       case 1: operands_phase<true, false>(p); break;
       case 2: operands_phase<false, true>(p); break;
       default: operands_phase<true, true>(p);
     }
     grid_sync(g_bar, p, k);
-  }
-  switch (lever) {
-    case 0: i8x_attention<D, false, false>(maps, p, sm); break;
-    case 1: i8x_attention<D, true, false>(maps, p, sm); break;
-    case 2: i8x_attention<D, false, true>(maps, p, sm); break;
-    default: i8x_attention<D, true, true>(maps, p, sm);
+    switch (lever) {
+      case 1: i8x_attention<D, true, false>(maps, p, sm); break;
+      case 2: i8x_attention<D, false, true>(maps, p, sm); break;
+      default: i8x_attention<D, true, true>(maps, p, sm);
+    }
+  } else {
+    i8x_attention<D, false, false>(maps, p, sm);
   }
   grid_sync(g_bar, p, k);
   quant_attn_phase(p);
@@ -512,20 +514,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   stamp_end(p);
 }
 
+// The fewer blocks of the two instantiations at head dim D.
 template <int D>
 int occupancy() {
-  int n = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, sa_block_i8x_kernel<D>, kThreads, sa_smem_bytes(D));
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+  int n = 0, n_ops = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, sa_block_i8x_kernel<D, false>, kThreads, sa_smem_bytes(D));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n_ops, sa_block_i8x_kernel<D, true>, kThreads, sa_smem_bytes(D));
+  return e == cudaSuccess ? (n < n_ops ? n : n_ops) : -static_cast<int>(e);
 }
 
 }  // namespace
 
 // As mm_sa_block (sa_block.cu) with int8 weights always (flags & 1): qkv is
-// (M, 3E) f32 (with flags & (1024 | 2048 | 4096) only); amax: (3, B) f32
-// scratch for the per-sequence maxima; qop, kop: (M, E) bf16 scratch
-// (int8 with flags & 2048), or without flags 1024 | 2048 | 4096 qop is the
+// (M, 3E) f32 (with flags & (1024 | 2048) only: the sections of q and k
+// with 2048, of v with 1024); amax: (3, B) f32 scratch for the
+// per-sequence maxima; qop, kop: (M, E) bf16 scratch (int8 with flags &
+// 2048), or without flags 1024 | 2048 qop is the
 // packed (M, 3E) bf16 projection; vop: (M, E) bf16 scratch, or with flags &
 // 1024 (B, E, Tv) int8, Tv = Tp rounded up to 32;
 // inv_static, static_as: 1 / static_as and static_as as f32 (flags & 512);
@@ -583,10 +590,10 @@ extern "C" int mm_sa_block_i8x(const void* x, const void* scale, long long lds,
   const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   Maps m;
   bool ok = product_maps(&m, p, w_qkv, w_o);
-  // Without int8 operands (and without a reading of the f32 projection)
-  // the QKV product writes the bf16 projection packed, (M, 3E) in qop, as
-  // sa_block's, and k and v are its columns E.. and 2E..
-  const bool packed = !(flags & (kQqk | kQpv | kKeepQkv));
+  // Without int8 operands the QKV product writes the bf16 projection
+  // packed, (M, 3E) in qop, as sa_block's, and k and v are its columns E..
+  // and 2E..
+  const bool packed = !(flags & (kQqk | kQpv));
   const bf16* q16 = static_cast<const bf16*>(qop);
   if (packed)
     ok = ok && rows_map(&m.q, bf, q16, E, 3 * E, Tp, B, 2, 64, kRows) &&
@@ -608,8 +615,11 @@ extern "C" int mm_sa_block_i8x(const void* x, const void* scale, long long lds,
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch(sa_block_i8x_kernel<64>, m, p, grid, sa_smem_bytes(64), s)
-                 : launch(sa_block_i8x_kernel<128>, m, p, grid, sa_smem_bytes(128), s);
+  if (qqk || qpv)
+    return D == 64 ? launch(sa_block_i8x_kernel<64, true>, m, p, grid, sa_smem_bytes(64), s)
+                   : launch(sa_block_i8x_kernel<128, true>, m, p, grid, sa_smem_bytes(128), s);
+  return D == 64 ? launch(sa_block_i8x_kernel<64, false>, m, p, grid, sa_smem_bytes(64), s)
+                 : launch(sa_block_i8x_kernel<128, false>, m, p, grid, sa_smem_bytes(128), s);
 }
 
 // Blocks of the kernel for head dim D that one SM holds at once (negative:
@@ -623,8 +633,12 @@ extern "C" int mm_sa_block_i8x_occupancy(int D) {
 // Once, when the library loads: the dynamic shared memory limits.
 extern "C" int mm_sa_block_i8x_init() {
   const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t e = cudaFuncSetAttribute(sa_block_i8x_kernel<64>, attr, sa_smem_bytes(64));
+  cudaError_t e = cudaFuncSetAttribute(sa_block_i8x_kernel<64, false>, attr, sa_smem_bytes(64));
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(sa_block_i8x_kernel<128>, attr, sa_smem_bytes(128));
+    e = cudaFuncSetAttribute(sa_block_i8x_kernel<64, true>, attr, sa_smem_bytes(64));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(sa_block_i8x_kernel<128, false>, attr, sa_smem_bytes(128));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(sa_block_i8x_kernel<128, true>, attr, sa_smem_bytes(128));
   return static_cast<int>(e);
 }

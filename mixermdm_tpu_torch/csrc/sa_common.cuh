@@ -86,7 +86,6 @@ constexpr int kZeroAttn = 256;   // torch's add_zero_attn
 constexpr int kStatic = 512;     // sa_block_i8x: static activation scale
 constexpr int kQpv = 1024;       // sa_block_i8x: int8 p.v
 constexpr int kQqk = 2048;       // sa_block_i8x: int8 q.k^T
-constexpr int kKeepQkv = 4096;   // sa_block_i8x: keep all of the f32 projection (a reading)
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMasked = -1e30f;  // the bias of a masked (or padded) key
@@ -858,8 +857,7 @@ __device__ __forceinline__ void stage_out(uint8_t* stg, int bar, Val val, void* 
 // gw + 3 gridDim.x, ...; a unit is (group of ``rows`` sequences, head,
 // 64-row query tile), or with kHeadBatch (group, query tile) over all
 // heads, and walks its sequences and heads in turn, so the output does not
-// depend on the schedule.  count() tiles, tile(n) the n-th
-// (ops/sa_variants.py: attention_walk).
+// depend on the schedule.  count() tiles, tile(n) the n-th.
 struct Walk {
   int gw, stride, QT, HU, per_unit, rows, H, units;
   bool hb;

@@ -32,8 +32,8 @@ with its bias, the cast and the residual.  A block is three warpgroups on
 TMA and ``wgmma``: in the products one issues the loads and two take the
 128 x 128 tiles (bf16, or s8 with s32 sums) from one ring of stages that
 runs through both product phases; in the attention all three take tiles,
-each from its own ring of K/V stages (:func:`gemm_walk`,
-:func:`attention_walk` model the work each one takes).
+each from its own ring of K/V stages (``Tiles`` and ``Walk`` in
+``csrc/sa_common.cuh`` hand out the work each one takes).
 
 The sequence is padded as the JAX functions pad it, to Tp = a multiple of
 8: the padded rows are modulated (LayerNorm of a zero row is 0, so they
@@ -96,7 +96,6 @@ F_QUANT, F_RECIP, F_HEADBATCH = 1, 2, 4
 F_SKIP_LN, F_SKIP_ATTN, F_SKIP_SOFTMAX = 8, 16, 32
 F_ROUND_ATTN, F_RESIDUAL, F_ZERO_ATTN = 64, 128, 256
 F_STATIC, F_QPV, F_QQK = 512, 1024, 2048
-F_KEEP_QKV = 4096               # sa_block_i8x: keep the whole f32 projection (intermediates)
 
 
 def padded_len(T: int) -> int:
@@ -465,7 +464,7 @@ def sa_block_plan(E: int, H: int, *, i8x: bool = False, sms: int = H100_SMS,
     (``occupancy(D, i8x)`` per SM, :func:`_occupancy` on the card: one
     block of THREADS threads and :func:`sa_smem_bytes`), so that every
     block reaches each grid-wide barrier; each phase walks its work over
-    them (:func:`gemm_walk`, :func:`attention_walk`), so the grid does not
+    them (``csrc/sa_common.cuh``: ``Tiles``, ``Walk``), so the grid does not
     depend on B or T.  On an H100 (132 blocks) at T 299 (Tp 304), E 1024,
     H 8: the QKV product's 128 x 128 tiles are 19 x 24 = 456 at B 8 (3.45
     waves), 95 x 24 = 2280 at B 40 (17.3); the out-projection's 152 (1.15)
@@ -479,41 +478,6 @@ def sa_block_plan(E: int, H: int, *, i8x: bool = False, sms: int = H100_SMS,
         raise RuntimeError(f"sa_block: no block of {THREADS} threads with the shared memory "
                            f"of head dim {E // H} fits an SM")
     return sms * per_sm
-
-
-def gemm_walk(M: int, N: int, grid: int) -> list:
-    """The product tiles each block takes (``csrc/sa_common.cuh``:
-    ``gemm_produce`` / ``gemm_consume``): block i the 128 x 128 tiles i,
-    i + grid, ..., numbered N-tiles fastest -> per block a list of (m0,
-    n0)."""
-    tiles_n = N // GEMM_TILE
-    tiles = -(-M // GEMM_TILE) * tiles_n
-    return [[(t // tiles_n * GEMM_TILE, t % tiles_n * GEMM_TILE) for t in range(blk, tiles, grid)]
-            for blk in range(grid)]
-
-
-def attention_walk(B: int, Tp: int, H: int, grid: int, *, rows: int = 1,
-                   head_batch: bool = False) -> list:
-    """The attention tiles each warpgroup takes (``csrc/sa_common.cuh``:
-    ``Walk``): warpgroup w of block i is number w * grid + i of
-    ATTN_WARPGROUPS * grid and takes units gw, gw + 3 grid, ...; a unit is
-    (group of ``rows`` sequences, head, 64-row query tile), or with
-    ``head_batch`` (group, query tile) over all heads, and walks its
-    sequences and heads in turn -> per warpgroup a list of (b, h, q0)."""
-    QT = -(-Tp // ATTN_ROWS)
-    HU = 1 if head_batch else H
-    units = (B // rows) * HU * QT
-    stride = ATTN_WARPGROUPS * grid
-    out = []
-    for gw in range(stride):
-        tiles = []
-        for u in range(gw, units, stride):
-            qt, hu, bg = u % QT, (u // QT) % HU, u // (QT * HU)
-            for r in range(rows):
-                for h in (range(H) if head_batch else (hu,)):
-                    tiles.append((bg * rows + r, h, qt * ATTN_ROWS))
-        out.append(tiles)
-    return out
 
 
 def _check_args(name, x, scale, shift, w: SAWeights, key_padding_mask, n_heads, quant):
@@ -595,23 +559,17 @@ def phase_ns(entry) -> dict:
     return {n: e - s for n, s, e in zip(names, t[:len(names)], ends)}
 
 
-def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, eps,
-            i8x=False, inv_static=0.0, static_as=0.0, intermediates=None):
-    B, T, E = x.shape
-    D = E // n_heads
-    Tp = padded_len(T)
+def scratch_layout(B: int, Tp: int, E: int, flags: int, i8x: bool, e2: int):
+    """The scratch of the phases, one allocation carved at 256-byte offsets:
+    xn, xs, qkv, attn, a8, as, ramax, and ``sa_block_i8x``'s amax and
+    attention operands q, k, v (``e2`` the bytes of an activation) ->
+    (offsets, None where the form has none; sizes in bytes; total)."""
     M = B * Tp
     quant = bool(flags & F_QUANT)
-    grid = sa_block_plan(E, n_heads, i8x=i8x, sms=sm_count(x))
-    out = torch.empty((B, T, E), dtype=x.dtype, device=x.device)
-    # The scratch of the phases, one allocation carved at 256-byte offsets:
-    # xn, xs, qkv, attn, a8, as, ramax, and sa_block_i8x's amax and
-    # attention operands q, k, v (bytes; 0 where the form has none).
-    e2 = x.element_size()
     op = M * E * e2 if i8x else 0
     qkv, vop = M * 3 * E * (4 if i8x else e2), max(op, B * E * v_keys(Tp)) if i8x else 0
     qop = kop = op
-    if i8x and not flags & (F_QQK | F_QPV | F_KEEP_QKV):
+    if i8x and not flags & (F_QQK | F_QPV):
         # sa_block_i8x without int8 operands: no f32 projection, the bf16
         # one packed (M, 3E) in qop
         qkv, qop, kop, vop = 0, 3 * op, 0, 0
@@ -622,6 +580,18 @@ def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, e
     for n in sizes:
         offsets.append(total if n else None)
         total += -(-n // 256) * 256
+    return offsets, sizes, total
+
+
+def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, eps,
+            i8x=False, inv_static=0.0, static_as=0.0, intermediates=None):
+    B, T, E = x.shape
+    D = E // n_heads
+    Tp = padded_len(T)
+    quant = bool(flags & F_QUANT)
+    grid = sa_block_plan(E, n_heads, i8x=i8x, sms=sm_count(x))
+    out = torch.empty((B, T, E), dtype=x.dtype, device=x.device)
+    offsets, _, total = scratch_layout(B, Tp, E, flags, i8x, x.element_size())
     ws = torch.empty((total,), dtype=torch.uint8, device=x.device)
     scratch = [None if o is None else ws.data_ptr() + o for o in offsets]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -644,8 +614,36 @@ def _launch(name, x, scale, shift, w: SAWeights, kpm, *, n_heads, rows, flags, e
                              ptr(stamps), grid, _lib.stream_handle(x))
     _lib.check_launch(name, rc, shape=(B, T, E, n_heads, flags, rows))
     if intermediates is not None:
-        f32 = lambda i, n: ws.narrow(0, offsets[i], 4 * M * n).view(torch.float32)  # noqa: E731
-        intermediates.update(qkv=f32(2, 3 * E).view(B, Tp, 3 * E), attn=f32(3, E).view(B, Tp, E))
+        intermediates.update(_operands(ws, offsets, B, Tp, E, n_heads, flags, x.dtype))
+    return out
+
+
+def _operands(ws, offsets, B, Tp, E, H, flags, dtype) -> dict:
+    """What ``sa_block_i8x``'s launch left in its scratch ``ws`` for the
+    attention: ``q``, ``k``, ``v`` (B, Tp, E) as the QKV product's epilogue
+    wrote them (f32 where their int8 form is taken from them, q and k with
+    ``F_QQK``, v with ``F_QPV``; else the bf16 operands), the int8
+    operands of the operand pass (``q8``, ``k8`` (B, Tp, E) with ``F_QQK``;
+    ``v8`` (B, H, D, Tv) with ``F_QPV``, :func:`i8x_operands_plain`'s
+    layout), and the f32 attention rows ``attn`` (B, Tp, E)."""
+    D = E // H
+
+    def buf(i, dt, *shape):
+        n = math.prod(shape) * torch.empty((), dtype=dt).element_size()
+        return ws.narrow(0, offsets[i], n).view(dt).view(*shape)
+
+    qqk, qpv = bool(flags & F_QQK), bool(flags & F_QPV)
+    out = {"attn": buf(3, torch.float32, B, Tp, E)}
+    if not qqk and not qpv:
+        out["q"], out["k"], out["v"] = buf(8, dtype, B, Tp, 3 * E).split(E, dim=-1)
+        return out
+    f32 = buf(2, torch.float32, B, Tp, 3 * E).split(E, dim=-1)
+    for j, (name, exact) in enumerate((("q", qqk), ("k", qqk), ("v", qpv))):
+        out[name] = f32[j] if exact else buf(8 + j, dtype, B, Tp, E)
+    if qqk:
+        out["q8"], out["k8"] = (buf(8 + j, torch.int8, B, Tp, E) for j in (0, 1))
+    if qpv:
+        out["v8"] = buf(10, torch.int8, B, H, D, v_keys(Tp))
     return out
 
 
@@ -721,9 +719,11 @@ def sa_int8x(x, scale, shift, w: SAWeights, key_padding_mask=None, *, n_heads: i
     """The W8A8 block with the int8 levers (:func:`sa_int8x_plain`):
     ``static_as`` a calibrated activation scale for the QKV product,
     ``qpv`` int8 p.v, ``qqk`` int8 q.k^T.  ``intermediates``, a dict, gets
-    the kernel's f32 projections ``qkv`` (B, Tp, 3E) and attention rows
-    ``attn`` (B, Tp, E) (the card only), so that a check can hold the
-    attention alone against :func:`int8_attention_plain` on the same q, k, v.
+    what the launch wrote for its attention (the card only; the launch is
+    the one without it): q, k, v, their int8 forms and the attention rows
+    (:func:`_operands`), so that a check can hold the operand pass against
+    :func:`i8x_operands_plain` and the attention alone against
+    :func:`int8_attention_plain` on the same q, k, v.
 
     A CPU tensor (any tensor inside ``ops.plain_versions()``) takes
     :func:`sa_int8x_plain`; a CUDA tensor launches ``sa_block_i8x`` or
@@ -738,7 +738,7 @@ def sa_int8x(x, scale, shift, w: SAWeights, key_padding_mask=None, *, n_heads: i
                                        n_heads, True)
     flags = (F_QUANT | (F_RESIDUAL if residual else 0) | (F_ZERO_ATTN if zero_attn else 0)
              | (F_STATIC if static_as is not None else 0) | (F_QPV if qpv else 0)
-             | (F_QQK if qqk else 0) | (F_KEEP_QKV if intermediates is not None else 0))
+             | (F_QQK if qqk else 0))
     inv, sa = static_scales(static_as) if static_as is not None else (0.0, 0.0)
     return _launch("sa_block_i8x", x, scale, shift, w, kpm, n_heads=n_heads, rows=1,
                    flags=flags, eps=eps, i8x=True, inv_static=inv, static_as=sa,

@@ -7,6 +7,7 @@ its fused SA block), run as::
     python -m mixermdm_tpu_torch.scripts.exp_kernels --ablate [--quant]
     python -m mixermdm_tpu_torch.scripts.exp_kernels --headbatch [--quant] [--check]
     python -m mixermdm_tpu_torch.scripts.exp_kernels --int8attn
+    python -m mixermdm_tpu_torch.scripts.exp_kernels --phases [--batch 8]
 
 at the JAX script's shape (B 40, T 299, E 1024, H 8) and data (numpy
 ``default_rng(0)``, inputs scaled 0.05, weights and biases 0.02).  Each
@@ -25,8 +26,17 @@ port's shipped composition, ``fused_sa_block`` (``fused_sa_block_q8`` with
 - ``--int8attn``: the W8A8 block with a static activation scale calibrated
   on the measured batch, int8 p.v and int8 q.k^T, each with its deviation
   from the bf16 block (relative L2);
+- ``--phases``: each phase's device time inside the one launch (LN, the
+  QKV product, the int8 operands, attention, the quantised attention
+  output, the out-projection) of v1 (bf16 and W8A8) and of the four int8
+  lever sets, from ``%globaltimer`` stamps at the grid barriers
+  (``sa_variants.phase_stamps``), beside the unstamped graph-replay ms;
 - ``--check``: each variant's largest difference from the shipped block and
   from its own plain version instead of times.
+
+``--batch`` replaces the JAX script's B 40 (the SA blocks' B 8, say).  It
+measures the ``mixermdm_tpu_torch`` that Python imports first, so one copy
+of the script reads two trees: ``PYTHONPATH=<tree> python <this file>``.
 
 Times are CUDA events over CUDA-graph replays on the card; every line gives
 ms, TFLOP/s (the JAX cost estimate's 2 B Tp E (4E + 2 Tp) operations on
@@ -43,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import statistics
 import subprocess
 import sys
 import time
@@ -337,6 +348,38 @@ def int8attn_main(inp: Inputs) -> list:
     return out
 
 
+def phases_main(inp: Inputs, reps: int = 10) -> list:
+    """v1 rows 1 (bf16, W8A8) and the four lever sets: the median ns of
+    each phase over ``reps`` stamped launches (block 0's ``%globaltimer``
+    at the start and after each grid barrier, the latest block's end) and
+    the graph-replay ms of the same call without stamps."""
+    B, T, E = inp.x.shape
+    w = weights(inp)
+    args = (inp.x, inp.scale, inp.shift, w, inp.kpm)
+    sa = static_scale(inp)
+    runs = [(f"v1 {'w8a8' if q else 'bf16'}",
+             lambda q=q: sv.sa_variant(*args, n_heads=inp.H, quant=q)) for q in (False, True)]
+    runs += [(name, lambda kw=lever_kwargs(levers, sa): sv.sa_int8x(*args, n_heads=inp.H, **kw))
+             for name, levers in LEVERS]
+    print(f"--- phases, us (B={B} T={T} E={E}) ---", flush=True)
+    out = []
+    for name, f in runs:
+        phases, ms = None, _measure(f, inp)
+        if ms is not None:
+            with sv.phase_stamps() as log:
+                for _ in range(reps):
+                    f()
+            torch.cuda.synchronize()
+            per = [sv.phase_ns(e) for e in log]
+            phases = {k: statistics.median(r[k] for r in per) for k in per[0]}
+        text = "not measured (cpu)" if ms is None else (
+            " / ".join(f"{k} {v / 1e3:.1f}" for k, v in phases.items())
+            + f" = {sum(phases.values()) / 1e3:.1f}; graph {ms:.4f} ms")
+        print(f"{name:20s} {text}", flush=True)
+        out.append({"name": name, "phase_ns": phases, "ms": ms})
+    return out
+
+
 def run(argv=None) -> Optional[list]:
     """Parse the flags, run the mode and return its records (None, with a
     message, where the card is asked for and there is none)."""
@@ -349,6 +392,9 @@ def run(argv=None) -> Optional[list]:
                     help="attention units walking all heads vs the shipped block")
     ap.add_argument("--int8attn", action="store_true",
                     help="static activation scale + int8 attention products")
+    ap.add_argument("--phases", action="store_true",
+                    help="device time of each phase inside the one launch")
+    ap.add_argument("--batch", type=int, default=SHAPE["B"], help="sequences (B)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -361,8 +407,10 @@ def run(argv=None) -> Optional[list]:
         card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
             else torch.cuda.get_device_name(0)
         print(f"device: {card}", flush=True)
-    inp = make_inputs(**SHAPE, device=args.device,
+    inp = make_inputs(**{**SHAPE, "B": args.batch}, device=args.device,
                       dtype=torch.bfloat16 if args.device == "cuda" else torch.float32)
+    if args.phases:
+        return phases_main(inp)
     if args.ablate:
         return ablate_main(args.quant, inp)
     if args.headbatch:

@@ -227,7 +227,9 @@ def test_qpv_witness_flags_a_systematic_error_in_p(fault):
     v8, vs = sv.quant_v(v, Hw)
     p8 = torch.round(p * 127.0 * (1 + 1e-4 if fault == "p 1e-4 high" else 1.0))
     attn = sv._merge(sv._int_matmul(p8, v8) * (vs / 127.0)[:, None, None, None])
-    wit = cs._qpv_witness(sv, {"qkv": qkv, "attn": attn}, kpm, Hw, T, False)
+    # without int8 q.k^T the kernel's q and k are its bf16 operands
+    mid = {"q": q.to(torch.bfloat16), "k": k.to(torch.bfloat16), "v": v, "attn": attn}
+    wit = cs._qpv_witness(sv, mid, kpm, Hw, T, False)
     assert wit["values"] == Bw * T * Ew
     if fault == "none":
         assert wit["differ"] == wit["unexplained"] == 0
@@ -285,7 +287,7 @@ def test_constants_match_the_kernels():
              "kSkipLn": sv.F_SKIP_LN, "kSkipAttn": sv.F_SKIP_ATTN,
              "kSkipSoftmax": sv.F_SKIP_SOFTMAX, "kRoundAttn": sv.F_ROUND_ATTN,
              "kResidual": sv.F_RESIDUAL, "kZeroAttn": sv.F_ZERO_ATTN, "kStatic": sv.F_STATIC,
-             "kQpv": sv.F_QPV, "kQqk": sv.F_QQK, "kKeepQkv": sv.F_KEEP_QKV}
+             "kQpv": sv.F_QPV, "kQqk": sv.F_QQK}
     assert {k: c[k] for k in flags} == flags
     assert c["kThreads"] == sv.THREADS
     assert c["kBM"] == c["kBN"] == sv.GEMM_TILE and c["kSlab"] == 128
@@ -306,14 +308,19 @@ def test_constants_match_the_kernels():
                     "kBarriers = 2 * kGemmStages + kAttnWarpgroups * kWgBarriers;",
                     "return sm90::kSmemAlign + ring_bytes(D) + 8 * kBarriers;"):
         assert formula in src, formula
-    for name in ("sa_block.cu", "sa_block_i8x.cu"):
+    # sa_block one instantiation per head dim; sa_block_i8x two, without
+    # and with the int8 attention operands, each queried for occupancy,
+    # given its shared memory at load and launched
+    for name, insts in (("sa_block.cu", ("",)), ("sa_block_i8x.cu", (", false", ", true"))):
         with open(os.path.join(CSRC, name)) as f:
             kernel = f.read()
         kern = "sa_block_i8x_kernel" if "i8x" in name else "sa_block_kernel"
-        assert f"&n, {kern}<D>, kThreads, sa_smem_bytes(D));" in kernel
-        for D in sv.HEAD_DIMS:
-            assert f"cudaFuncSetAttribute({kern}<{D}>, attr, sa_smem_bytes({D}));" in kernel
-            assert f"launch({kern}<{D}>, m, p, grid, sa_smem_bytes({D}), s)" in kernel
+        for inst in insts:
+            assert f"{kern}<D{inst}>, kThreads, sa_smem_bytes(D));" in kernel
+            for D in sv.HEAD_DIMS:
+                assert f"cudaFuncSetAttribute({kern}<{D}{inst}>, attr, sa_smem_bytes({D}));" \
+                    in kernel
+                assert f"launch({kern}<{D}{inst}>, m, p, grid, sa_smem_bytes({D}), s)" in kernel
     assert {"sa_block.cu", "sa_block_i8x.cu"} <= set(_lib.SOURCES)
     assert "sa_common.cuh" in _lib.HEADERS
     assert {"mm_sa_block_init", "mm_sa_block_i8x_init"} <= set(_lib.INIT_FUNCTIONS)
@@ -325,15 +332,114 @@ WALK_SHAPES = [(8, 299, 1024, 8), (40, 299, 1024, 8), (8, 299, 512, 8), (2, 7, 1
                (2, 8, 128, 2)]
 
 
+def _c_block(src, pattern, what):
+    import re
+
+    m = re.search(pattern, src, re.M | re.S)
+    assert m, f"{what} not found"
+    return m.group(0)
+
+
+@pytest.fixture(scope="module")
+def c_walks(tmp_path_factory):
+    """The kernels' own work walks, compiled for the host: ``Tiles`` and
+    ``Walk`` of csrc/sa_common.cuh, the products' tile loop and tile origin
+    as gemm_produce has them (gemm_consume's the same, its warpgroup's 64
+    rows in), and ``key_position`` of csrc/sa_block_i8x.cu, cut from the
+    sources as they stand and built with the host ``c++`` behind a stub of
+    ``gridDim`` / ``blockIdx`` and ``Params``."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    c, src = _constexprs(os.path.join(CSRC, "sa_common.cuh"))
+    with open(os.path.join(CSRC, "sa_block_i8x.cu")) as f:
+        i8x = f.read()
+    tiles = _c_block(src, r"^struct Tiles \{\n.*?^\};\n", "Tiles")
+    walk = _c_block(src, r"^struct Walk \{\n.*?^\};\n", "Walk")
+    keypos = _c_block(i8x, r"^__device__ __forceinline__ int key_position\(int r\) \{\n.*?^\}\n",
+                      "key_position")
+    produce = _c_block(src, r"^__device__ __forceinline__ void gemm_produce\(.*?^\}\n", "produce")
+    consume = _c_block(src, r"^__device__ __forceinline__ void gemm_consume\(.*?^\}\n", "consume")
+    loop = "for (int tile = blockIdx.x; tile < tl.tiles; tile += gridDim.x) {"
+    origin = _c_block(produce, r"const int m0 = .*?;$", "the tile origin")
+    assert produce.count(loop) == consume.count(loop) == 1
+    assert origin.replace(" * kBM,", " * kBM + cw * 64,") in consume
+    consts = "".join(f"constexpr int {k} = {c[k]};\n"
+                     for k in ("kThreads", "kRows", "kHeadBatch", "kBM", "kBN", "kSlab"))
+    harness = f"""
+#define __device__
+#define __forceinline__ inline
+struct Dim {{ int x; }};
+static Dim gridDim, blockIdx;
+struct Params {{ int B, Tp, H, rows, flags; }};
+{consts}constexpr int kAttnWarpgroups = kThreads / 128;
+{tiles}{walk}{keypos}
+extern "C" int c_key_position(int r) {{ return key_position(r); }}
+extern "C" int c_gemm_tiles(int M, int N, int grid, int blk, int* out) {{
+  gridDim.x = grid;
+  blockIdx.x = blk;
+  const Tiles tl(M, N, kSlab);
+  int n = 0;
+  {loop}
+    {origin}
+    out[2 * n] = m0;
+    out[2 * n + 1] = n0;
+    ++n;
+  }}
+  return n;
+}}
+extern "C" int c_walk(int B, int Tp, int H, int rows, int flags, int grid, int gw, int* out) {{
+  gridDim.x = grid;
+  Params p;
+  p.B = B, p.Tp = Tp, p.H = H, p.rows = rows, p.flags = flags;
+  const Walk w(p, gw);
+  const int n = w.count();
+  for (int i = 0; i < n; ++i) w.tile(i, out[3 * i], out[3 * i + 1], out[3 * i + 2]);
+  return n;
+}}
+"""
+    d = tmp_path_factory.mktemp("sa_walks")
+    (d / "walks.cpp").write_text(harness)
+    subprocess.run([shutil.which("c++") or "c++", "-std=c++17", "-shared", "-fPIC", "-o",
+                    str(d / "walks.so"), str(d / "walks.cpp")], check=True)
+    return ctypes.CDLL(str(d / "walks.so"))
+
+
+def _gemm_walk(lib, M, N, grid):
+    """Per block the (m0, n0) of the 128 x 128 tiles it takes, in order."""
+    import ctypes
+
+    buf = (ctypes.c_int * (2 * (-(-M // 128) * (N // 128))))()
+    out = []
+    for blk in range(grid):
+        n = lib.c_gemm_tiles(M, N, grid, blk, buf)
+        out.append([(buf[2 * i], buf[2 * i + 1]) for i in range(n)])
+    return out
+
+
+def _attention_walk(lib, B, Tp, H, grid, rows, head_batch):
+    """Per grid warpgroup (w * grid + block) the (b, h, q0) it takes."""
+    import ctypes
+
+    buf = (ctypes.c_int * (3 * B * H * -(-Tp // 64)))()
+    flags = sv.F_HEADBATCH if head_batch else 0
+    out = []
+    for gw in range(sv.ATTN_WARPGROUPS * grid):
+        n = lib.c_walk(B, Tp, H, rows, flags, grid, gw, buf)
+        out.append([tuple(buf[3 * i:3 * i + 3]) for i in range(n)])
+    return out
+
+
 @pytest.mark.parametrize("B,T,E,H", WALK_SHAPES, ids=[f"{b}x{t}x{e}" for b, t, e, _ in WALK_SHAPES])
 @pytest.mark.parametrize("grid", [132, 7])
-def test_product_walks_cover_every_tile_once(B, T, E, H, grid):
-    """The QKV product's and the out-projection's 128 x 128 tiles: each
-    block's list, all of them together, every tile of (B Tp, N) once."""
+def test_product_walks_cover_every_tile_once(c_walks, B, T, E, H, grid):
+    """The QKV product's and the out-projection's 128 x 128 tiles, as the
+    kernels' tile loop hands them out: each block's list, all of them
+    together, every tile of (B Tp, N) once."""
     M = B * sv.padded_len(T)
     for N in (3 * E, E):
-        walk = sv.gemm_walk(M, N, grid)
-        assert len(walk) == grid
+        walk = _gemm_walk(c_walks, M, N, grid)
         tiles = [t for blk in walk for t in blk]
         want = {(m, n) for m in range(0, M, 128) for n in range(0, N, 128)}
         assert len(tiles) == len(want) and set(tiles) == want
@@ -342,19 +448,19 @@ def test_product_walks_cover_every_tile_once(B, T, E, H, grid):
 
 @pytest.mark.parametrize("B,T,E,H", WALK_SHAPES, ids=[f"{b}x{t}x{e}" for b, t, e, _ in WALK_SHAPES])
 @pytest.mark.parametrize("grid", [132, 7])
-def test_attention_walks_cover_every_tile_once(B, T, E, H, grid):
-    """Every (sequence, head, 64-row query tile) once over the 3 grid
-    warpgroups, for rows 1 and 2 and the head-batched walk; a unit's tiles
-    follow each other in one warpgroup."""
+def test_attention_walks_cover_every_tile_once(c_walks, B, T, E, H, grid):
+    """The kernels' ``Walk``: every (sequence, head, 64-row query tile) once
+    over the 3 grid warpgroups, for rows 1 and 2 and the head-batched walk;
+    a unit's tiles follow each other in one warpgroup."""
     Tp = sv.padded_len(T)
     want = {(b, h, q) for b in range(B) for h in range(H) for q in range(0, Tp, 64)}
     for rows, hb in ((1, False), (2, False), (1, True)):
-        walk = sv.attention_walk(B, Tp, H, grid, rows=rows, head_batch=hb)
-        assert len(walk) == 3 * grid
+        walk = _attention_walk(c_walks, B, Tp, H, grid, rows, hb)
         tiles = [t for wg in walk for t in wg]
         assert len(tiles) == len(want) and set(tiles) == want
         per_unit = rows * (H if hb else 1)
         for wg in walk:
+            assert len(wg) % per_unit == 0
             for u in range(0, len(wg), per_unit):
                 unit = wg[u:u + per_unit]
                 assert len({q for _, _, q in unit}) == 1
@@ -376,21 +482,16 @@ def test_phase_stamps_read_as_phases():
                                          "quant_attn": 10, "out": 30}
 
 
-def _c_key_position(r):
-    """csrc/sa_block_i8x.cu key_position, line for line."""
-    c, t, e = r >> 3, (r >> 1) & 3, r & 1
-    return 16 * (c >> 1) + 4 * t + 2 * (c & 1) + e
-
-
-def test_int8_pv_fragment_order_gives_the_integer_sums():
+def test_int8_pv_fragment_order_gives_the_integer_sums(c_walks):
     """int8 p.v on s8 wgmma: a thread's p8 values (its logits' fragment,
     s[4 c + e] at row 16 w + g + 8 (e / 2), key 8 c + 2 t + e % 2) packed
     into A-fragment registers as csrc/sa_block_i8x.cu packs them (register
     w of k-step kk: logits c0 = 4 kk + 2 (w / 2), e0 = 2 (w % 2), bytes
     (c0, e0), (c0, e0 + 1), (c0 + 1, e0), (c0 + 1, e0 + 1)), read at the
     positions of the m16n8k32 A fragment, times v8 stored at KEY_POSITION,
-    equal p8 . v8 in key order, exactly."""
-    assert tuple(_c_key_position(r) for r in range(32)) == sv.KEY_POSITION
+    equal p8 . v8 in key order, exactly.  KEY_POSITION is the kernel's
+    ``key_position``, compiled from its source."""
+    assert tuple(c_walks.c_key_position(r) for r in range(32)) == sv.KEY_POSITION
     rng = np.random.default_rng(0)
     P = rng.integers(0, 128, (64, 64))
     V = rng.integers(-127, 128, (64, 32))
@@ -414,14 +515,31 @@ def test_int8_pv_fragment_order_gives_the_integer_sums():
     assert np.array_equal(A @ Vt, P @ V)
 
 
-@pytest.mark.parametrize("qqk,qpv", [(False, False), (True, False), (False, True), (True, True)],
-                         ids=["bf16", "qqk", "qpv", "qqk+qpv"])
-def test_i8x_operands_are_the_plain_arithmetic(qqk, qpv):
-    """sa_block_i8x's operand pass (its plain version) holds, bit for bit,
-    the values the plain attention uses: q and k as int8_attention_probs
-    quantises them (or cast to bf16), v as quant_v's int8 (or cast), laid
-    out (B, H, D, Tv) with each 32-key block's keys at KEY_POSITION and
-    zeros past Tp."""
+def _q8_properties(t8, t):
+    """An int8 form of t (B, ..., ) with one scale per sequence: within
+    [-127, 127], the sequence's largest |t| at +-127, and every value within
+    half a step of t / step, the step being max |t| / 127."""
+    tf, t8 = t.double(), t8.double()
+    step = tf.abs().flatten(1).amax(1).clamp_min(1e-8) / 127
+    assert t8.abs().max() <= 127
+    assert torch.equal(t8.abs().flatten(1).amax(1), torch.full_like(step, 127.0))
+    shape = (-1,) + (1,) * (t.dim() - 1)
+    assert ((t8 - tf / step.view(shape)).abs() <= 0.5 + 1e-6).all()
+
+
+LEVER_SETS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("qqk,qpv", LEVER_SETS, ids=["bf16", "qqk", "qpv", "qqk+qpv"])
+def test_i8x_operands_are_the_plain_arithmetic(c_walks, qqk, qpv):
+    """sa_block_i8x's operand pass (its plain version, which the card's
+    run holds the kernel's operands to bit for bit): q and k with int8
+    q.k^T an int8 form with one scale per sequence, bit for bit the plain
+    attention's per-sequence quantisation (else cast to bf16); v
+    with int8 p.v quant_v's int8 values, the ones the plain attention
+    multiplies, laid out (B, H, D, Tv) with each 32-key block's keys where
+    the kernel's compiled ``key_position`` puts them and zeros past Tp
+    (else cast)."""
     Bq, Tp, Eq, Hq = 2, 40, 128, 2
     D = Eq // Hq
     rng = np.random.default_rng(5)
@@ -430,8 +548,10 @@ def test_i8x_operands_are_the_plain_arithmetic(qqk, qpv):
     qop, kop, vop = sv.i8x_operands_plain(qkv, Hq, qqk=qqk, qpv=qpv)
     for op, t in ((qop, q), (kop, k)):
         if qqk:
-            want = torch.round(t / sv._seq_scale(t)[:, None, None]).clamp_(-127, 127)
-            assert op.dtype == torch.int8 and torch.equal(op.float(), want)
+            assert op.dtype == torch.int8 and op.shape == t.shape
+            _q8_properties(op, t)
+            # the plain attention's per-sequence quantisation (quant_v's)
+            assert torch.equal(sv._heads(op.float(), Hq), sv.quant_v(t, Hq)[0])
         else:
             assert op.dtype == torch.bfloat16 and torch.equal(op, t.to(torch.bfloat16))
     if not qpv:
@@ -439,11 +559,52 @@ def test_i8x_operands_are_the_plain_arithmetic(qqk, qpv):
         return
     Tv = sv.v_keys(Tp)
     assert vop.shape == (Bq, Hq, D, Tv) and vop.dtype == torch.int8 and Tv == 64
-    keys = torch.stack([vop[..., blk + sv.KEY_POSITION[r]] for blk in range(0, Tv, 32)
+    keys = torch.stack([vop[..., blk + c_walks.c_key_position(r)] for blk in range(0, Tv, 32)
                         for r in range(32)], dim=-1)
-    v8, _ = sv.quant_v(v, Hq)
-    assert torch.equal(keys[..., :Tp].float(), v8.transpose(-1, -2))
     assert not keys[..., Tp:].any()
+    by_key = keys[..., :Tp].transpose(-1, -2)  # (B, H, Tp, D)
+    _q8_properties(by_key, sv._heads(v, Hq))
+    assert torch.equal(by_key.float(), sv.quant_v(v, Hq)[0])
+
+
+@pytest.mark.parametrize("qqk,qpv", LEVER_SETS, ids=["bf16", "qqk", "qpv", "qqk+qpv"])
+def test_i8x_intermediates_lie_in_their_own_scratch(qqk, qpv):
+    """What ``sa_int8x(intermediates=)`` reads after a launch: each view
+    lies inside the scratch allocation the kernel writes it to (q, k, v in
+    the f32 projection only where an int8 form is taken from them, else in
+    the bf16 operand buffers; q8 / k8 / v8 in the operand buffers), no two
+    views of one launch's scratch overlap, the shapes and dtypes are the
+    kernel's."""
+    Bq, Tp, Eq, Hq = 3, 40, 256, 2
+    flags = sv.F_QUANT | (sv.F_QQK if qqk else 0) | (sv.F_QPV if qpv else 0)
+    offsets, sizes, total = sv.scratch_layout(Bq, Tp, Eq, flags, True, 2)
+    ws = torch.zeros(total, dtype=torch.uint8)
+    mid = sv._operands(ws, offsets, Bq, Tp, Eq, Hq, flags, torch.bfloat16)
+    names = {"q", "k", "v", "attn"} | ({"q8", "k8"} if qqk else set()) | ({"v8"} if qpv else set())
+    assert set(mid) == names
+    f32 = {"attn"} | ({"q", "k"} if qqk else set()) | ({"v"} if qpv else set())
+    buffers = {"attn": 3, "q8": 8, "k8": 9, "v8": 10}
+    spans = []
+    for name, t in mid.items():
+        want = (torch.float32 if name in f32 else torch.int8 if name.endswith("8")
+                else torch.bfloat16)
+        assert t.dtype == want, name
+        assert t.shape == ((Bq, Hq, Eq // Hq, sv.v_keys(Tp)) if name == "v8" else (Bq, Tp, Eq))
+        if name in buffers:
+            i = buffers[name]
+        elif name in f32:
+            i = 2
+        else:  # the bf16 operands, or the packed bf16 projection in the first
+            i = 8 + "qkv".index(name) if qqk or qpv else 8
+        lo = t.data_ptr() - ws.data_ptr()
+        hi = lo + ((t.shape[-1] - 1) * t.stride(-1) + sum((n - 1) * st for n, st in zip(
+            t.shape[:-1], t.stride()[:-1])) + 1) * t.element_size()
+        assert offsets[i] <= lo and hi <= offsets[i] + sizes[i], name
+        spans.append((lo, hi, name))
+    if qqk or qpv:
+        # q, k, v of the f32 projection are its column sections; the rest apart
+        solid = sorted((lo, hi) for lo, hi, n in spans if not (n in f32 and n != "attn"))
+        assert all(a[1] <= b[0] for a, b in zip(solid, solid[1:]))
 
 
 # ------------------------------------------------ the W8A8 blocks' route
