@@ -88,6 +88,20 @@ Phases, each printing its wall-clock seconds:
    W8A8), each side's generation and scoring seconds and its launches,
    every shape its generation batches launched a kernel at held in phase
    3; ``eval-base`` in each mode, counted;
+5e. the diffusion engine at full width on in2IN interaction (B 2, T 210,
+   DDIM-50's schedule): each step function (``p_mean_variance`` ->
+   ``ddpm_step``, ``ddim_step`` at eta 0.5, ``condition_mean``,
+   ``condition_score``, ``ddim_reverse_step``, ``vb_terms_bpd``) on the
+   kernels against the plain versions; DDPM-50 with prefix inpainting,
+   translation pinning and a ``cond_fn``, DDIM-50 at eta 0.5 with a
+   ``cond_fn``, the reverse ODE of that sample and the decode of its
+   latent, ``calc_bpd_loop``: s a request, launches, each chain's states
+   against its float64 replay on the CPU from its recorded model outputs
+   and noises;
+5f. the data path: the native motion-feature library built with g++,
+   phase 6's items on it against its numpy version, items/s of the
+   dataset on both and of the loader at B 64 with 1, 4 and 8 workers,
+   with the host's CPU model and cores;
 6. adversarial training at full width (``configs/models/MixerMDM.yaml``,
    ``configs/train/MixerMDM.yaml``, B = 8, T = 300): the gradients of one G
    and one D step on the kernels against the plain versions (and against
@@ -2723,6 +2737,367 @@ def base_models_phase(seed, card):
 
 
 # --------------------------------------------------------------------------
+# Phase 5e: the diffusion engine at full width
+# --------------------------------------------------------------------------
+
+# in2IN interaction (4-way CFG, bf16: its configs leave QUANT off) at the
+# infer-in2in request (BASE_B, IN2IN_T) on its 50-step respaced schedule.
+# (a) holds each step function from one latent at chain index ENGINE_STEP,
+# with one injected noise; (b) runs the chains: DDPM with the first
+# ENGINE_PRE frames inpainted, the root XZ pinned at ENGINE_PINS and the
+# mean shifted by a cond_fn; DDIM at ENGINE_ETA with the score conditioned;
+# the reverse ODE of that DDIM sample and the decode of its latent; the
+# whole bound of the sample.
+ENGINE_STEP, ENGINE_ETA, ENGINE_PRE = 25, 0.5, 30
+ENGINE_PINS = ((60, 0.4, 0.8), (120, 0.8, 1.6), (180, 1.2, 2.4))
+# Each chain's own arithmetic: replayed on the CPU in float64 from the
+# chain's recorded model outputs and its noises (the network is the card's,
+# so bf16 does not enter the replay), the states the model saw and the
+# chain's result held on ||card - replay|| / ||replay||, the largest over
+# the steps.  The card runs the engine in float32: over 50 steps a few
+# float32 roundings a step, about 1e-6.  Where float32 itself cannot
+# resolve a result (the bound's decoder term at t == 0 takes the log of a
+# bin's mass, a difference of two cdf values near 1; DDIM's eps near t == 0
+# divides by sqrt(1 / a - 1)), the limit is WITNESS_RATIO x the distance of
+# the same chain replayed in float32 on the CPU.  A first reading on an
+# H100: the bound's vb 1.08e-4 from float64.
+REPLAY_TOL = 1e-4
+
+
+def _root_cond_fn(x, t_orig):
+    """``grad log p(y | x)`` of a root-XZ target (person 1's root pulled to
+    (0.5, 1.0) in the model's space), taken by autograd on a detached ``x``
+    alone: the denoiser's call records no gradient and keeps its fused
+    kernels."""
+    import torch
+
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(True)
+        loss = -0.5 * ((x[..., 0] - 0.5) ** 2 + (x[..., 2] - 1.0) ** 2).sum()
+        return 0.1 * torch.autograd.grad(loss, x)[0]
+
+
+class _Recorder:
+    """A model function that keeps each call's input and output (device
+    copies) for the replay."""
+
+    def __init__(self, fn):
+        self.fn, self.inputs, self.outputs = fn, [], []
+
+    def __call__(self, x, t):
+        out = self.fn(x, t)
+        self.inputs.append(x.clone())
+        self.outputs.append(out.clone())
+        return out
+
+    def replay(self, dtype):
+        """A model function that hands back the recorded outputs in order,
+        in ``dtype`` on the CPU, and the list of the inputs it is given."""
+        outs, seen = iter([o.cpu().to(dtype) for o in self.outputs]), []
+
+        def fn(x, t):
+            seen.append(x)
+            return next(outs)
+        return fn, seen
+
+
+def _rel_fro(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _engine_steps(model_fn, s, x, z, x_start, t):
+    """One step of each engine function from latent ``x`` at ``t`` with the
+    noise ``z``; the VLB term of ``x_start`` q-sampled there with ``z``."""
+    from mixermdm_tpu_torch.diffusion.gaussian import ddim_step, ddpm_step, p_mean_variance, \
+        q_sample
+    from mixermdm_tpu_torch.diffusion.guidance import condition_mean, condition_score, \
+        ddim_reverse_step
+    from mixermdm_tpu_torch.diffusion.vlb import vb_terms_bpd
+
+    out = p_mean_variance(model_fn, s, x, t)
+    x0 = out["pred_xstart"]
+    return {
+        "p_mean_variance x0": x0,
+        "ddpm_step": ddpm_step(s, out, t, z),
+        f"ddim_step eta {ENGINE_ETA}": ddim_step(s, x, t, x0, ENGINE_ETA, z),
+        "condition_mean": condition_mean(_root_cond_fn, s, out, x, t),
+        "condition_score x0": condition_score(_root_cond_fn, s, out, x, t)["pred_xstart"],
+        "ddim_reverse_step": ddim_reverse_step(s, x, t, x0),
+        "vb_terms_bpd": vb_terms_bpd(model_fn, s, x_start, q_sample(s, x_start, t, z),
+                                     t)["output"],
+    }
+
+
+def engine_phase(seed, card, device="cuda", tiny=False):
+    """The diffusion engine (``diffusion/{gaussian,guidance,vlb}.py``) on
+    the in2IN interaction denoiser at full width, random weights from
+    ``seed`` (zero-init layers N(0, 0.02)), B 2, T 210, DDIM-50's schedule:
+
+    (a) each step function (``p_mean_variance`` -> ``ddpm_step``,
+        ``ddim_step`` at eta 0.5, ``condition_mean``, ``condition_score``,
+        ``ddim_reverse_step``, ``vb_terms_bpd``) on the kernels against the
+        plain versions, one latent and one noise, on STEP_TOL as phase 5c
+        holds this network's CFG steps;
+    (b) the chains on the kernels, each counted and timed: DDPM-50 with
+        ``pre_seq``, ``transl_req`` and ``cond_fn``; DDIM-50 at eta 0.5
+        with ``cond_fn``; ``ddim_encode_loop`` of that sample and the
+        DDIM-50 decode of its latent (the reconstruction gap printed);
+        ``calc_bpd_loop`` of the sample; each replayed in float64 on the
+        CPU from its recorded model outputs and noises on REPLAY_TOL.
+
+    ``tiny`` (with ``device="cpu"``) runs the same at the tiny config, a
+    rehearsal of the control flow.  Returns (launches of the chains,
+    readings)."""
+    import torch
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.cli import infer_in2in
+    from mixermdm_tpu_torch.diffusion.gaussian import ddim_sample_loop, p_sample_loop
+    from mixermdm_tpu_torch.diffusion.guidance import ddim_encode_loop
+    from mixermdm_tpu_torch.diffusion.schedule import named_schedule, resolve_sampler_strategy
+    from mixermdm_tpu_torch.diffusion.vlb import calc_bpd_loop
+    from mixermdm_tpu_torch.models.layers import w8a8_scope
+
+    B, T = BASE_B, (16 if tiny else IN2IN_T)
+    t0 = time.time()
+    system = infer_in2in.build_system(None, "interaction", tiny=tiny, device=device,
+                                      seed=seed, zero_init_std=0.02)
+    texts = {"text": [p[0] for p in PROMPTS], "text_individual1": [p[1] for p in PROMPTS],
+             "text_individual2": [p[2] for p in PROMPTS]}
+    cond = system.build_cond(texts)
+    model = system.cfg_model()
+    s = system.sample_schedule
+    n = s.num_timesteps
+    shape = (B, T, 2 * system.nfeats)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    print(f"   built in2IN interaction in {time.time() - t0:.1f} s; schedule "
+          f"{system.cfg.BETA_SCHEDULER} {n} steps, shape {shape}", flush=True)
+
+    def model_fn(x, t):
+        return model(x, t, None, cond)
+
+    gen = torch.Generator(device=device).manual_seed(seed + 17)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=device)
+
+    readings = {"card": card}
+    with torch.no_grad(), w8a8_scope(system.quant):
+        # (a) each step function, kernels against plain versions
+        x, z = randn(*shape), randn(*shape)
+        x_start = torch.tanh(randn(*shape))
+        t = torch.full((B,), min(ENGINE_STEP, n - 1), dtype=torch.long, device=device)
+        got = _engine_steps(model_fn, s, x, z, x_start, t)
+        with ops.plain_versions():
+            plain = _engine_steps(model_fn, s, x, z, x_start, t)
+        for name in got:
+            _agree(f"(a) {name} at chain index {int(t[0])}", got[name], plain[name], STEP_TOL,
+                   "fro")
+
+        # (b) the chains, recorded, timed and counted
+        pre = torch.tanh(randn(B, min(ENGINE_PRE, T // 2), shape[-1]))
+        pins = tuple((f * T // IN2IN_T, a, b) for f, a, b in ENGINE_PINS)
+        inputs = {"noise": randn(*shape), "pre": pre,
+                  "ddpm": [{"x": randn(*shape), "prefix": randn(*pre.shape),
+                            "pin": randn(len(pins), 2)} for _ in range(n)],
+                  "ddim": [{"x": randn(*shape)} for _ in range(n)],
+                  "bpd": randn(n, *shape)}
+        chains = {
+            ("ddpm", f"DDPM-{n} (pre_seq, transl_req, cond_fn)"): lambda m, sc, a: p_sample_loop(
+                m, sc, shape, noise=a["noise"], step_noise=a["ddpm"], pre_seq=a["pre"],
+                transl_req=pins, cond_fn=_root_cond_fn),
+            ("ddim", f"DDIM-{n} eta {ENGINE_ETA} (cond_fn)"): lambda m, sc, a: ddim_sample_loop(
+                m, sc, shape, noise=a["noise"], step_noise=a["ddim"], eta=ENGINE_ETA,
+                cond_fn=_root_cond_fn),
+            ("encode", "ddim_encode_loop of the DDIM sample"): lambda m, sc, a: ddim_encode_loop(
+                m, sc, a["sample"]),
+            ("decode", f"DDIM-{n} decode of its latent"): lambda m, sc, a: ddim_sample_loop(
+                m, sc, shape, noise=a["latent"]),
+            ("bpd", "calc_bpd_loop of the DDIM sample"): lambda m, sc, a: calc_bpd_loop(
+                m, sc, a["sample"], noise=a["bpd"]),
+        }
+        _, strategy = resolve_sampler_strategy(system.cfg)
+        on_cpu = {dt: named_schedule(system.cfg.BETA_SCHEDULER, int(system.cfg.DIFFUSION_STEPS),
+                                     strategy, dtype=dt) for dt in (torch.float64, torch.float32)}
+        counts = collections.Counter()
+        results = {}
+        for (key, label), run in chains.items():
+            rec = _Recorder(model_fn)
+            ops.reset_launch_counts()
+            sync()
+            t0 = time.time()
+            out = run(rec, s, inputs)
+            sync()
+            wall = time.time() - t0
+            launches = dict(ops.launches)
+            counts.update(launches)
+            # the replays: the same chain on the CPU on the card's model
+            # outputs and noises, in float64 and (the witness) in float32
+            replays = {}
+            for dt, sc in on_cpu.items():
+                fn, seen = rec.replay(dt)
+                res = run(fn, sc, _on_cpu(inputs, dt))
+                replays[dt] = (res if isinstance(res, dict) else {"result": res}, seen)
+            (want, seen), (f32, seen32) = replays[torch.float64], replays[torch.float32]
+            outs = out if isinstance(out, dict) else {"result": out}
+            gaps = {"states": (max(_rel_fro(a, b) for a, b in zip(rec.inputs, seen)),
+                               max(_rel_fro(a, b) for a, b in zip(seen32, seen)))}
+            gaps.update({k: (_rel_fro(outs[k], want[k]), _rel_fro(f32[k], want[k]))
+                         for k in outs})
+            ok = (all(bool(torch.isfinite(v).all()) for v in outs.values())
+                  and len(seen) == len(rec.inputs) == n
+                  and all(g <= max(REPLAY_TOL, WITNESS_RATIO * w) for g, w in gaps.values()))
+            results[label] = {"s_per_request": wall, "model_calls": n, "launches": launches,
+                              "replay_gaps": gaps}
+            shown = {k: [float(f"{g:.3g}"), float(f"{w:.3g}")] for k, (g, w) in gaps.items()}
+            print(f"   (b) {label}: {wall:.3f} s a request ({n} model calls) on {card}; "
+                  f"launches {json.dumps(launches, sort_keys=True)}; rel(fro) from the float64 "
+                  f"replay [card, CPU float32] {json.dumps(shown)}, held <= max({REPLAY_TOL:g}, "
+                  f"{WITNESS_RATIO} x CPU float32): {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SmokeFailure(f"{label}: the chain disagrees with its float64 replay")
+            if key == "ddim":
+                inputs["sample"] = out
+            elif key == "encode":
+                inputs["latent"] = out
+            elif key == "decode":
+                readings["reconstruction rel(fro)"] = _rel_fro(out, inputs["sample"])
+                print(f"   (b) the decoded latent against the DDIM sample: rel(fro) "
+                      f"{readings['reconstruction rel(fro)']:.4g} (a reading: random weights)",
+                      flush=True)
+    readings["chains"] = results
+    del system, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return counts, readings
+
+
+def _on_cpu(a, dtype):
+    """Tensors (in lists and dicts too) in ``dtype`` on the CPU."""
+    if isinstance(a, dict):
+        return {k: _on_cpu(v, dtype) for k, v in a.items()}
+    if isinstance(a, list):
+        return [_on_cpu(v, dtype) for v in a]
+    return a.cpu().to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Phase 5f: the data path
+# --------------------------------------------------------------------------
+
+# Dataset items on the native route against the numpy route (its plain
+# version), person 1 and person 2: the tolerances of tests/test_native.py
+# (the C++ computes in float64 as numpy does, with sums in another order;
+# person 2 also goes through the relative transform).
+DATA_TOL = (2e-5, 2e-4)
+# The rates: items of 301 frames (cropped to 300, training's length), 256
+# clips (512 items with the mirrored copies: 8 batches an epoch, so that 8
+# workers have a batch each), the dataset over its first RATE_ITEMS items on
+# each route, the loader at training's batch of 64 for LOADER_EPOCHS epochs
+# at each number of workers.
+LOADER_B, LOADER_CLIPS, LOADER_EPOCHS, LOADER_WORKERS = 64, 256, 2, (1, 4, 8)
+RATE_ITEMS = 128
+
+
+def _host():
+    """The host's CPU model (``/proc/cpuinfo``, else ``lscpu``), its
+    architecture and the cores this process may use."""
+    import os
+    import platform
+
+    lines = []
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        pass
+    try:
+        lines += subprocess.run(["lscpu"], capture_output=True, text=True,
+                                timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    model = next((line.split(":", 1)[1].strip() for line in lines
+                  if line.lower().startswith(("model name", "cpu model"))), "unknown")
+    return {"cpu": model, "arch": platform.machine(), "nproc": len(os.sched_getaffinity(0))}
+
+
+def data_phase(seed, card, tmp, clips=LOADER_CLIPS):
+    """The data path of training on the card's host: the native
+    motion-feature library built with g++ (seconds printed); the items of
+    phase 6's synthetic InterHuman set on the native route against the
+    numpy route; items/s of the dataset on both routes and of the loader at
+    B 64 with 1, 4 and 8 workers over ``clips`` clips.  Returns the
+    readings."""
+    import os
+    import random
+
+    import numpy as np
+
+    from mixermdm_tpu_torch import ops
+    from mixermdm_tpu_torch.data import native
+    from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
+    from mixermdm_tpu_torch.data.loader import DataLoader
+    from mixermdm_tpu_torch.data.synthetic import make_interhuman_fixture
+
+    host = _host()
+    t0 = time.time()
+    path, log = native.build(os.path.join(tmp, "host_build"))  # a cold build, timed
+    build_s = time.time() - t0
+    print(f"   host library built with g++ in {build_s:.2f} s into {path} (the package's "
+          f"own, loaded: {native.library()._name})", flush=True)
+    for line in log.splitlines():
+        print(f"   | {line}", flush=True)
+
+    # native against numpy on phase 6's items
+    root = os.path.join(tmp, "data_5f")
+    _fixture(root, seed)
+    nat = InterHumanDataset(root, mode="train", rng=random.Random(seed))
+    ref = InterHumanDataset(root, mode="train", rng=random.Random(seed))
+    worst = [0.0, 0.0]
+    for i in range(len(nat)):
+        a = nat[i]
+        with ops.plain_versions():
+            b = ref[i]
+        if a["motion_lens"] != b["motion_lens"] or a["text"] != b["text"]:
+            raise SmokeFailure(f"item {i}: native and numpy routes took other draws")
+        for k, key in enumerate(("motion1", "motion2")):
+            worst[k] = max(worst[k], float(np.abs(a[key] - b[key]).max()))
+    ok = worst[0] <= DATA_TOL[0] and worst[1] <= DATA_TOL[1]
+    print(f"   {len(nat)} items of phase 6's set, native against numpy: max |diff| motion1 "
+          f"{worst[0]:.3g} (<= {DATA_TOL[0]:g}), motion2 {worst[1]:.3g} (<= {DATA_TOL[1]:g}): "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure("the native motion library disagrees with its numpy version")
+
+    # the rates
+    root = os.path.join(tmp, "data_5f_rates")
+    make_interhuman_fixture(root, n_clips=clips, n_frames=301, seed=seed)
+    ds = InterHumanDataset(root, mode="train")
+    rates = {}
+    n = min(RATE_ITEMS, len(ds))
+    for route in ("numpy", "native"):
+        with ops.plain_versions() if route == "numpy" else contextlib.nullcontext():
+            t0 = time.time()
+            for i in range(n):
+                ds[i]
+            rates[f"dataset {route}"] = n / (time.time() - t0)
+    for _ in DataLoader(ds, LOADER_B, seed=seed):  # warm-up, untimed
+        pass
+    for workers in LOADER_WORKERS * 2:  # two turns
+        loader = DataLoader(ds, LOADER_B, seed=seed, num_workers=workers, reseed_dataset=True)
+        t0 = time.time()
+        items = sum(len(b["name"]) for _ in range(LOADER_EPOCHS) for b in loader)
+        rates.setdefault(f"loader B {LOADER_B}, {workers} workers", []).append(
+            items / (time.time() - t0))
+    print(f"   items/s ({len(ds)} items of 300 frames, {len(ds) // LOADER_B} batches an epoch; "
+          f"on {host['cpu']} ({host['arch']}), nproc {host['nproc']}; card {card}): " + json.dumps(
+              {k: [round(x, 1) for x in v] if isinstance(v, list) else round(v, 1)
+               for k, v in rates.items()}), flush=True)
+    return {"build_s": build_s, "native_vs_numpy": worst, "items_per_s": rates, "host": host}
+
+
+# --------------------------------------------------------------------------
 # Phase 6: adversarial training at full width
 # --------------------------------------------------------------------------
 
@@ -3000,6 +3375,7 @@ def train_phase(seed, tmp):
     from mixermdm_tpu_torch import ops
     from mixermdm_tpu_torch.cli import train_mixermdm
     from mixermdm_tpu_torch.cli.infer_mixermdm import build_system
+    from mixermdm_tpu_torch.data import native
     from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
     from mixermdm_tpu_torch.data.loader import collate
     from mixermdm_tpu_torch.models import layers
@@ -3008,12 +3384,20 @@ def train_phase(seed, tmp):
         data = os.path.join(tmp, "data")
         _fixture(data, seed)
         dataset = InterHumanDataset(data, mode="train")
-        batch_np = collate([dataset[i] for i in range(TRAIN_B)])
+        # The gradient checks (here and phase 6b) hold kernels, plain versions
+        # and f32 on one batch: its items and statistics come from the
+        # dataset's numpy route, the inputs these checks were set on.  At
+        # random weights the gradients move with the inputs' last bits (the
+        # standing hazard of ROADMAP Queue 3), and the native route's items
+        # lie up to 3e-8 from these.  The training CLI below reads the
+        # native route.
+        with ops.plain_versions():
+            batch_np = collate([dataset[i] for i in range(TRAIN_B)])
+            normalizer = _fixture_normalizer(dataset)
         print(f"   fixture: {len(dataset)} items, batch lengths "
               f"{batch_np['motion_lens'].tolist()} of T = {batch_np['motions'].shape[1]}",
               flush=True)
 
-        normalizer = _fixture_normalizer(dataset)
         grad_check(seed, normalizer, batch_np)
 
         # --- the training CLI, counted -----------------------------------------
@@ -3023,13 +3407,18 @@ def train_phase(seed, tmp):
                 "--init-std", "0.02", "--log-jsonl", os.path.join(tmp, "steps.jsonl")]
         layers.set_train_attention("kernel")
         ops.reset_launch_counts()
+        items_before = native.calls["process_pair_interhuman"]
         torch.cuda.synchronize()
         t0 = time.time()
         out = train_mixermdm.run(argv)
         torch.cuda.synchronize()
         counts = dict(ops.launches)
+        native_items = native.calls["process_pair_interhuman"] - items_before
         print(f"   train-mixermdm {' '.join(argv)}: {time.time() - t0:.1f} s for "
-              f"{len(out['records'])} fit steps (system build included)", flush=True)
+              f"{len(out['records'])} fit steps (system build included); items on the "
+              f"native route: {native_items}", flush=True)
+        if native_items < 4 * TRAIN_B:
+            raise SmokeFailure("train-mixermdm's items did not take the native motion library")
         for r in out["records"]:
             print("   " + json.dumps(r), flush=True)
         print(f"   launches in the training run: {json.dumps(counts, sort_keys=True)}", flush=True)
@@ -4019,6 +4408,10 @@ PATH_KERNELS = {
     "in2in dual": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
                    "fused_attention", "fused_sa_block", "fused_ca_block", "fused_ffn_block"),
     "mdm": (*GEMM_ROUTES, "attention", "fused_attention"),
+    # The diffusion engine's chains (phase 5e (b)) on in2IN interaction in
+    # bf16: its denoiser's fused blocks and the GEMM routes around them.
+    "engine": ("adaln_modulate", *GEMM_ROUTES, "attention", "fused_sa_block",
+               "fused_ca_block", "fused_ffn_block"),
     # The rest of training (phase 6b).  train-in2in at the shipped dropout:
     # the frozen tower on the attention kernel and the GEMM routes; the
     # trained post-encoder head (in2IN) on the f32 attention and its
@@ -4242,6 +4635,17 @@ def main(argv=None):
         counts.update(eval_counts)
         done(t0)
 
+        t0 = phase("5e. the diffusion engine at full width (in2IN interaction): DDPM, DDIM at "
+                   "eta 0.5, guidance, the reverse ODE, the VLB; kernels vs plain, chains vs "
+                   "their float64 replay, counted")
+        counts["engine"], engine = engine_phase(args.seed, card)
+        done(t0)
+
+        t0 = phase("5f. the data path: the native motion library against its numpy version, "
+                   "items/s of the dataset and of the loader's workers")
+        data = data_phase(args.seed, card, tmp)
+        done(t0)
+
         t0 = phase("6. adversarial training at full width")
         counts["train"], phase6 = train_phase(args.seed, tmp)
         done(t0)
@@ -4275,6 +4679,11 @@ def main(argv=None):
         {"seconds": evaluation["seconds"], "by side": evaluation["(c)"]["seconds_by_side"]}),
         flush=True)
     print("   train-evaluator (phase 6c): " + json.dumps(ev_train), flush=True)
+    print("   the diffusion engine (phase 5e): " + json.dumps(
+        {k: {"s_per_request": v["s_per_request"], "launches": sum(v["launches"].values()),
+             "replay_gaps": v["replay_gaps"]}
+         for k, v in engine["chains"].items()}), flush=True)
+    print("   the data path (phase 5f): " + json.dumps(data), flush=True)
     print("   base-model requests (phase 5c): " + json.dumps(
         {k: {"s_per_request": v["s_per_request"], "launches": sum(v["launches"].values())}
          for k, v in base.items()}), flush=True)

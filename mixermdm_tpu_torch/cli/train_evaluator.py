@@ -97,7 +97,7 @@ def run(argv=None) -> dict:
         args.data_root, mode="train", max_gt_length=max_frames)
     if len(dataset) == 0:
         raise SystemExit(f"no data under {args.data_root}")
-    loader = DataLoader(dataset, batch_size=batch_size, seed=args.seed)
+    loader = DataLoader(dataset, batch_size=batch_size, seed=args.seed, reseed_dataset=True)
     opt = AdamW(trainable(model), lr=args.lr, weight_decay=args.weight_decay, clip_norm=None)
     dev = model.device
     records = []

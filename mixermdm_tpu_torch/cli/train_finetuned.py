@@ -89,7 +89,7 @@ def run(argv=None) -> dict:
     dataset = InterHumanDataset(args.data_root, mode="train", max_gt_length=max_frames)
     if len(dataset) == 0:
         raise SystemExit(f"no data found under {args.data_root}")
-    loader = DataLoader(dataset, batch_size=batch_size, seed=args.seed)
+    loader = DataLoader(dataset, batch_size=batch_size, seed=args.seed, reseed_dataset=True)
     trainer = BaseTrainer(target, lr=args.lr, frozen=sa_block_frozen)
     args.save_epoch = epochs + 1  # only the final checkpoint, as the JAX CLI
     records = train_loop(target, trainer, "interaction", loader, args, epochs)

@@ -176,7 +176,7 @@ def run(argv=None) -> dict:
         args.data_root, mode="train", max_gt_length=max_frames)
     if len(dataset) == 0:
         raise SystemExit(f"no data found under {args.data_root}")
-    loader = DataLoader(dataset, batch_size=batch_size, seed=args.seed)
+    loader = DataLoader(dataset, batch_size=batch_size, seed=args.seed, reseed_dataset=True)
     schedule = None
     if interaction:
         # The reference's CosineWarmupScheduler (in2IN.py:51-58: a warmup of

@@ -121,7 +121,7 @@ def run(argv=None) -> dict:
     dataset = InterHumanDataset(args.data_root, mode="train", max_gt_length=max_frames)
     if len(dataset) == 0:
         raise SystemExit(f"no data found under {args.data_root}")
-    loader = DataLoader(dataset, batch_size=batch_size, seed=args.seed)
+    loader = DataLoader(dataset, batch_size=batch_size, seed=args.seed, reseed_dataset=True)
     jsonl = open(args.log_jsonl, "a", buffering=1) if args.log_jsonl else None
     dev = system.device
     records = []

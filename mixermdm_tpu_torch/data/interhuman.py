@@ -1,7 +1,8 @@
 """InterHuman dataset: two-person motions with interaction and individual
-texts; this package's own copy of ``mixermdm_tpu/data/interhuman.py`` on its
-numpy path (the JAX package's ``process_pair_interhuman_native`` binds a C++
-library; its numpy fallback is what runs here).
+texts; this package's own copy of ``mixermdm_tpu/data/interhuman.py``.  Each
+item's two clips are canonicalised by the C++ library of :mod:`.native` (the
+fused pair call, or its per-stage route), or by its plain version, the numpy
+pipeline of :mod:`..utils.features`, inside ``ops.plain_versions()``.
 
 Reference datasets/interhuman.py and utils/preprocess.py:6-34: split files,
 the left/right and clockwise swap augmentation of the texts, 62-joint raw
@@ -20,8 +21,10 @@ from typing import Optional
 
 import numpy as np
 
+from ..ops import _lib
 from ..utils.features import process_motion_interhuman, qinv_np, qmul_np, qrot_np, \
     rigid_transform, swap_left_right
+from . import native
 
 MAX_GT_LENGTH = 300
 MIN_GT_LENGTH = 15
@@ -51,22 +54,35 @@ def load_raw_motion(path: str, min_length: int, swap: bool = False):
     return motion, swap_left_right(motion, 22) if swap else None
 
 
-def process_pair(m1: np.ndarray, m2: np.ndarray, max_len: int):
-    """Canonicalise both persons, put person 2 in person 1's frame
-    (interhuman.py:208-216), zero-pad to ``max_len``.  Returns
-    ``(m1, m2, gt_length)``."""
-    m1, quat1, pos1 = process_motion_interhuman(m1, 0.001, 0, 22)
-    m2, quat2, pos2 = process_motion_interhuman(m2, 0.001, 0, 22)
+def _relative_and_pad(f1, quat1, pos1, f2, quat2, pos2, max_len: int):
+    """Person 2's features put in person 1's frame (interhuman.py:208-216),
+    both zero-padded to ``max_len``.  Returns ``(m1, m2, gt_length)``."""
     r_rel = qmul_np(quat2, qinv_np(quat1))
     angle = np.arctan2(r_rel[:, 2:3], r_rel[:, 0:1])
     xz = qrot_np(quat1, pos2 - pos1)[:, [0, 2]]
-    m2 = rigid_transform(np.concatenate([angle, xz], axis=-1)[0], m2)
-    gt_length = len(m1)
+    f2 = rigid_transform(np.concatenate([angle, xz], axis=-1)[0], f2)
+    gt_length = len(f1)
     if gt_length < max_len:
-        pad = np.zeros((max_len - gt_length, m1.shape[1]), m1.dtype)
-        m1 = np.concatenate([m1, pad], axis=0)
-        m2 = np.concatenate([m2, pad], axis=0)
-    return m1.astype(np.float32), m2.astype(np.float32), gt_length
+        pad = np.zeros((max_len - gt_length, f1.shape[1]), f1.dtype)
+        f1 = np.concatenate([f1, pad], axis=0)
+        f2 = np.concatenate([f2, pad], axis=0)
+    return f1.astype(np.float32), f2.astype(np.float32), gt_length
+
+
+def process_pair(m1: np.ndarray, m2: np.ndarray, max_len: int):
+    """Both clips canonicalised, person 2 in person 1's frame, zero-padded
+    to ``max_len``: ``(m1, m2, gt_length)``.  The fused native call where
+    it takes the clips, else the native per-stage route (JAX
+    interhuman.py:178-204); inside ``ops.plain_versions()`` the numpy
+    pipeline, the plain version of both."""
+    if _lib.plain_requested():
+        return _relative_and_pad(*process_motion_interhuman(m1, 0.001, 0, 22),
+                                 *process_motion_interhuman(m2, 0.001, 0, 22), max_len)
+    pair = native.process_pair_interhuman_native(m1, m2, 0.001, 0, max_len)
+    if pair is not None:
+        return pair
+    return _relative_and_pad(*native.process_motion_interhuman_native(m1, 0.001, 0),
+                             *native.process_motion_interhuman_native(m2, 0.001, 0), max_len)
 
 
 class InterHumanDataset:

@@ -1,6 +1,7 @@
 """Beta schedules, DDIM respacing and the precomputed schedule arrays;
 counterpart of ``mixermdm_tpu/diffusion/schedule.py``.  Computed once on the
-host in float64 (as the reference) and stored as f32 tensors on the device."""
+host in float64 (as the reference) and stored as f32 tensors on the device
+(float64 where a caller asks, to replay a chain's arithmetic)."""
 
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def space_timesteps(num_timesteps: int, section_counts) -> list[int]:
 
 
 class DiffusionSchedule(NamedTuple):
-    """The per-timestep arrays the DDIM chain reads, indexed by the
+    """The per-timestep arrays of the chains and the losses, indexed by the
     (respaced) timestep; ``timestep_map[i]`` is the original timestep fed to
     the model."""
 
@@ -73,6 +74,14 @@ class DiffusionSchedule(NamedTuple):
     timestep_map: torch.Tensor  # int64
     sqrt_alphas_cumprod: torch.Tensor           # q_sample (training)
     sqrt_one_minus_alphas_cumprod: torch.Tensor
+    alphas_cumprod_next: torch.Tensor           # the reverse ODE (guidance)
+    posterior_variance: torch.Tensor            # q(x_{t-1} | x_t, x_0), DDPM, VLB
+    posterior_log_variance_clipped: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
+    log_betas: torch.Tensor                     # learned-range variance
+    fixed_large_variance: torch.Tensor
+    log_fixed_large_variance: torch.Tensor
 
     @property
     def num_timesteps(self) -> int:
@@ -80,7 +89,7 @@ class DiffusionSchedule(NamedTuple):
 
 
 def make_schedule(betas: np.ndarray, use_timesteps: Sequence[int] | None = None,
-                  device="cpu") -> DiffusionSchedule:
+                  device="cpu", dtype=torch.float32) -> DiffusionSchedule:
     betas = np.asarray(betas, dtype=np.float64)
     if not (betas.ndim == 1 and (betas > 0).all() and (betas <= 1).all()):
         raise ValueError("betas must be a 1-d array in (0, 1]")
@@ -95,11 +104,14 @@ def make_schedule(betas: np.ndarray, use_timesteps: Sequence[int] | None = None,
         betas = np.array(new_betas, dtype=np.float64)
     else:
         timestep_map = list(range(len(betas)))
-    alphas_cumprod = np.cumprod(1.0 - betas)
+    alphas = 1.0 - betas
+    alphas_cumprod = np.cumprod(alphas)
     alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+    posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+    fixed_large = np.append(posterior_variance[1], betas[1:])
 
     def arr(x):
-        return torch.tensor(x, dtype=torch.float32, device=device)
+        return torch.tensor(x, dtype=dtype, device=device)
 
     return DiffusionSchedule(
         betas=arr(betas),
@@ -110,15 +122,27 @@ def make_schedule(betas: np.ndarray, use_timesteps: Sequence[int] | None = None,
         timestep_map=torch.tensor(timestep_map, dtype=torch.long, device=device),
         sqrt_alphas_cumprod=arr(np.sqrt(alphas_cumprod)),
         sqrt_one_minus_alphas_cumprod=arr(np.sqrt(1.0 - alphas_cumprod)),
+        alphas_cumprod_next=arr(np.append(alphas_cumprod[1:], 0.0)),
+        posterior_variance=arr(posterior_variance),
+        posterior_log_variance_clipped=arr(
+            np.log(np.append(posterior_variance[1], posterior_variance[1:]))),
+        posterior_mean_coef1=arr(betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
+        posterior_mean_coef2=arr(
+            (1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)),
+        log_betas=arr(np.log(betas)),
+        fixed_large_variance=arr(fixed_large),
+        log_fixed_large_variance=arr(np.log(fixed_large)),
     )
 
 
 def named_schedule(beta_scheduler: str, diffusion_steps: int,
-                   respacing: str | int | None = None, device="cpu") -> DiffusionSchedule:
-    """E.g. ``named_schedule("cosine", 1000, "ddim50")``."""
+                   respacing: str | int | None = None, device="cpu",
+                   dtype=torch.float32) -> DiffusionSchedule:
+    """E.g. ``named_schedule("cosine", 1000, "ddim50")``; ``dtype`` float64
+    for a replay of a chain's arithmetic."""
     betas = get_named_beta_schedule(beta_scheduler, diffusion_steps)
     use = None if respacing is None else space_timesteps(diffusion_steps, respacing)
-    return make_schedule(betas, use, device=device)
+    return make_schedule(betas, use, device=device, dtype=dtype)
 
 
 def resolve_sampler_strategy(cfg) -> tuple:

@@ -70,7 +70,8 @@ def reset_launch_counts() -> None:
 # points take their plain versions for CPU tensors; inside
 # :func:`plain_versions` they take them for CUDA tensors too, so a caller can
 # hold a whole network on the kernels against the same network without
-# them.  Nothing else routes around the kernels.
+# them.  The host's native motion library (``data/native.py``) takes its
+# numpy plain version inside it too.  Nothing else routes around the kernels.
 _plain_on_card = False
 
 
@@ -84,6 +85,12 @@ def plain_versions():
         yield
     finally:
         _plain_on_card = prev
+
+
+def plain_requested() -> bool:
+    """Whether the caller is inside :func:`plain_versions` (host code, which
+    has no tensor to ask :func:`use_plain` about)."""
+    return _plain_on_card
 
 
 def use_plain(x) -> bool:

@@ -110,10 +110,10 @@ def per_call(system, side) -> dict:
         return make
 
     def bwd(orig):
-        def wrapped(q, k, v, kpm, g, zero_attn, stats, out):
-            r = orig(q, k, v, kpm, g, zero_attn, stats, out)
+        def wrapped(q, k, v, kpm, g, zero_attn, stats, out, route=None):
+            r = orig(q, k, v, kpm, g, zero_attn, stats, out, route)
             with ops.plain_versions():
-                p = orig(q, k, v, kpm, g, zero_attn, stats, out)
+                p = orig(q, k, v, kpm, g, zero_attn, stats, out, route)
             leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
             with torch.enable_grad():
                 f = torch.autograd.grad(
@@ -247,6 +247,7 @@ def main(argv=None) -> int:
         print("grad_seeds: no CUDA device visible; this script needs one GPU", file=sys.stderr)
         return 2
     import chip_smoke
+    from mixermdm_tpu_torch import ops
     from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
     from mixermdm_tpu_torch.data.loader import collate
     from mixermdm_tpu_torch.ops import _lib
@@ -265,9 +266,11 @@ def main(argv=None) -> int:
         try:
             chip_smoke._fixture(f"{tmp}/data", seed)
             dataset = InterHumanDataset(f"{tmp}/data", mode="train")
-            batch_np = collate([dataset[i] for i in range(chip_smoke.TRAIN_B)])
-            # Read once: each read of the fixture draws its crops anew.
-            normalizer = chip_smoke._fixture_normalizer(dataset)
+            # As phase 6 reads them: the dataset's numpy route.  Read once:
+            # each read of the fixture draws its crops anew.
+            with ops.plain_versions():
+                batch_np = collate([dataset[i] for i in range(chip_smoke.TRAIN_B)])
+                normalizer = chip_smoke._fixture_normalizer(dataset)
             try:
                 check = chip_smoke.quant_grad_check if args.quant_train else chip_smoke.grad_check
                 check(seed, normalizer, batch_np)

@@ -1,1 +1,2 @@
-"""Geometry and normalisation used by the sampling chain (f32 throughout)."""
+"""Geometry, normalisation and host-side motion features: the sampling
+chain's tensors (f32), the data path's and the skeleton's numpy."""

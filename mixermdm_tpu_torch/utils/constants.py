@@ -1,6 +1,6 @@
 """Skeleton / motion-representation constants (the subset the sampling path,
-the training data and the base models' losses read), copied from
-``mixermdm_tpu/utils/constants.py``.
+the training data, the skeleton and the base models' losses read), copied
+from ``mixermdm_tpu/utils/constants.py``.
 
 The 262-d InterHuman feature layout::
 
@@ -9,6 +9,8 @@ The 262-d InterHuman feature layout::
     [132:258)  21 joint 6d rotations
     [258:262)  4 foot-contact labels
 """
+
+import numpy as np
 
 NUM_JOINTS = 22
 NUM_ROT_JOINTS = 21
@@ -24,13 +26,23 @@ FID_L = (7, 10)
 # r toe).
 GEOMETRIC_LOSS_FIDS = (7, 10, 8, 11)
 
-# HumanML3D kinematic chains (the skeleton the plots draw).
+# HumanML3D kinematic chains (the skeleton the plots draw and utils.skeleton
+# walks) and its unit bone directions (reference paramUtil.py).
 HML_KINEMATIC_CHAIN = (
     (0, 2, 5, 8, 11),
     (0, 1, 4, 7, 10),
     (0, 3, 6, 9, 12, 15),
     (9, 14, 17, 19, 21),
     (9, 13, 16, 18, 20),
+)
+HML_RAW_OFFSETS = np.array(
+    [
+        [0, 0, 0], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, -1, 0],
+        [0, 1, 0], [0, -1, 0], [0, -1, 0], [0, 1, 0], [0, 0, 1], [0, 0, 1],
+        [0, 1, 0], [1, 0, 0], [-1, 0, 0], [0, 0, 1], [0, -1, 0], [0, -1, 0],
+        [0, -1, 0], [0, -1, 0], [0, -1, 0], [0, -1, 0],
+    ],
+    dtype=np.float32,
 )
 
 # Default sampling window.

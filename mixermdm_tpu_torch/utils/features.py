@@ -1,10 +1,11 @@
 """Host-side motion feature pipeline (numpy): raw joints -> 262-d vectors.
 
-This package's own copy of the numpy parts of
-``mixermdm_tpu/utils/features.py`` that the InterHuman dataset calls
-(reference utils/utils.py: ``process_motion_interhuman``:92,
-``swap_left_right``:231, ``rigid_transform``:244).  It runs in the input
-pipeline on the CPU, as the reference runs it in ``Dataset.__getitem__``.
+This package's own copy of ``mixermdm_tpu/utils/features.py`` (reference
+utils/utils.py: ``process_motion_interhuman``:92, ``swap_left_right``:231,
+``rigid_transform``:244; utils/preprocess.py: ``load_motion``:36; the SMPL
+export of alignment.py:244-272).  It runs in the input pipeline on the CPU,
+as the reference runs it in ``Dataset.__getitem__``; the dataset's default
+route is its C++ twin (:mod:`..data.native`).
 """
 
 from __future__ import annotations
@@ -90,6 +91,51 @@ def process_motion_interhuman(motion: np.ndarray, feet_thre: float, prev_frames:
     data = np.concatenate([joint_positions[:-1], joint_vels, rotations[:-1], feet_l, feet_r],
                           axis=-1)
     return data, root_quat_init, root_pos_init_xz[None]
+
+
+def load_motion_hml3d(pos_path: str, rot_path: str, min_length: int):
+    """HumanML3D raw files -> the reduced (T-1, 22*3 + 21*6) layout
+    (reference preprocess.py:36-63): 22 joint positions (the last frame
+    dropped) and the 21 6d rotations of the HumanML3D feature vector."""
+    try:
+        pos = np.load(pos_path).astype(np.float32)
+        rot = np.load(rot_path).astype(np.float32)
+    except OSError:
+        return None, None
+    pos = pos[:, :22].reshape(pos.shape[0], -1)[:-1]
+    off = 4 + 21 * 3 + 22 * 3
+    rot = rot[:, off: off + 21 * 6].reshape(rot.shape[0], -1)
+    motion = np.concatenate([pos, rot], axis=1)
+    if motion.shape[0] < min_length:
+        return None, None
+    return motion, None
+
+
+def extract_smpl(motion: np.ndarray):
+    """(T, >= 201) SMPL-layout motion -> (poses, trans, root facing) for an
+    SMPL export (reference alignment.py:244-253)."""
+    positions = motion[:, : 22 * 3].reshape(-1, 22, 3)
+    poses = motion[:, 22 * 6: 22 * 6 + 23 * 3].reshape(-1, 23 * 3)
+    return poses, positions[:, 0], get_root_pos(positions)
+
+
+def get_root_pos(positions: np.ndarray) -> np.ndarray:
+    """The root's facing as an axis-angle per frame (reference
+    alignment.py:255-272), through :func:`.rotations.quaternion_to_axis_angle`
+    on the CPU in float32."""
+    import torch
+
+    from .rotations import quaternion_to_axis_angle
+
+    positions = positions.reshape(-1, 22, 3)
+    r_hip, l_hip = FACE_JOINT_INDX[:2]
+    across = positions[:, r_hip] - positions[:, l_hip]
+    across = across / np.sqrt((across ** 2).sum(axis=-1) + 1e-8)[..., None]
+    forward = np.cross(np.array([[0, 1, 0]]), across, axis=-1)
+    forward = forward / np.sqrt((forward ** 2).sum(axis=-1) + 1e-8)[..., None]
+    origin = np.tile(np.array([[0.0, 0.0, 1.0]]), (len(forward), 1))
+    quat = np.nan_to_num(qbetween_np(origin, forward))
+    return quaternion_to_axis_angle(torch.tensor(quat, dtype=torch.float32)).numpy()
 
 
 def swap_left_right(data: np.ndarray, n_joints: int) -> np.ndarray:

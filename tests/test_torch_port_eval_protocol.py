@@ -322,10 +322,12 @@ def test_interhuman_dataset_matches_jax(tmp_path, monkeypatch, mode):
     drawing text, individual texts, crop and person swap from
     ``random.Random(7)`` in the same order (mixermdm_tpu/data/interhuman.py:
     152-176); crops happen (clips of 40-70 frames, 32 kept).  The JAX
-    dataset runs its numpy path (its native library left out), the path the
-    port copies."""
+    dataset runs its numpy path (its native library left out), and the port
+    its plain version, the same numpy path (inside ``ops.plain_versions()``;
+    its native route is held to it in tests/test_torch_port_data.py)."""
     from mixermdm_tpu.data import native
     from mixermdm_tpu.data.interhuman import InterHumanDataset as J
+    from mixermdm_tpu_torch import ops
     from mixermdm_tpu_torch.data.interhuman import InterHumanDataset
     from mixermdm_tpu_torch.data.synthetic import make_interhuman_fixture
 
@@ -333,8 +335,9 @@ def test_interhuman_dataset_matches_jax(tmp_path, monkeypatch, mode):
     make_interhuman_fixture(str(tmp_path), n_clips=4, n_frames=[40, 70, 33, 55])
     got = InterHumanDataset(str(tmp_path), mode=mode, max_gt_length=32, rng=random.Random(7))
     want = J(str(tmp_path), mode=mode, max_gt_length=32, rng=random.Random(7))
-    _same_items(got, want)
-    _same_items(got, want)  # the second pass draws on from where the first stopped
+    with ops.plain_versions():
+        _same_items(got, want)
+        _same_items(got, want)  # the second pass draws on from where the first stopped
 
 
 @pytest.mark.parametrize("extended", [False, True])

@@ -210,11 +210,11 @@ def test_set_epoch_replays_an_epoch(layout, tmp_path):
     def epoch(loader):
         return list(loader)
 
-    first = DataLoader(make(), batch_size=2, seed=3)
+    first = DataLoader(make(), batch_size=2, seed=3, reseed_dataset=True)
     whole = [epoch(first) for _ in range(3)]
     assert len(whole[0]) >= 2
     for e in (1, 2):
-        again = DataLoader(make(), batch_size=2, seed=3)
+        again = DataLoader(make(), batch_size=2, seed=3, reseed_dataset=True)
         again.set_epoch(e)
         for got, want in zip([epoch(again) for _ in range(3 - e)], whole[e:]):
             assert len(got) == len(want)

@@ -248,6 +248,7 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
     package's ``scripts/`` is blocked too, and the port's copy of its kernel
     experiments
     (``mixermdm_tpu_torch.scripts.exp_kernels``) runs its check on the CPU.
+    The training items take the native motion library, built with g++.
     The inference CLI also samples from a released-layout checkpoint triple
     with DPM-Solver++, trajectory control, a warm start and decomposed
     prompts (matplotlib blocked too, as on the card machine, so its plots
@@ -261,6 +262,8 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
             importlib.import_module(m)
         import chip_smoke
         assert "mixermdm_tpu_torch.scripts.exp_kernels" in mods
+        for name in ("data.native", "diffusion.guidance", "diffusion.vlb", "utils.skeleton"):
+            assert "mixermdm_tpu_torch." + name in mods, name
         from mixermdm_tpu_torch.scripts import exp_kernels
         import torch
         small = exp_kernels.make_inputs(2, 7, 128, 2, device="cpu", dtype=torch.float32)
@@ -313,6 +316,8 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
         sys.argv = ["mixermdm_tpu_torch", "train-mixermdm", "--tiny", "--device", "cpu",
                     "--max-steps", "2", "--out-dir", {str(tmp_path / "train")!r}]
         assert cli() == 0
+        from mixermdm_tpu_torch.data import native
+        assert native.calls["process_pair_interhuman"] > 0  # its items on the native route
         # the rest of training: --resume auto (one more step from final_state)
         # with QUANT_TRAIN, the base models' three modes, the fine-tune
         sys.argv[-4:-2] = ["--max-steps", "3"]
