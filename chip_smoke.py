@@ -131,7 +131,18 @@ Phases, each printing its wall-clock seconds:
    32) on the kernels against the plain versions, the CLI for 3 steps,
    counted, and its file read by ``eval-mixermdm --evaluator-checkpoint
    --strict``;
-7. one JSON line per kernel and entry point, then the result line.
+7. parallel sampling (``mixermdm_tpu_torch.scripts.parallel_layouts``):
+   (a) an NCCL world of one rank on ``cuda:0``, ``infer-mixermdm``'s
+   data-parallel sample path bitwise against the plain call; (b) two ranks
+   on ``cuda:0`` through ``gloo``, the shipped system at full width from
+   the seed, B 2, T 299, DDIM cut to 10 steps: data parallelism (W8A8) row
+   for row, ``--pp 2`` (W8A8, 4 layers a stage), ``--tp 2`` (bf16: the
+   kernels at H 4, N 1536, K 512) and ``--tp 2 --sp`` at T 298, each step
+   held to one rank's within 1.5x its kernels-vs-plain gap; ``serve`` with
+   data parallelism answering 2 requests; ``infer-mixermdm`` on both
+   ranks; launch shapes, transports and seconds a step of each layout
+   (two ranks sharing one card: no multi-card speed);
+8. one JSON line per kernel and entry point, then the result line.
 
 Any failure exits nonzero and prints no result line.  The script imports
 nothing of JAX or of the JAX package.
@@ -151,6 +162,7 @@ import dataclasses
 import faulthandler
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -378,12 +390,15 @@ def kernel_checks(gen):
     # the port.
     from mixermdm_tpu_torch.ops.linear import gemm_plan, tma_describable
 
-    def lin_case(name, M, K, N, act=None, res=False, tol=2e-2, ldx=None, light=False):
-        # ldx: x is the view x[:, :K] of an (M, ldx) tensor.
+    def lin_case(name, M, K, N, act=None, res=False, tol=2e-2, ldx=None, light=False,
+                 bias=True):
+        # ldx: x is the view x[:, :K] of an (M, ldx) tensor.  bias=False: a
+        # row-parallel partial (its bias is added after the sum).
         x = rnd(M, ldx or K)[:, :K]
         w, b = rnd(N, K, std=K ** -0.5), rnd(N, std=0.1)
+        b = b if bias else None
         r = rnd(M, N) if res else None
-        n_bytes = 2 * (M * K + N * K + N + M * N * (2 if res else 1))
+        n_bytes = 2 * (M * K + N * K + (N if bias else 0) + M * N * (2 if res else 1))
         plan = gemm_plan(M, N, K, tma_ok=tma_describable(2, (x.data_ptr(), x.stride(0)),
                                                           (w.data_ptr(), w.stride(0))))
         route = {"tma": "linear_epilogue", "skinny": "linear_epilogue_skinny",
@@ -571,6 +586,25 @@ def kernel_checks(gen):
     # The f32 attention's two routes side by side (its own generator, after
     # every earlier check).
     results += f32_route_checks(gen.initial_seed() + 16)
+    # Tensor parallelism's shard shapes (phase 7, --tp 2), after every
+    # earlier check: H 4 of the denoisers' and the mixer's 8 heads, the
+    # column-parallel products (QKV N 3E/2, FFN1 N F/2) and the row-parallel
+    # partials (out-projection K E/2, FFN2 K F/2, no bias: it is added after
+    # the sum), the CLIP tower's 6 of 12 heads and c_fc N 1536; --sp's
+    # prologue on half of T 298.
+    for E, F_, D in ((1024, 2048, 128), (512, 1024, 64)):
+        results.append(attn_case(f"attention tp2 H=4 D={D}", 8, 4, 299, 299, D, True))
+        results.append(lin_case(f"linear tp2 QKV E={E} N={3 * E // 2}", M, E, 3 * E // 2))
+        results.append(lin_case(f"linear tp2 out-proj partial E={E} K={E // 2}", M, E // 2, E,
+                                bias=False))
+        results.append(lin_case(f"linear tp2 FFN1 gelu E={E} N={F_ // 2}", M, E, F_ // 2,
+                                act="gelu"))
+        results.append(lin_case(f"linear tp2 FFN2 partial E={E} K={F_ // 2}", M, F_ // 2, E,
+                                bias=False))
+    results.append(attn_case("attention tp2 clip tower H=6", 2, 6, 77, 77, 64, False,
+                             causal=True))
+    results.append(lin_case("linear tp2 clip c_fc N=1536", 2 * 77, 768, 1536))
+    results.append(adaln_case(8, 149, 1024, label=" tp2+sp"))
     _lib.reset_launch_counts()  # comparison launches do not count
     return results
 
@@ -4218,6 +4252,52 @@ def evaluation_phase(seed, card, tmp, held):
     return counts, readings, (ih_root, hml_root)
 
 
+PARALLEL_STEPS = 10       # phase 7's DDIM chain, cut from 50
+PARALLEL_TIMEOUT_S = 400  # phase 7's two ranks are joined within this, else killed
+
+
+def parallel_phase(seed, card, tmp):
+    """Phase 7, multi-rank sampling (``mixermdm_tpu_torch.scripts.
+    parallel_layouts``): (a) an NCCL world of one rank, the data-parallel
+    sample path bitwise against the plain call; (b) two ranks sharing
+    ``cuda:0`` through ``gloo`` (the kernels built once, in phase 2), the
+    shipped system at full width: data parallelism and ``--pp 2`` (W8A8),
+    ``--tp 2`` and ``--tp 2 --sp`` (bf16, the kernels at the shard shapes),
+    ``serve`` with data parallelism and ``infer-mixermdm`` on both ranks,
+    each held to one rank.  Prints each layout's launch shapes, seconds a
+    step and the collectives' transports.  Returns (each layout's launches
+    by kernel, the phase's summary)."""
+    from mixermdm_tpu_torch.parallel import launch
+    from mixermdm_tpu_torch.scripts import parallel_layouts as pl
+
+    t0 = time.time()
+    one = pl.world_of_one(seed, PARALLEL_STEPS, store_dir=tmp)
+    out_dir = os.path.join(tmp, "parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    rep = launch(pl.layouts_rank, 2, backend="gloo", devices=["cuda:0", "cuda:0"],
+                 args=(seed, PARALLEL_STEPS, out_dir), timeout_s=PARALLEL_TIMEOUT_S,
+                 store_dir=tmp)[0]
+    layouts = ("data parallelism 2", "pp 2", "tp 2", "tp 2 + sp")
+    keys = {"data parallelism 2": "data parallelism", "pp 2": "pp 2", "tp 2": "tp 2",
+            "tp 2 + sp": "tp 2 + sp"}
+    for name in layouts:
+        r = rep[keys[name]]
+        print(f"   {name}: {r['s_per_step']:.4f} s a step (2 ranks on one card through gloo; "
+              f"one rank {rep['one rank']['s_per_step']:.4f}); launch shapes "
+              f"{json.dumps(r['launch_shapes'])}", flush=True)
+    print(f"   serve: {json.dumps(rep['serve'])}", flush=True)
+    print(f"   collectives' transports: {json.dumps(rep['transports'])}", flush=True)
+    seconds = time.time() - t0
+    print(f"   {card}; phase 7 seconds {seconds:.1f}", flush=True)
+    counts = {name: collections.Counter(rep["launches"][name]) for name in layouts}
+    summary = {"(a)": one, "seconds": seconds,
+               "s_per_step": {k: rep[keys[k]]["s_per_step"] for k in layouts},
+               "one_rank_s_per_step": rep["one rank"]["s_per_step"],
+               "gaps": {k: {g: rep[keys[k]][g] for g in ("rel_fro", "limit")} for k in layouts},
+               "transports": rep["transports"]}
+    return counts, summary
+
+
 def evaluator_training_phase(seed, card, tmp, roots):
     """train-evaluator at full width: (a) one step's loss and gradients
     (batch 32 of the InterHuman set, lengths up to 300) on the kernels
@@ -4393,6 +4473,18 @@ PATH_KERNELS = {
     "train": ("adaln_modulate", *GEMM_ROUTES, "attention", "attention_f32",
               "attention_bwd", "fused_attention", "fused_sa_block", "fused_ca_block",
               "fused_ffn_block"),
+    # Phase 7's layouts on two ranks: data parallelism and the pipeline on
+    # the shipped W8A8 blocks, tensor parallelism (and with sequence
+    # parallelism) on the bf16 blocks at the shard shapes.
+    "data parallelism 2": ("adaln_modulate_q8", "linear_q8", "linear_q8_gelu_q8",
+                           "attention_q8", "fused_sa_block_q8", "fused_ca_block_q8",
+                           "fused_ffn_block_q8"),
+    "pp 2": ("adaln_modulate_q8", "linear_q8", "linear_q8_gelu_q8", "attention_q8",
+             "fused_sa_block_q8", "fused_ca_block_q8", "fused_ffn_block_q8"),
+    "tp 2": ("adaln_modulate", "linear_epilogue", "attention", "fused_sa_block",
+             "fused_ca_block", "fused_ffn_block"),
+    "tp 2 + sp": ("adaln_modulate", "linear_epilogue", "attention", "fused_sa_block",
+                  "fused_ca_block", "fused_ffn_block"),
     # The kernel experiments (mixermdm_tpu_torch.scripts.exp_kernels): the
     # one-launch SA blocks, beside the shipped composition.
     "exp_kernels": ("sa_block", "sa_block_i8x", "fused_sa_block", "fused_sa_block_q8"),
@@ -4495,6 +4587,18 @@ SHAPE_ROWS = {
                                              "attention f32 InterCLIP motion D=128 kpm"),
     "attention_bwd f32 InterCLIP motion tower": ("attention_bwd", "train-evaluator",
                                                  "attention_bwd f32 InterCLIP motion D=128"),
+    # The shard shapes of --tp 2 (phase 7): the launches are the tp 2 step's.
+    "attention tp2 denoiser H=4": ("attention", "tp 2", "attention tp2 H=4 D=128"),
+    "attention tp2 mixer H=4": ("attention", "tp 2", "attention tp2 H=4 D=64"),
+    "linear_epilogue tp2 QKV N=1536": ("linear_epilogue", "tp 2", "linear tp2 QKV E=1024 N=1536"),
+    "linear_epilogue tp2 out-proj K=512": ("linear_epilogue", "tp 2",
+                                           "linear tp2 out-proj partial E=1024 K=512"),
+    "linear_epilogue tp2 FFN1 N=1024": ("linear_epilogue", "tp 2",
+                                        "linear tp2 FFN1 gelu E=1024 N=1024"),
+    "linear_epilogue tp2 FFN2 K=1024": ("linear_epilogue", "tp 2",
+                                        "linear tp2 FFN2 partial E=1024 K=1024"),
+    "adaln_modulate tp2+sp T=149": ("adaln_modulate", "tp 2 + sp",
+                                    "adaln_modulate E=1024 T=149 tp2+sp"),
 }
 
 
@@ -4661,10 +4765,16 @@ def main(argv=None):
         ev_counts, ev_train = evaluator_training_phase(args.seed, card, tmp, eval_roots)
         counts.update(ev_counts)
         done(t0)
+
+        t0 = phase("7. parallel sampling: an NCCL world of one; two ranks on cuda:0 through "
+                   "gloo: data parallelism, --pp 2, --tp 2, --tp 2 --sp, serve, infer-mixermdm")
+        par_counts, parallel = parallel_phase(args.seed, card, tmp)
+        counts.update(par_counts)
+        done(t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    t0 = phase("7. summary")
+    t0 = phase("8. summary")
     counts["exp_kernels"] = sa_counts
     line = kernels_line(results, counts)
     missing = [f"{name} ({path} path)" for path, names in PATH_KERNELS.items() for name in names
@@ -4679,6 +4789,7 @@ def main(argv=None):
         {"seconds": evaluation["seconds"], "by side": evaluation["(c)"]["seconds_by_side"]}),
         flush=True)
     print("   train-evaluator (phase 6c): " + json.dumps(ev_train), flush=True)
+    print("   parallel sampling (phase 7): " + json.dumps(parallel), flush=True)
     print("   the diffusion engine (phase 5e): " + json.dumps(
         {k: {"s_per_request": v["s_per_request"], "launches": sum(v["launches"].values()),
              "replay_gaps": v["replay_gaps"]}

@@ -15,7 +15,8 @@ individual``, ``mdm``) on HumanML3D only.  Usage::
 Weights: the mode's released file through ``--checkpoint`` (in dual mode the
 interaction file, and the individual one through ``--ckpt-individual``),
 the evaluators as in ``eval-mixermdm``; ``--strict`` fails where a file
-leaves a parameter unfilled.  ``--tiny`` and ``--device cpu`` as there.
+leaves a parameter unfilled.  ``--tiny``, ``--device cpu``, data
+parallelism and ``--no-data-parallel`` as there.
 """
 
 from __future__ import annotations
@@ -26,11 +27,12 @@ from ..data.humanml3d import HumanML3DDataset
 from ..data.interhuman import InterHumanDataset
 from ..eval.driver import BaseSystemAdapter, run_side, summarize_metrics
 from ..eval.protocol import EvalProtocol, EvaluatorWrapper, EvaluatorWrapperIndividual
+from ..parallel import on_ranks
 from ..systems import apply_sampler_overrides
 from ..train.checkpoint import load_released_in2in, load_released_mdm
 from . import infer_in2in, infer_mdm
-from .eval_mixermdm import add_protocol_args, data_roots, load_evaluator, open_dataset, \
-    protocol_sizes, write_summary
+from .eval_mixermdm import add_protocol_args, data_mesh, data_roots, load_evaluator, \
+    open_dataset, protocol_sizes, write_summary
 from .infer_in2in import report_unfilled
 
 MODEL_NAMES = {"interaction": "in2IN", "dual": "DualMDM", "individual": "in2INind",
@@ -87,7 +89,10 @@ def run(argv=None) -> dict:
                         help="respace the generation chain (not the protocol's)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    return on_ranks(_evaluate, args, spread=not args.no_data_parallel)
 
+
+def _evaluate(args) -> dict:
     two_person = args.mode in ("interaction", "dual")
     side = args.side if args.side != "auto" else ("both" if two_person else "hml3d")
     if not two_person and side in ("interhuman", "both"):
@@ -100,7 +105,8 @@ def run(argv=None) -> dict:
     side_kw = dict(num_samples=sizes["num_samples"], max_frames=sizes["max_frames"],
                    replications=replications, seed=args.seed, per_item=args.per_item_lengths,
                    mm_num_samples=sizes["mm_num_samples"],
-                   mm_num_repeats=sizes["mm_num_repeats"], model_name=model_name)
+                   mm_num_repeats=sizes["mm_num_repeats"], model_name=model_name,
+                   mesh=data_mesh(args))
     summary = {}
     with data_roots(args):
         if side in ("interhuman", "both"):

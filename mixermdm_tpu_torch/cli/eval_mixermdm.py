@@ -25,6 +25,13 @@ file holds keeps its random values from ``--seed`` and is listed
 (``--strict`` fails instead).  ``--tiny`` evaluates the miniature system
 with the miniature evaluators on synthetic fixtures in a temporary
 directory; ``--device cpu`` runs the plain PyTorch path.
+
+Data parallelism, as the JAX CLI over its devices: on several ranks (one
+per visible card, or the world ``torchrun`` describes) every generation
+batch splits its rows over them, padded with its last row to a multiple of
+the rank count; the rows come back to every rank, each scores the whole
+set, rank 0 writes ``--out``.  ``--no-data-parallel`` generates on one
+rank.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..data.humanml3d import HumanML3DDataset
 from ..data.interhuman import InterHumanDataset
 from ..data.synthetic import make_hml3d_fixture, make_interhuman_fixture
 from ..eval.driver import clean_json, run_dualmdm_cross, run_side, summarize_metrics
+from ..parallel import make_mesh, on_ranks, world_rank, world_size
 from ..eval.interclip import build_interclip
 from ..eval.protocol import EvalProtocol, EvaluatorWrapper, EvaluatorWrapperIndividual, \
     calculate_f_score
@@ -68,10 +76,20 @@ def add_protocol_args(parser: argparse.ArgumentParser) -> None:
                         help="generate each item at its own length (the reference's "
                              "protocol, evaluation/datasets.py:116)")
     parser.add_argument("--seed", type=int, default=0)
-    # The JAX CLI's flag, kept so that its command lines still parse: one
-    # card, nothing to split.
-    parser.add_argument("--no-data-parallel", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--no-data-parallel", action="store_true",
+                        help="generate on one rank even where several cards are visible "
+                             "(default: each batch's rows split over every rank)")
     parser.add_argument("--tiny", action="store_true")
+
+
+def data_mesh(args):
+    """The data mesh generation splits its rows over: every rank of the
+    world (None on one rank, or with ``--no-data-parallel``)."""
+    if args.no_data_parallel or world_size() == 1:
+        return None
+    mesh = make_mesh()
+    print(f"data-parallel generation over {mesh.size} ranks", flush=True)
+    return mesh
 
 
 def protocol_sizes(args, protocol: EvalProtocol) -> dict:
@@ -131,7 +149,10 @@ def f_scores(metrics_ih, metrics_hml, replications) -> dict:
 
 
 def write_summary(summary: dict, out: str) -> dict:
+    """Print the summary and write it to ``out`` (rank 0)."""
     summary = clean_json(summary)
+    if world_rank() != 0:
+        return summary
     print(json.dumps(summary, indent=2))
     with open(out, "w") as f:
         json.dump(summary, f, indent=2)
@@ -162,11 +183,15 @@ def run(argv=None) -> dict:
                              "splitter, 'identity' the interaction text for both persons, "
                              "'none' the dataset's individual texts")
     args = parser.parse_args(argv)
+    return on_ranks(_evaluate, args, spread=not args.no_data_parallel)
 
+
+def _evaluate(args) -> dict:
     protocol = EvalProtocol()
     replications = args.replications or protocol.replication_times
     sizes = protocol_sizes(args, protocol)
     system = system_from_args(args)
+    mesh = data_mesh(args)
     if args.sampler or args.sample_steps:
         print(f"NON-PROTOCOL sampler override: {system.sampler_type} "
               f"{system.sample_schedule.num_timesteps} steps")
@@ -175,7 +200,7 @@ def run(argv=None) -> dict:
     side_kw = dict(num_samples=sizes["num_samples"], max_frames=sizes["max_frames"],
                    replications=replications, seed=args.seed, per_item=args.per_item_lengths,
                    mm_num_samples=sizes["mm_num_samples"],
-                   mm_num_repeats=sizes["mm_num_repeats"])
+                   mm_num_repeats=sizes["mm_num_repeats"], mesh=mesh)
     summary, metrics_ih, metrics_hml = {}, None, None
     with data_roots(args):
         if args.datasets in ("both", "interhuman"):
@@ -210,7 +235,7 @@ def run(argv=None) -> dict:
                              max_gt_length=sizes["max_frames"]),
                 wrapper, protocol, sweep=sweep, num_samples=sizes["num_samples"],
                 batch_size=sizes["batch_size"], max_frames=sizes["max_frames"],
-                replications=replications, seed=args.seed)
+                replications=replications, seed=args.seed, mesh=mesh)
             summary["dualmdm_cross"] = summarize_metrics(cross, replications)
     if metrics_ih is not None:
         summary["interhuman"] = summarize_metrics(metrics_ih, replications)

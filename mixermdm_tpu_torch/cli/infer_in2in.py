@@ -22,13 +22,16 @@ start the chain from it part-way down.  The config's ``QUANT: true`` runs
 the denoisers' projections as int8 on the card.
 
 ``--tiny`` runs the miniature configuration (16 frames), ``--device cpu``
-the plain PyTorch path on the CPU (f32).  The JAX CLI's ``--pp`` is not
-ported.
+the plain PyTorch path on the CPU (f32).  ``--pp N`` runs the denoisers'
+layer stacks as a GPipe pipeline over N ranks (one per visible card, or the
+world ``torchrun`` describes: :func:`..parallel.on_ranks`); rank 0 writes
+the file.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Optional
@@ -39,6 +42,7 @@ import torch
 from ..config import IN2IN_INDIVIDUAL_DEFAULT, IN2IN_INTERACTION_DEFAULT, Config, load_yaml, \
     tiny_config
 from ..models.clip_text import ClipTextConfig
+from ..parallel import make_mesh, on_ranks, pipeline_scope, world_rank, world_size
 from ..systems import apply_sampler_overrides
 from ..systems.in2in import In2INSystem
 from ..train.checkpoint import load_released_in2in
@@ -126,8 +130,14 @@ def main(argv=None):
     parser.add_argument("--sample-steps", type=int, default=None,
                         help="respace the sampling chain to N model calls")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--pp", type=int, default=1,
+                        help="pipeline-parallel degree: the denoiser layer stacks run as a "
+                             "GPipe pipeline over a 'pipe' axis of N ranks")
     args = parser.parse_args(argv)
+    return on_ranks(_run, args)
 
+
+def _run(args):
     system = build_system(args.model, args.mode, tiny=args.tiny, w_func=args.w_func,
                           w_value=args.w_value, device=args.device, seed=args.seed)
     if args.checkpoint or args.ckpt_individual:
@@ -142,15 +152,27 @@ def main(argv=None):
         batch["text_individual2"] = [args.text_individual2 or args.text] * B
     traj = load_control(system, args.traj_control, B, window)
     warm = load_control(system, args.warm_start, B, window)
+    scope = contextlib.nullcontext()
+    if args.pp > 1:
+        if args.pp > world_size():
+            raise SystemExit(f"--pp {args.pp} > {world_size()} available devices")
+        pipe = make_mesh(args.pp, axis="pipe")
+        if not pipe.member:
+            return
+        scope = pipeline_scope(pipe)
     t0 = time.perf_counter()
     cond = system.build_cond(batch)
-    out = system.sample(cond, window, generator=torch.Generator(device=system.device)
-                        .manual_seed(args.seed), traj_control=traj, init_image=warm,
-                        skip_timesteps=args.skip_timesteps)
+    with scope:
+        out = system.sample(cond, window, generator=torch.Generator(device=system.device)
+                            .manual_seed(args.seed), traj_control=traj, init_image=warm,
+                            skip_timesteps=args.skip_timesteps)
     motions = out.cpu().numpy()
     n_steps = system.sample_schedule.num_timesteps - args.skip_timesteps
     print(f"sampled {B} x {window} frames in {time.perf_counter() - t0:.3f} s (text + {n_steps} "
-          f"{system.sampler_type} steps, {args.mode})")
+          f"{system.sampler_type} steps, {args.mode}"
+          f"{f', pp {args.pp}' if args.pp > 1 else ''})")
+    if world_rank() != 0:
+        return
     motions = gaussian_smooth(motions)
     os.makedirs(args.out_dir, exist_ok=True)
     path = os.path.join(args.out_dir, f"{args.name}_motion.npy")

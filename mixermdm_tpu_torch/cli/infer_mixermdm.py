@@ -33,11 +33,28 @@ the root trajectory of a given motion every step, ``--warm-start`` /
 plain PyTorch path on the CPU (f32, so never int8).  On the card the shipped
 config samples with the W8A8 projections (``QUANT_FROZEN: true``);
 ``--no-quant`` runs the same weights in bf16.
+
+Several ranks (:func:`..parallel.on_ranks`: one per visible card, or the
+world ``torchrun`` describes), as the JAX CLI over its devices:
+
+- ``--tp N``: Megatron tensor parallelism over a model axis of N ranks,
+  the rest a data axis of the largest size that divides the batch;
+  W8A8 off, the kernels at the shard shapes;
+- ``--sp`` (with ``--tp``): sequence parallelism along T where the window
+  divides by N;
+- ``--pp N``: the in2IN layer stacks as a GPipe pipeline over N ranks
+  (not with ``--tp``);
+- otherwise, with several ranks and a batch that divides among them, data
+  parallelism: each rank samples its rows of the batch.
+
+Rank 0 writes the files.  Row i of every layout is the row the single-rank
+run gives.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Optional
@@ -55,10 +72,14 @@ from ..config import (
 )
 from ..eval.decompose import decompose_interaction_text
 from ..models.clip_text import ClipTextConfig
+from ..models.layers import set_sequence_parallel
+from ..parallel import make_mesh, make_mesh_2d, on_ranks, pipeline_scope, tp_shard_params, \
+    world_rank, world_size
 from ..systems import apply_sampler_overrides
 from ..systems.in2in import In2INSystem
 from ..systems.mixermdm import SUBMODEL, MixerMDMSystem
 from ..train.checkpoint import load_released_mixermdm
+from ..utils.alignment import geometry_batch_scope
 from ..weights import init_params_
 
 
@@ -181,6 +202,17 @@ def load_control(system: MixerMDMSystem, path: Optional[str], B: int,
     return system.normalizer2.forward(m.reshape(B, window, 2, -1)).reshape(B, window, -1)
 
 
+def describe_layout(args, mesh) -> str:
+    """The layout a sampling call ran in, for its log line."""
+    n = world_size()
+    if getattr(args, "pp", 1) > 1:
+        return f"pp {args.pp} of {n} ranks"
+    if getattr(args, "tp", 1) > 1:
+        return (f"tp {args.tp}{' + sp' if args.sp else ''} x data {mesh.shape['data']} "
+                f"of {n} ranks")
+    return f"data {mesh.size} of {n} ranks" if mesh is not None else f"{n} rank(s), whole batch"
+
+
 def render(args, system: MixerMDMSystem, motions: np.ndarray, infl1: np.ndarray,
            infl2: np.ndarray) -> None:
     """The skeleton video of sample 0 and the influence plot, best effort
@@ -225,9 +257,55 @@ def main(argv=None):
     parser.add_argument("--skip-timesteps", type=int, default=0,
                         help="drop the first N (respaced) denoising steps; with no "
                              "--warm-start a zero motion is used")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree: shard attention/FFN weights over a "
+                             "'model' axis of N ranks (Megatron), the remaining ranks form "
+                             "the data axis; W8A8 off")
+    parser.add_argument("--sp", action="store_true",
+                        help="sequence parallelism on top of --tp: the residual stream "
+                             "shards over the model axis along T between sub-layers")
+    parser.add_argument("--pp", type=int, default=1,
+                        help="pipeline-parallel degree: the in2IN denoiser layer stacks run "
+                             "as a GPipe pipeline over a 'pipe' axis of N ranks; mutually "
+                             "exclusive with --tp")
     add_weight_args(parser)
     args = parser.parse_args(argv)
+    if args.sp and args.tp <= 1:
+        raise SystemExit("--sp requires --tp > 1 (it shards over the model axis)")
+    if args.pp > 1 and args.tp > 1:
+        raise SystemExit("--pp and --tp are mutually exclusive (compose via the library's "
+                         "pipeline_scope over a 2-D mesh)")
+    return on_ranks(_run, args)
 
+
+def _layout(args, system, B: int):
+    """``(mesh, scope)`` of the parallel layout on this world (the JAX
+    CLI's branches): the mesh the sample call splits its rows over (None:
+    the whole batch on every rank) and the scope it runs in.  Ranks outside
+    the layout's grid get ``(False, None)``."""
+    n = world_size()
+    if args.pp > 1:
+        if args.pp > n:
+            raise SystemExit(f"--pp {args.pp} > {n} available devices")
+        pipe = make_mesh(args.pp, axis="pipe")
+        return (None, pipeline_scope(pipe)) if pipe.member else (False, None)
+    if args.tp > 1:
+        if n % args.tp:
+            raise SystemExit(f"--tp {args.tp} does not divide {n} devices")
+        n_data = max(d for d in range(1, n // args.tp + 1) if B % d == 0)
+        mesh = make_mesh_2d(n_data, args.tp)
+        if not mesh.member:
+            return False, None
+        if args.sp:
+            set_sequence_parallel(mesh)
+        tp_shard_params(system, mesh)
+        return mesh, geometry_batch_scope(mesh)
+    if n > 1 and B % n == 0:
+        return make_mesh(), contextlib.nullcontext()
+    return None, contextlib.nullcontext()
+
+
+def _run(args):
     system = system_from_args(args)
     B = args.num_samples
     window = 16 if args.tiny else args.window
@@ -241,15 +319,22 @@ def main(argv=None):
              "text_individual1": [t1] * B, "text_individual2": [t2] * B}
     traj = load_control(system, args.traj_control, B, window)
     warm = load_control(system, args.warm_start, B, window)
+    mesh, scope = _layout(args, system, B)
+    if mesh is False:
+        print(f"rank {world_rank()}: outside the {args.tp * args.pp}-rank layout", flush=True)
+        return
     t0 = time.perf_counter()
     cond = system.generate_cond(batch)
     gen = torch.Generator(device=system.device).manual_seed(args.seed)
-    sampled, (infl1, infl2) = system.sample(
-        cond, window, generator=gen, collect_influence=True, traj_control=traj,
-        init_image=warm, skip_timesteps=args.skip_timesteps)
+    with scope:
+        sampled, (infl1, infl2) = system.sample(
+            cond, window, generator=gen, collect_influence=True, traj_control=traj,
+            init_image=warm, skip_timesteps=args.skip_timesteps, mesh=mesh)
     motions = sampled.cpu().numpy()
     print(f"sampled {B} x {window} frames in {time.perf_counter() - t0:.3f} s (text + "
-          f"{infl1.shape[0]} {system.sampler_type} steps)")
+          f"{infl1.shape[0]} {system.sampler_type} steps; {describe_layout(args, mesh)})")
+    if world_rank() != 0:
+        return
     if not args.no_smooth:
         motions = gaussian_smooth(motions)
     infl1, infl2 = infl1.cpu().numpy(), infl2.cpu().numpy()

@@ -45,6 +45,16 @@ Usage on the card::
 
 :func:`make_server` builds the server without starting it, for callers that
 run it in-process (``--port 0`` takes a free port).
+
+Data parallelism (the JAX server's, over its devices): on several ranks
+(one per visible card, or the world ``torchrun`` describes) rank 0 runs the
+HTTP server and the batcher, the served batch is rounded up to a multiple
+of the rank count, and each dispatch broadcasts its prompts and seed to
+every rank; each samples its rows (the noise of the whole batch drawn from
+the seed, as one rank draws it) and the rows are gathered.  While idle,
+rank 0 sends a keep-alive every :data:`KEEPALIVE_S` seconds (a rank waits
+at most the process groups' timeout for a message); a stop message ends
+the other ranks.  ``--no-data-parallel`` serves from one rank.
 """
 
 from __future__ import annotations
@@ -53,10 +63,12 @@ import argparse
 import base64
 import io
 import json
+import sys
 import threading
 import time
 
 TEXT_KEYS = ("text_interaction", "text_individual1", "text_individual2")
+KEEPALIVE_S = 30.0
 
 
 class Overloaded(Exception):
@@ -224,8 +236,61 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--deadline-s", type=float, default=60.0,
                         help="shed queued requests older than this at dispatch time "
                              "(429; 0 = no deadline)")
+    parser.add_argument("--no-data-parallel", action="store_true",
+                        help="serve from one rank even where several cards are visible "
+                             "(default: every dispatch's rows split over all ranks)")
     add_weight_args(parser)
     return parser
+
+
+class _Ranks:
+    """Rank 0's side of data-parallel serving: every dispatch and every
+    keep-alive goes to the other ranks as one broadcast, under one lock (the
+    batcher thread and the keep-alive thread take turns)."""
+
+    def __init__(self, mesh, dispatch):
+        from ..parallel import comm
+
+        self.group, self.dispatch, self.comm = mesh.group("data"), dispatch, comm
+        self.lock = threading.Lock()
+        self.last = time.monotonic()
+        self.stopped = threading.Event()
+        self.thread = threading.Thread(target=self._keepalive, daemon=True)
+        self.thread.start()
+
+    def run(self, batch: dict, seed: int):
+        with self.lock:
+            self.comm.broadcast_object(("dispatch", batch, seed), 0, self.group)
+            self.last = time.monotonic()
+            return self.dispatch(batch, seed)
+
+    def _keepalive(self):
+        while not self.stopped.wait(1.0):
+            with self.lock:
+                if time.monotonic() - self.last >= KEEPALIVE_S:
+                    self.comm.broadcast_object(("alive",), 0, self.group)
+                    self.last = time.monotonic()
+
+    def stop(self):
+        self.stopped.set()
+        self.thread.join()
+        with self.lock:
+            self.comm.broadcast_object(("stop",), 0, self.group)
+
+
+def serve_rank(state) -> int:
+    """A rank other than 0: sample the rows of every dispatch rank 0
+    broadcasts, until its stop message.  Returns the dispatches served."""
+    from ..parallel import comm
+
+    n = 0
+    while True:
+        msg = comm.broadcast_object(None, 0, state["mesh"].group("data"))
+        if msg[0] == "stop":
+            return n
+        if msg[0] == "dispatch":
+            state["dispatch"](msg[1], msg[2])
+            n += 1
 
 
 def make_server(argv=None):
@@ -239,26 +304,48 @@ def make_server(argv=None):
 
     from .infer_mixermdm import system_from_args
 
+    from ..parallel import initialize_distributed, make_mesh, rank_device, world_rank, \
+        world_size
+
     args = build_parser().parse_args(argv)
     if args.tiny:
         args.batch_size = min(args.batch_size, 2)
         args.window = min(args.window, 16)
+    initialize_distributed(args.device)
+    args.device = str(rank_device(args.device))
     system = system_from_args(args)
     B, window = args.batch_size, args.window
+    mesh = None
+    if world_size() > 1 and not args.no_data_parallel:
+        mesh = make_mesh()
+        if B % mesh.size:
+            B = -(-B // mesh.size) * mesh.size
+            print(f"batch-size rounded up to {B} ({mesh.size} ranks)", flush=True)
+        print(f"data-parallel serving over {mesh.size} ranks", flush=True)
     state = {"warm": False, "requests": 0, "system": system, "batch_size": B,
-             "window": window}
+             "window": window, "mesh": mesh}
     count_lock = threading.Lock()  # handler threads count the requests they answer
+
+    def dispatch(batch: dict, seed: int):
+        """The whole batch's samples (every rank of the mesh calls it)."""
+        with torch.inference_mode():
+            cond = system.generate_cond(batch)
+            gen = torch.Generator(device=system.device).manual_seed(int(seed))
+            return system.sample(cond, window, generator=gen, mesh=mesh)
+
+    state["dispatch"] = dispatch
+    if mesh is not None and world_rank() != 0:
+        return None, None, state  # serve_rank(state) follows rank 0's dispatches
+    ranks = _Ranks(mesh, dispatch) if mesh is not None else None
+    state["ranks"] = ranks
 
     def generate(rows: list, seed: int):
         """One dispatch: row i of the output answers ``rows[i]``; the pad
         rows (the last prompt again) keep the shape fixed and are dropped."""
         padded = rows + [rows[-1]] * (B - len(rows))
         batch = {k: [p[k] for p in padded] for k in TEXT_KEYS}
-        with torch.inference_mode():
-            cond = system.generate_cond(batch)
-            gen = torch.Generator(device=system.device).manual_seed(int(seed))
-            out = system.sample(cond, window, generator=gen)
-            return out[:len(rows)].float().cpu().numpy()
+        out = ranks.run(batch, seed) if ranks is not None else dispatch(batch, seed)
+        return out[:len(rows)].float().cpu().numpy()
 
     max_queue = 8 * B if args.max_queue_rows is None else max(0, args.max_queue_rows)
     batcher = _Batcher(generate, B, linger_s=args.linger_ms / 1e3, max_queue_rows=max_queue,
@@ -344,8 +431,30 @@ def make_server(argv=None):
     return server, batcher, state
 
 
+def stop(server, batcher, state) -> None:
+    """End a server from :func:`make_server`: its socket, its batcher and
+    (data-parallel) the other ranks."""
+    server.server_close()
+    batcher.stop()
+    if state.get("ranks") is not None:
+        state["ranks"].stop()
+
+
 def main(argv=None):
+    from ..parallel import on_ranks
+
+    args = build_parser().parse_args(argv)
+    return on_ranks(_serve, argv if argv is not None else sys.argv[1:],
+                    spread=not args.no_data_parallel, device=args.device)
+
+
+def _serve(argv) -> int:
     server, batcher, state = make_server(argv)
+    if server is None:
+        from ..parallel import world_rank
+
+        print(f"rank {world_rank()}: {serve_rank(state)} dispatches served", flush=True)
+        return 0
     host, port = server.server_address[:2]
     print(f"serving MixerMDM on http://{host}:{port} "
           f"(B={state['batch_size']}, T={state['window']})", flush=True)
@@ -354,8 +463,7 @@ def main(argv=None):
     except KeyboardInterrupt:
         pass
     finally:
-        server.server_close()
-        batcher.stop()
+        stop(server, batcher, state)
     return 0
 
 

@@ -65,9 +65,15 @@ def individual_texts(batch: dict, text_decomposer: Optional[Callable] = None) ->
     return batch
 
 
-def sample(system, cond, n_frames: int, generator: torch.Generator, **kwargs) -> np.ndarray:
-    """One batch of generation on the system's card (the JAX package's
-    ``_sharded_sample`` with one device) -> (B, n_frames, D) f32 numpy."""
+def sample(system, cond, n_frames: int, generator: torch.Generator, mesh=None,
+           **kwargs) -> np.ndarray:
+    """One batch of generation -> (B, n_frames, D) f32 numpy (the JAX
+    package's ``_sharded_sample``): on the system's card, or with ``mesh``
+    its rows split over the data axis, padded with the last row to a
+    multiple of it, gathered and the pad dropped
+    (``systems.base.data_parallel_sample``)."""
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     out = system.sample(cond, n_frames, generator=generator, **kwargs)
     return out.float().cpu().numpy()
 
@@ -88,13 +94,15 @@ class EvaluationDatasetInterHuman:
     def __init__(self, system, gt_dataset, gen_seed: int = 0, num_samples: int = 250,
                  batch_size: int = 32, max_frames: int = 300,
                  text_decomposer: Optional[Callable] = None,
-                 force_influence_val: Optional[float] = None, stream: int = GEN_STREAM):
+                 force_influence_val: Optional[float] = None, stream: int = GEN_STREAM,
+                 mesh=None):
         from .driver import generate_batches  # .driver imports this module at load
 
         fiv = {} if force_influence_val is None else {"force_influence_val": force_influence_val}
         _, generated, _ = generate_batches(
             system, gt_dataset, gen_seed, num_samples=num_samples, batch_size=batch_size,
-            per_item=False, sample_kwargs=fiv, text_decomposer=text_decomposer, stream=stream)
+            per_item=False, sample_kwargs=fiv, text_decomposer=text_decomposer, stream=stream,
+            mesh=mesh)
         self.items = [{"text": text, "motions": m, "motion_lens": int(n)}
                       for texts, motions, lens in generated
                       for text, m, n in zip(texts, pad_frames(motions, max_frames), lens)]
@@ -121,7 +129,7 @@ class MMGeneratedDataset:
 
     def __init__(self, system, gt_dataset, gen_seed: int = 0, mm_num_samples: int = 50,
                  mm_num_repeats: int = 15, max_frames: int = 300,
-                 stream: int = MM_STREAM):
+                 stream: int = MM_STREAM, mesh=None):
         self.replica_sets: list = []
         picks = np.random.default_rng(0).choice(
             len(gt_dataset), min(mm_num_samples, len(gt_dataset)), replace=False)
@@ -130,7 +138,7 @@ class MMGeneratedDataset:
             batch = individual_texts(collate([s] * mm_num_repeats))
             T = int(s["motion_lens"])
             motions = sample(system, system.generate_cond(batch), T,
-                             batch_generator(gen_seed, i, stream, system.device))
+                             batch_generator(gen_seed, i, stream, system.device), mesh)
             self.replica_sets.append((pad_frames(motions, max_frames),
                                       np.asarray([T] * mm_num_repeats)))
 

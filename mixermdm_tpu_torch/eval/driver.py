@@ -73,7 +73,7 @@ class BaseSystemAdapter:
 
 
 def generate_batches(system, dataset, gen_seed: int, *, num_samples, batch_size, per_item,
-                     sample_kwargs=None, text_decomposer=None, stream=GEN_STREAM):
+                     sample_kwargs=None, text_decomposer=None, stream=GEN_STREAM, mesh=None):
     """Batched generation over a ground-truth set, batch i drawing from
     ``(gen_seed, i, stream)``; returns (gt batches, generated batches,
     individual-text batches), every batch ``(texts, motions (B, T, D),
@@ -81,7 +81,8 @@ def generate_batches(system, dataset, gen_seed: int, *, num_samples, batch_size,
     -> (t1 list, t2 list)) replaces the dataset's individual texts (the
     reference's LLM splitter, evaluation/datasets.py:71-96); without it a
     dataset that has none uses the captions themselves
-    (:func:`.datasets.individual_texts`)."""
+    (:func:`.datasets.individual_texts`).  With ``mesh`` each batch splits
+    its rows over the data axis (:func:`.datasets.sample`)."""
     gt_batches, gen_batches, ind_texts = [], [], []
     n = min(num_samples, len(dataset))
     for i, idx in enumerate(length_groups(list(range(n)), dataset, per_item, batch_size)):
@@ -92,7 +93,7 @@ def generate_batches(system, dataset, gen_seed: int, *, num_samples, batch_size,
         T = int(batch["motion_lens"].max())
         motions = pad_frames(sample(system, system.generate_cond(batch), T,
                                     batch_generator(gen_seed, i, stream, system.device),
-                                    **(sample_kwargs or {})), batch["motions"].shape[1])
+                                    mesh, **(sample_kwargs or {})), batch["motions"].shape[1])
         gen_batches.append((batch["text"], motions, batch["motion_lens"]))
     return gt_batches, gen_batches, ind_texts
 
@@ -108,7 +109,7 @@ def _record(all_metrics, protocol, names, match, rprec, div):
 def run_side(system, gt_dataset, wrapper, protocol, *, individual, num_samples, batch_size,
              max_frames, replications, seed, per_item=False, mm_num_samples=None,
              mm_num_repeats=None, model_name="mixermdm", sample_kwargs=None,
-             text_decomposer=None):
+             text_decomposer=None, mesh=None):
     """One dataset side of the protocol (reference ``evaluation()``,
     eval/mixermdm.py:124-213): per replication, the generated test set and
     the ground truth scored (MM-Distance, R-precision, FID, Diversity) and
@@ -118,7 +119,8 @@ def run_side(system, gt_dataset, wrapper, protocol, *, individual, num_samples, 
     ``individual=True`` interleaves the per-person texts to match the
     individual wrapper's 2B person batch; a single-person generator passes
     ``individual=False`` with the individual wrapper (its motions are one
-    person wide, and the wrapper only centres them)."""
+    person wide, and the wrapper only centres them).  ``mesh``: generation
+    splits its rows over the data axis (the JAX driver's ``mesh=``)."""
     mm_num_samples = protocol.mm_num_samples if mm_num_samples is None else mm_num_samples
     mm_num_repeats = protocol.mm_num_repeats if mm_num_repeats is None else mm_num_repeats
     all_metrics = defaultdict(lambda: defaultdict(list))
@@ -128,9 +130,11 @@ def run_side(system, gt_dataset, wrapper, protocol, *, individual, num_samples, 
         t0 = time.perf_counter()
         gt_batches, gen_batches, ind_texts = generate_batches(
             system, gt_dataset, rep_seed, num_samples=num_samples, batch_size=batch_size,
-            per_item=per_item, sample_kwargs=sample_kwargs, text_decomposer=text_decomposer)
+            per_item=per_item, sample_kwargs=sample_kwargs, text_decomposer=text_decomposer,
+            mesh=mesh)
         print(f"generation: {time.perf_counter() - t0:.3f} s "
-              f"({sum(len(b[0]) for b in gen_batches)} items)", flush=True)
+              f"({sum(len(b[0]) for b in gen_batches)} items"
+              f"{f', {mesh.size}-rank data mesh' if mesh is not None else ''})", flush=True)
         if individual:
             gen_batches = [(interleave(t1, t2), m, l)
                            for (t1, t2), (_, m, l) in zip(ind_texts, gen_batches)]
@@ -151,7 +155,7 @@ def run_side(system, gt_dataset, wrapper, protocol, *, individual, num_samples, 
             mm_set = MMGeneratedDataset(system, gt_dataset, rep_seed,
                                         mm_num_samples=mm_num_samples,
                                         mm_num_repeats=mm_num_repeats, max_frames=max_frames,
-                                        stream=MM_STREAM)
+                                        stream=MM_STREAM, mesh=mesh)
             t1 = time.perf_counter()
             # times below the replica count (protocol: 5 of 15)
             mm_times = min(protocol.mm_num_times, mm_num_repeats - 1)
@@ -178,7 +182,7 @@ def sweep_name(v) -> str:
 
 
 def run_dualmdm_cross(system, gt_dataset, hml_dataset, wrapper, protocol, *, sweep, num_samples,
-                      batch_size, max_frames, replications, seed):
+                      batch_size, max_frames, replications, seed, mesh=None):
     """Cross-dataset composition (reference evaluation/datasets.py:228-382):
     the mixer generates from InterHuman interaction texts crossed with random
     HumanML3D individual texts, once per ``force_influence_val`` of
@@ -197,7 +201,7 @@ def run_dualmdm_cross(system, gt_dataset, hml_dataset, wrapper, protocol, *, swe
             ds = EvaluationDatasetDualMDM(
                 system, gt_dataset, hml_dataset, seed + 1000 * rep, force_influence_val=v,
                 seed=seed + rep, num_samples=num_samples, batch_size=batch_size,
-                max_frames=max_frames, stream=CROSS_STREAM)
+                max_frames=max_frames, stream=CROSS_STREAM, mesh=mesh)
             sets[sweep_name(v)] = list(ds.batches(batch_size))
         sets["ground truth"] = gt_batches
         match, rprec, acts = P.evaluate_matching_score(sets, wrapper, protocol.top_k)

@@ -6,8 +6,9 @@ evaluation/utils.py:126-383).
 Generation runs in batches on the card (:mod:`.datasets`, :mod:`.driver`;
 the reference generates the test set one item at a time); the embeddings
 come from InterCLIP on the card, and the metrics run on the host in numpy
-over the stacked embeddings.  One card: the JAX package's mesh arguments are
-not ported.
+over the stacked embeddings.  Generation splits its rows over a data mesh
+where the driver is given one (``mesh=``, :mod:`.driver`); every rank then
+scores the whole gathered set, and the CLIs write from rank 0.
 """
 
 from __future__ import annotations

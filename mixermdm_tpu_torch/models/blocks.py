@@ -2,13 +2,22 @@
 discriminators; counterpart of ``mixermdm_tpu/models/blocks.py`` (reference
 blocks.py:3-89 and influence.py:6-48).  Every block is SA -> (CA) -> FFN
 with the residual adds inside the sub-layers (``residual=True``), fused into
-the output projection on the card where no gradient is recorded."""
+the output projection on the card where no gradient is recorded.
+
+Sequence parallelism (the JAX package's ``seq_constraint`` after each
+sub-layer): where it applies to a block's stream (:func:`seq_parallel_applies`)
+the block takes this rank's slice of T at its entry, runs its sub-layers on
+the slices (each gathers its modulated rows along T before its first
+product and reduce-scatters its row-parallel sum along T) and gathers the
+stream whole at its exit, so the stacks around the blocks see what they see
+without it.  The partner stream of a cross-attention stays whole."""
 
 from __future__ import annotations
 
 from torch import nn
 
-from .layers import FFN, VanillaCrossAttention, VanillaSelfAttention
+from .layers import FFN, VanillaCrossAttention, VanillaSelfAttention, seq_constraint, \
+    seq_gather, seq_parallel_applies
 
 
 class TransformerBlock(nn.Module):
@@ -23,9 +32,10 @@ class TransformerBlock(nn.Module):
         self.ffn = FFN(latent_dim, ff_size, dropout)
 
     def forward(self, x, y, emb, key_padding_mask=None):
-        h = self.sa_block(x, emb, key_padding_mask, residual=True)
-        h = self.ca_block(h, y, emb, key_padding_mask, residual=True)
-        return self.ffn(h, emb, residual=True)
+        sp = seq_parallel_applies(x)
+        h = self.sa_block(seq_constraint(x, sp), emb, key_padding_mask, residual=True, sp=sp)
+        h = self.ca_block(h, y, emb, key_padding_mask, residual=True, sp=sp)
+        return seq_gather(self.ffn(h, emb, residual=True, sp=sp), sp)
 
 
 class TransformerBlockDoubleCond(nn.Module):
@@ -45,10 +55,11 @@ class TransformerBlockDoubleCond(nn.Module):
         return mode not in ("individual", "dual_individual")
 
     def forward(self, x, y, emb, emb_interaction=None, key_padding_mask=None):
-        h = self.sa_block(x, emb, key_padding_mask, residual=True)
+        sp = seq_parallel_applies(x)
+        h = self.sa_block(seq_constraint(x, sp), emb, key_padding_mask, residual=True, sp=sp)
         if self.ca_block is not None:
-            h = self.ca_block(h, y, emb_interaction, key_padding_mask, residual=True)
-        return self.ffn(h, emb, residual=True)
+            h = self.ca_block(h, y, emb_interaction, key_padding_mask, residual=True, sp=sp)
+        return seq_gather(self.ffn(h, emb, residual=True, sp=sp), sp)
 
 
 class TransformerBlockSimple(nn.Module):
@@ -62,8 +73,9 @@ class TransformerBlockSimple(nn.Module):
         self.ffn = FFN(latent_dim, ff_size, dropout)
 
     def forward(self, x, emb, key_padding_mask=None):
-        return self.ffn(self.sa_block(x, emb, key_padding_mask, residual=True), emb,
-                        residual=True)
+        sp = seq_parallel_applies(x)
+        h = self.sa_block(seq_constraint(x, sp), emb, key_padding_mask, residual=True, sp=sp)
+        return seq_gather(self.ffn(h, emb, residual=True, sp=sp), sp)
 
 
 class InfluenceBlockCross(nn.Module):
@@ -78,6 +90,7 @@ class InfluenceBlockCross(nn.Module):
         self.ffn = FFN(latent_dim, ff_size, dropout)
 
     def forward(self, m_i, m_I, emb_i, emb_I, key_padding_mask=None):
-        h = self.sa_block(m_i, emb_i, key_padding_mask, residual=True)
-        h = self.ca_block(h, m_I, emb_I, key_padding_mask, residual=True)
-        return self.ffn(h, emb_I, residual=True)
+        sp = seq_parallel_applies(m_i)
+        h = self.sa_block(seq_constraint(m_i, sp), emb_i, key_padding_mask, residual=True, sp=sp)
+        h = self.ca_block(h, m_I, emb_I, key_padding_mask, residual=True, sp=sp)
+        return seq_gather(self.ffn(h, emb_I, residual=True, sp=sp), sp)

@@ -4,6 +4,12 @@
 As in the JAX package the two person streams are stacked into the batch
 axis (2B) so every layer runs once at double batch; in the interaction modes
 the cross-person partner is the swapped half of the stack.
+
+Inside ``parallel.pipeline_scope`` (``--pp``) the layer stacks of the
+individual and interaction modes run as a GPipe pipeline
+(:func:`..parallel.pipeline.pipeline_scan`) where :meth:`_can_pipeline`
+holds, as the JAX package's ``run_stack`` does; ``dual_individual`` always
+runs its layers in order.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.pipeline import pipeline_context, pipeline_scan
 from .blocks import TransformerBlockDoubleCond
 from .embeddings import PositionalEncoding, TimestepEmbedder
 from .layers import FinalLayer, Linear
@@ -68,10 +75,7 @@ class In2INDenoiser(nn.Module):
 
         if self.mode == "individual":
             h = self.sequence_pos_encoder(self.motion_embed(x[..., :F]))
-            emb = emb_of(0)
-            for block in self.blocks:
-                h = block(h, None, emb, None, kpm)
-            return self.out(h)
+            return self.out(self._run_stack(h, 0, emb_of(0), None, kpm))
 
         h = self.sequence_pos_encoder(self.motion_embed(torch.cat([x[..., :F], x[..., F:]], 0)))
         kpm2 = None if kpm is None else torch.cat([kpm, kpm], 0)
@@ -88,8 +92,57 @@ class In2INDenoiser(nn.Module):
             emb = torch.cat([emb_of(1), emb_of(2)], 0)
             emb_inter = emb_of(0)
             emb_inter2 = torch.cat([emb_inter, emb_inter], 0)
-            for block in self.blocks:
-                partner = torch.cat([h[B:], h[:B]], 0)
-                h = block(h, partner, emb, emb_inter2, kpm2)
+            h = self._run_stack(h, B, emb, emb_inter2, kpm2)
         out = self.out(h)
         return torch.cat([out[:B], out[B:]], dim=-1)
+
+    def _run_stack(self, h, swap_half: int, emb, emb_inter, kpm):
+        """Every layer on the stream ``h``; ``swap_half`` nonzero: the
+        person-stacked rows, each block's partner the other half.  Under
+        ``pipeline_scope``, pipelined where :meth:`_can_pipeline` holds."""
+        pp = pipeline_context()
+        if pp is not None and not self.training and self._can_pipeline(pp, h.shape[0],
+                                                                        swap_half):
+            return self._pipelined_stack(h, swap_half, emb, emb_inter, kpm, pp)
+        for block in self.blocks:
+            partner = torch.cat([h[swap_half:], h[:swap_half]], 0) if swap_half else None
+            h = block(h, partner, emb, emb_inter, kpm)
+        return h
+
+    def _can_pipeline(self, pp, rows: int, swap_half: int) -> bool:
+        """Whether the stack runs as a pipeline under ``pp``: its layers
+        divide over the stages and its rows into the microbatches (of even
+        size where the persons are stacked); else it runs in order."""
+        mesh, axis, n_microbatches = pp
+        n_stages = mesh.shape[axis]
+        M = n_microbatches or n_stages
+        if len(self.blocks) % n_stages:
+            return False
+        return not (rows % M or (swap_half and (rows // M) % 2))
+
+    def _pipelined_stack(self, h, swap_half: int, emb, emb_inter, kpm, pp):
+        """The stack through :func:`pipeline_scan`.  The partner swap needs
+        both persons of a sample in one microbatch: the person-stacked rows
+        ``[a0..aB-1, b0..bB-1]`` go in pair-major ``[a0, b0, a1, b1, ...]``,
+        the swap is a flip within each pair, and the output is
+        de-interleaved (the JAX package's ``_pipelined_stack``)."""
+        mesh, axis, n_microbatches = pp
+        B = swap_half
+
+        def interleave(a):
+            if a is None or not B:
+                return a
+            return torch.stack([a[:B], a[B:]], 1).reshape((2 * B,) + a.shape[1:])
+
+        def body(block, carry):
+            hh, e, ei, m = carry
+            partner = hh.reshape((-1, 2) + hh.shape[1:]).flip(1).reshape(hh.shape) if B else None
+            return (block(hh, partner, e, ei, m), e, ei, m)
+
+        carry = tuple(interleave(a) for a in (h, emb, emb_inter, kpm))
+        out = pipeline_scan(body, list(self.blocks), carry, mesh, axis=axis,
+                            n_microbatches=n_microbatches)[0]
+        if B:
+            d = out.reshape((B, 2) + out.shape[1:])
+            out = torch.cat([d[:, 0], d[:, 1]], 0)
+        return out

@@ -36,6 +36,22 @@ where the JAX package takes its fused blocks (latent % 128 == 0, head dim %
 weights and scales are non-persistent buffers (derived state, never in a
 state dict), quantised from the current weights once and again only after a
 weight changed.
+
+Tensor parallelism (``parallel.mesh.tp_shard_params``): a sharded attention
+(``tp`` set, ``local_heads`` of its heads) holds its heads' rows of the
+fused ``in_proj_weight`` and the matching columns of ``out_proj``; a
+sharded FFN the matching hidden units of ``linear1`` and ``linear2``.  The
+sub-blocks then run the tensor-parallel forms of the fused entry points at
+the shard shapes (the kernels at H/tp heads, QKV N 3E/tp, output K E/tp,
+FFN N and K F/tp), and a row-parallel :class:`Linear` sums its partial over
+the model axis.  :func:`set_tensor_parallel` is the JAX package's
+``set_xla_only``: it turns W8A8 off (the kernels stay on; this package has
+no other route).  :func:`set_sequence_parallel` and the blocks'
+:func:`seq_constraint` / :func:`seq_gather` are its sequence parallelism:
+inside a block the residual stream is this rank's slice of T, the
+row-parallel sums are reduce-scatters along T and the modulated rows are
+gathered along T before each column-parallel product; where T does not
+divide by the model axis nothing changes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ from ..ops import (
     fused_sa_block_q8,
     linear,
     quantize_weight,
+    row_parallel_sum,
 )
 
 # Width from which the JAX package runs the fused-block projections as int8
@@ -108,6 +125,57 @@ def layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+_tensor_parallel = False
+# The model axis (a parallel.mesh.RowParallel) of sequence parallelism, or None.
+_seq_parallel = None
+
+
+def set_tensor_parallel(enabled: bool = True) -> None:
+    """Tensor-parallel sampling (``--tp``): W8A8 off everywhere, as the JAX
+    package's ``set_xla_only`` turns its int8 paths off."""
+    global _tensor_parallel
+    _tensor_parallel = bool(enabled)
+
+
+def set_sequence_parallel(mesh=None, model_axis: str = "model") -> None:
+    """Sequence parallelism over ``mesh``'s model axis (None: off)."""
+    global _seq_parallel
+    if mesh is None:
+        _seq_parallel = None
+    else:
+        from ..parallel.mesh import model_axis as _axis
+
+        _seq_parallel = _axis(mesh, model_axis)
+
+
+def seq_parallel_applies(x: torch.Tensor) -> bool:
+    """Whether a block runs its residual stream ``x`` (B, T, E) sharded
+    along T: sequence parallelism is on and T divides by the model axis."""
+    return (_seq_parallel is not None and x.dim() == 3
+            and x.shape[1] % _seq_parallel.size == 0)
+
+
+def seq_constraint(x: torch.Tensor, sp: bool) -> torch.Tensor:
+    """The JAX ``seq_constraint`` at a block's entry: this rank's slice of
+    T of the (replicated) residual stream when ``sp``, else ``x``."""
+    if not sp:
+        return x
+    n = x.shape[1] // _seq_parallel.size
+    return x[:, _seq_parallel.rank * n:(_seq_parallel.rank + 1) * n]
+
+
+def seq_gather(x: torch.Tensor, sp: bool) -> torch.Tensor:
+    """The residual stream whole again from the ranks' slices of T (a
+    block's exit) when ``sp``, else ``x``."""
+    return _seq_parallel.seq_parallel().gather(x) if sp else x
+
+
+def _block_tp(tp, sp: bool):
+    """The model axis a sharded sub-block passes to its fused entry point:
+    its own, or under sequence parallelism the same axis along T."""
+    return tp.seq_parallel() if sp and tp is not None else tp
+
+
 def set_w8a8_min_dim(n: int) -> None:
     """Override the int8 width gate (tests and experiments: a tiny model
     is below the shipped gate)."""
@@ -146,7 +214,7 @@ class Int8Block(nn.Module):
 
     def runs_int8(self, dtype: torch.dtype) -> bool:
         """Whether a call in ``dtype`` runs as int8 here and now."""
-        return (_w8a8 and self.fusable and dtype == torch.bfloat16
+        return (_w8a8 and not _tensor_parallel and self.fusable and dtype == torch.bfloat16
                 and self.latent_dim >= _w8a8_min_dim)
 
     def int8_weights(self) -> list:
@@ -165,7 +233,12 @@ class Int8Block(nn.Module):
 
 class Linear(nn.Linear):
     """``nn.Linear`` whose product runs on the ``linear_epilogue`` kernel on
-    the card; ``zero_init`` marks the reference's ``zero_module`` layers."""
+    the card; ``zero_init`` marks the reference's ``zero_module`` layers.
+    Row-parallel (``tp`` set by ``tp_shard_params``), it holds its rank's
+    columns of the weight and sums the partial products over the model
+    axis (``ops.row_parallel_sum``)."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  zero_init: bool = False):
@@ -174,6 +247,11 @@ class Linear(nn.Linear):
 
     def forward(self, x, activation: Optional[str] = None, residual=None):
         w, b = cast_to(self.weight, x.dtype), cast_to(self.bias, x.dtype)
+        if self.tp is not None:
+            if activation is not None or records_grad(self, x, residual):
+                raise NotImplementedError("a row-parallel Linear sums its partials: no "
+                                          "activation, no gradient (sampling only)")
+            return row_parallel_sum(linear(x, w, None), b, residual, self.tp)
         if not records_grad(self, x, residual):
             return linear(x, w, b, activation=activation, residual=residual)
         y = F.linear(x, w, b)
@@ -223,11 +301,13 @@ class TorchMultiheadAttention(nn.Module):
     take the plan's route."""
 
     f32_route: Optional[str] = None
+    tp = None  # the model axis once tp_shard_params kept this rank's heads
 
     def __init__(self, embed_dim: int, num_heads: int, add_zero_attn: bool = True,
                  dropout: float = 0.0):
         super().__init__()
         self.embed_dim, self.num_heads, self.add_zero_attn = embed_dim, num_heads, add_zero_attn
+        self.local_heads = num_heads  # the heads this rank holds
         self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dim))
@@ -247,9 +327,10 @@ class TorchMultiheadAttention(nn.Module):
         """Projections, attention of x to ``xf`` (to x itself when None),
         output projection [+ residual], on the route :func:`records_grad`
         picks."""
-        B, T, E = x.shape
-        H = self.num_heads
+        B, T = x.shape[:2]
+        H = self.local_heads
         w, b = cast_to(self.in_proj_weight, x.dtype), cast_to(self.in_proj_bias, x.dtype)
+        E = w.shape[0] // 3  # the width of this rank's heads
         grad = records_grad(self, x, xf)
         dense = F.linear if grad else linear
         if xf is None:
@@ -290,8 +371,12 @@ class VanillaSelfAttention(Int8Block):
     def _int8_sources(self) -> dict:
         return {"w_qkv": self.attention.in_proj_weight, "w_o": self.attention.out_proj.weight}
 
-    def forward(self, x, emb, key_padding_mask=None, residual: bool = False):
+    def forward(self, x, emb, key_padding_mask=None, residual: bool = False, sp: bool = False):
+        """``sp``: x is this rank's slice of T (sequence parallelism), and so
+        is the output."""
         a = self.attention
+        if sp and a.tp is None:  # kept whole: run on the whole stream
+            return seq_constraint(self(seq_gather(x, sp), emb, key_padding_mask, residual), sp)
         if records_grad(self, x, emb) or a.dropout_active():
             return a.attend(self.norm(x, emb), None, key_padding_mask,
                             residual=x if residual else None)
@@ -304,7 +389,7 @@ class VanillaSelfAttention(Int8Block):
         c = lambda t: cast_to(t, x.dtype)  # noqa: E731
         return fused_sa_block(x, scale, shift, c(a.in_proj_weight), c(a.in_proj_bias),
                               c(a.out_proj.weight), c(a.out_proj.bias), key_padding_mask,
-                              n_heads=self.num_heads, residual=residual)
+                              n_heads=a.local_heads, residual=residual, tp=_block_tp(a.tp, sp))
 
 
 class VanillaSelfAttentionSimple(nn.Module):
@@ -337,8 +422,14 @@ class VanillaCrossAttention(Int8Block):
     def _int8_sources(self) -> dict:
         return {"w_qkv": self.attention.in_proj_weight, "w_o": self.attention.out_proj.weight}
 
-    def forward(self, x, xf, emb, key_padding_mask=None, residual: bool = False):
+    def forward(self, x, xf, emb, key_padding_mask=None, residual: bool = False,
+                sp: bool = False):
+        """``sp``: x is this rank's slice of T (sequence parallelism), and so
+        is the output; xf is whole."""
         a = self.attention
+        if sp and a.tp is None:  # kept whole: run on the whole stream
+            return seq_constraint(self(seq_gather(x, sp), xf, emb, key_padding_mask, residual),
+                                  sp)
         if records_grad(self, x, xf, emb) or a.dropout_active():
             return a.attend(self.norm(x, emb), self.xf_norm(xf, emb), key_padding_mask,
                             residual=x if residual else None)
@@ -353,7 +444,8 @@ class VanillaCrossAttention(Int8Block):
         c = lambda t: cast_to(t, x.dtype)  # noqa: E731
         return fused_ca_block(x, xf, scale, shift, xf_scale, xf_shift, c(a.in_proj_weight),
                               c(a.in_proj_bias), c(a.out_proj.weight), c(a.out_proj.bias),
-                              key_padding_mask, n_heads=self.num_heads, residual=residual)
+                              key_padding_mask, n_heads=a.local_heads, residual=residual,
+                              tp=_block_tp(a.tp, sp))
 
 
 class FFN(Int8Block):
@@ -373,7 +465,12 @@ class FFN(Int8Block):
     def _int8_sources(self) -> dict:
         return {"w1": self.linear1.weight, "w2": self.linear2.weight}
 
-    def forward(self, x, emb, residual: bool = False):
+    def forward(self, x, emb, residual: bool = False, sp: bool = False):
+        """``sp``: x is this rank's slice of T (sequence parallelism), and so
+        is the output."""
+        tp = self.linear2.tp
+        if sp and tp is None:  # kept whole: run on the whole stream
+            return seq_constraint(self(seq_gather(x, sp), emb, residual), sp)
         if records_grad(self, x, emb) or (self.training and self.dropout.p > 0.0):
             h = self.dropout(self.linear1(self.norm(x, emb), activation="gelu"))
             return self.linear2(h, residual=x if residual else None)
@@ -384,7 +481,8 @@ class FFN(Int8Block):
                                       self.linear2.bias, residual=residual)
         c = lambda t: cast_to(t, x.dtype)  # noqa: E731
         return fused_ffn_block(x, scale, shift, c(self.linear1.weight), c(self.linear1.bias),
-                               c(self.linear2.weight), c(self.linear2.bias), residual=residual)
+                               c(self.linear2.weight), c(self.linear2.bias), residual=residual,
+                               tp=_block_tp(tp, sp))
 
 
 class FinalLayer(nn.Module):

@@ -56,6 +56,7 @@ from .fused_block import (
     fused_sa_block_plain,
     fused_sa_block_q8,
     fused_sa_block_q8_plain,
+    row_parallel_sum,
 )
 from .linear import linear, linear_plain
 from .linear_q8 import linear_q8, linear_q8_gelu_q8_plain, linear_q8_plain
@@ -72,7 +73,7 @@ __all__ = [
     "fused_ffn_block", "fused_ffn_block_plain",
     "fused_sa_block_q8", "fused_sa_block_q8_plain",
     "fused_ca_block_q8", "fused_ca_block_q8_plain",
-    "fused_ffn_block_q8", "fused_ffn_block_q8_plain",
+    "fused_ffn_block_q8", "fused_ffn_block_q8_plain", "row_parallel_sum",
     "linear", "linear_plain",
     "linear_q8", "linear_q8_plain", "linear_q8_gelu_q8_plain",
     "quant_rows", "quant_rows_plain", "quantize_weight",

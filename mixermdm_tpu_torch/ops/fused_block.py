@@ -36,6 +36,16 @@ in f32 after ``+ b1`` and the GELU in the first product's epilogue
 is not modulated.  The fused epilogues give ``quant_rows``' bits of the
 output they no longer write.
 
+Tensor-parallel forms (``tp=``, a ``parallel.mesh.RowParallel``; bf16,
+the JAX package runs no int8 under ``--tp``): the same kernels at the shard
+shapes, H/tp heads, the QKV product at N 3E/tp (this rank's heads' rows of
+q, k and v, the CA block's q / kv split at E/tp), the FFN's first product
+at N F/tp; the output projection and the FFN's second product are the
+rank's row-parallel partials (K E/tp and F/tp), summed over the model axis
+in f32 by :func:`row_parallel_sum`, and under sequence parallelism the
+modulated rows are gathered along T before the first product and the sum
+is reduce-scattered along T.
+
 A W8A8 block asks the fused kernel's plan (``attention_q8_plan``,
 ``gelu_q8_plan``) before it launches anything.  Where the plan refuses the
 shape (more heads than a cluster spans, an FFN over 16 tiles of 128, no
@@ -114,6 +124,40 @@ def _attention_q8_route(fused: bool, q, k, v, key_padding_mask, zero_attn: bool,
     return quant_rows(a)
 
 
+def row_parallel_sum(partial: torch.Tensor, bias: Optional[torch.Tensor],
+                     residual: Optional[torch.Tensor], tp) -> torch.Tensor:
+    """A row-parallel product's output from this rank's ``partial`` (its
+    slice of the input features, no bias, no residual): the partials summed
+    over the model axis in f32 (``tp.reduce``: an all-reduce, or under
+    sequence parallelism a reduce-scatter along T), the bias added, rounded
+    to the partial's dtype, then the residual added as :func:`linear_plain`
+    adds it.  The kernel rounded each partial to bf16 in its epilogue, so on
+    the card this is one rounding more than the single-rank product, which
+    rounds once after the whole sum."""
+    y = tp.reduce(partial.float())
+    if bias is not None:
+        y = y + bias.float()
+    y = y.to(partial.dtype)
+    if residual is not None:
+        y = (y.float() + residual.float()).to(partial.dtype)
+    return y
+
+
+def _out_projection(a, w_o, b_o, residual, tp, dense=linear):
+    """The output projection ``a @ w_o^T + b_o [+ residual]``: one product
+    with its epilogue, or under tensor parallelism (``tp``) the rank's
+    row-parallel partial and :func:`row_parallel_sum`."""
+    if tp is None:
+        return dense(a, w_o, b_o, residual=residual)
+    return row_parallel_sum(dense(a, w_o, None), b_o, residual, tp)
+
+
+def _gather(tp, xn: torch.Tensor) -> torch.Tensor:
+    """The modulated rows a column-parallel product takes: under sequence
+    parallelism gathered along T from the ranks' slices."""
+    return xn if tp is None else tp.gather(xn)
+
+
 def _check(name: str, x: torch.Tensor, n_heads: int, E: int) -> None:
     if x.dim() != 3 or x.shape[-1] != E:
         raise ValueError(f"{name}: x must be (B, T, {E}), got {tuple(x.shape)}")
@@ -125,20 +169,28 @@ def _check(name: str, x: torch.Tensor, n_heads: int, E: int) -> None:
 
 def fused_sa_block_plain(x, scale, shift, w_qkv, b_qkv, w_o, b_o,
                          key_padding_mask=None, *, n_heads: int, zero_attn: bool = True,
-                         eps: float = 1e-6, residual: bool = False) -> torch.Tensor:
-    E = x.shape[-1]
-    xn = adaln_modulate_plain(x, scale, shift, eps)
+                         eps: float = 1e-6, residual: bool = False, tp=None) -> torch.Tensor:
+    E = w_qkv.shape[0] // 3
+    xn = _gather(tp, adaln_modulate_plain(x, scale, shift, eps))
     q, k, v = linear_plain(xn, w_qkv, b_qkv).split(E, dim=-1)
     a = fused_attention_plain(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
                               key_padding_mask, None, zero_attn)
-    return linear_plain(_merge(a), w_o, b_o, residual=x if residual else None)
+    return _out_projection(_merge(a), w_o, b_o, x if residual else None, tp, linear_plain)
 
 
 def fused_sa_block(x, scale, shift, w_qkv, b_qkv, w_o, b_o, key_padding_mask=None, *,
                    n_heads: int, zero_attn: bool = True, eps: float = 1e-6,
-                   residual: bool = False) -> torch.Tensor:
+                   residual: bool = False, tp=None) -> torch.Tensor:
     """``[x +] MHA(AdaLN(x))`` self-attention: x (B, T, E), scale/shift
     (B, E), key_padding_mask (B, T) bool with True = masked.
+
+    Tensor-parallel form (``tp``, a :class:`..parallel.mesh.RowParallel`):
+    ``w_qkv`` / ``b_qkv`` hold this rank's heads' rows of q, then of k, then
+    of v (3E/tp, E), ``n_heads`` is their count, ``w_o`` the matching
+    columns (E, E/tp); the output projection is row-parallel
+    (:func:`row_parallel_sum`).  Under sequence parallelism (``tp.seq``) x
+    is this rank's slice of T: the modulated rows are gathered along T
+    before the QKV product and the output comes back as this rank's slice.
 
     A CPU tensor (any tensor inside ``ops.plain_versions()``) takes
     :func:`fused_sa_block_plain`; a CUDA tensor launches
@@ -147,16 +199,17 @@ def fused_sa_block(x, scale, shift, w_qkv, b_qkv, w_o, b_o, key_padding_mask=Non
     if _lib.use_plain(x):
         return fused_sa_block_plain(x, scale, shift, w_qkv, b_qkv, w_o, b_o, key_padding_mask,
                                     n_heads=n_heads, zero_attn=zero_attn, eps=eps,
-                                    residual=residual)
-    B, T, E = x.shape
-    _check("fused_sa_block", x, n_heads, E)
-    xn = adaln_modulate(x, scale, shift, eps)
+                                    residual=residual, tp=tp)
+    E = w_qkv.shape[0] // 3
+    _check("fused_sa_block", x, n_heads, w_qkv.shape[1])
+    xn = _gather(tp, adaln_modulate(x, scale, shift, eps))
+    B, T = xn.shape[:2]
     qkv = linear(xn, w_qkv, b_qkv)                      # (B, T, 3E)
     q, k, v = qkv.split(E, dim=-1)
     out = torch.empty((B, T, E), dtype=x.dtype, device=x.device)
     attention_into(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
                    _heads(out, n_heads), key_padding_mask, None, zero_attn)
-    y = linear(out, w_o, b_o, residual=x if residual else None)
+    y = _out_projection(out, w_o, b_o, x if residual else None, tp)
     _lib.launches["fused_sa_block"] += 1
     return y
 
@@ -165,22 +218,27 @@ def fused_sa_block(x, scale, shift, w_qkv, b_qkv, w_o, b_o, key_padding_mask=Non
 
 def fused_ca_block_plain(x, xf, scale, shift, xf_scale, xf_shift, w_qkv, b_qkv, w_o, b_o,
                          key_padding_mask=None, *, n_heads: int, zero_attn: bool = True,
-                         eps: float = 1e-6, residual: bool = False) -> torch.Tensor:
-    E = x.shape[-1]
-    xn = adaln_modulate_plain(x, scale, shift, eps)
+                         eps: float = 1e-6, residual: bool = False, tp=None) -> torch.Tensor:
+    E = w_qkv.shape[0] // 3
+    xn = _gather(tp, adaln_modulate_plain(x, scale, shift, eps))
     xfn = adaln_modulate_plain(xf, xf_scale, xf_shift, eps)
     q = linear_plain(xn, w_qkv[:E], b_qkv[:E])
     k, v = linear_plain(xfn, w_qkv[E:], b_qkv[E:]).split(E, dim=-1)
     a = fused_attention_plain(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
                               key_padding_mask, None, zero_attn)
-    return linear_plain(_merge(a), w_o, b_o, residual=x if residual else None)
+    return _out_projection(_merge(a), w_o, b_o, x if residual else None, tp, linear_plain)
 
 
 def fused_ca_block(x, xf, scale, shift, xf_scale, xf_shift, w_qkv, b_qkv, w_o, b_o,
                    key_padding_mask=None, *, n_heads: int, zero_attn: bool = True,
-                   eps: float = 1e-6, residual: bool = False) -> torch.Tensor:
+                   eps: float = 1e-6, residual: bool = False, tp=None) -> torch.Tensor:
     """``[x +] MHA(q=AdaLN(x), k=v=AdaLN_xf(xf))``: queries from x, keys and
     values from xf with its own modulation; the key mask applies to xf.
+
+    Tensor-parallel form (``tp``) as :func:`fused_sa_block`'s: q is the
+    first third of this rank's rows of ``w_qkv``, k and v the rest (the
+    split at E/tp); under sequence parallelism x is this rank's slice of T
+    and xf whole.
 
     A CPU tensor (any tensor inside ``ops.plain_versions()``) takes
     :func:`fused_ca_block_plain`; a CUDA tensor launches
@@ -189,18 +247,19 @@ def fused_ca_block(x, xf, scale, shift, xf_scale, xf_shift, w_qkv, b_qkv, w_o, b
     if _lib.use_plain(x):
         return fused_ca_block_plain(x, xf, scale, shift, xf_scale, xf_shift, w_qkv, b_qkv,
                                     w_o, b_o, key_padding_mask, n_heads=n_heads,
-                                    zero_attn=zero_attn, eps=eps, residual=residual)
-    B, T, E = x.shape
-    _check("fused_ca_block", x, n_heads, E)
-    _check("fused_ca_block", xf, n_heads, E)
-    xn = adaln_modulate(x, scale, shift, eps)
+                                    zero_attn=zero_attn, eps=eps, residual=residual, tp=tp)
+    E = w_qkv.shape[0] // 3
+    _check("fused_ca_block", x, n_heads, w_qkv.shape[1])
+    _check("fused_ca_block", xf, n_heads, w_qkv.shape[1])
+    xn = _gather(tp, adaln_modulate(x, scale, shift, eps))
+    B, T = xn.shape[:2]
     xfn = adaln_modulate(xf, xf_scale, xf_shift, eps)
     q = linear(xn, w_qkv[:E], b_qkv[:E])                 # (B, T, E)
     k, v = linear(xfn, w_qkv[E:], b_qkv[E:]).split(E, dim=-1)   # (B, Tk, 2E)
     out = torch.empty((B, T, E), dtype=x.dtype, device=x.device)
     attention_into(_heads(q, n_heads), _heads(k, n_heads), _heads(v, n_heads),
                    _heads(out, n_heads), key_padding_mask, None, zero_attn)
-    y = linear(out, w_o, b_o, residual=x if residual else None)
+    y = _out_projection(out, w_o, b_o, x if residual else None, tp)
     _lib.launches["fused_ca_block"] += 1
     return y
 
@@ -209,17 +268,21 @@ def fused_ca_block(x, xf, scale, shift, xf_scale, xf_shift, w_qkv, b_qkv, w_o, b
 
 def fused_ffn_block_plain(x, scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
                           w1, b1, w2, b2, *, eps: float = 1e-6,
-                          residual: bool = False) -> torch.Tensor:
-    xn = x if scale is None else adaln_modulate_plain(x, scale, shift, eps)
+                          residual: bool = False, tp=None) -> torch.Tensor:
+    xn = _gather(tp, x if scale is None else adaln_modulate_plain(x, scale, shift, eps))
     h = linear_plain(xn, w1, b1, activation="gelu")
-    return linear_plain(h, w2, b2, residual=x if residual else None)
+    return _out_projection(h, w2, b2, x if residual else None, tp, linear_plain)
 
 
 def fused_ffn_block(x, scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
                     w1, b1, w2, b2, *, eps: float = 1e-6,
-                    residual: bool = False) -> torch.Tensor:
+                    residual: bool = False, tp=None) -> torch.Tensor:
     """``[x +] W2 gelu(W1 AdaLN(x) + b1) + b2``; AdaLN is skipped when
-    ``scale is None``.
+    ``scale is None``.  Tensor-parallel form (``tp``): ``w1`` / ``b1`` hold
+    this rank's F/tp hidden units, ``w2`` the matching columns (E, F/tp),
+    and the second product is row-parallel (:func:`row_parallel_sum`);
+    under sequence parallelism x is this rank's slice of T, gathered after
+    the modulation.
 
     A CPU tensor (any tensor inside ``ops.plain_versions()``) takes
     :func:`fused_ffn_block_plain`; a CUDA tensor launches
@@ -227,10 +290,10 @@ def fused_ffn_block(x, scale: Optional[torch.Tensor], shift: Optional[torch.Tens
     """
     if _lib.use_plain(x):
         return fused_ffn_block_plain(x, scale, shift, w1, b1, w2, b2, eps=eps,
-                                     residual=residual)
-    xn = x if scale is None else adaln_modulate(x, scale, shift, eps)
+                                     residual=residual, tp=tp)
+    xn = _gather(tp, x if scale is None else adaln_modulate(x, scale, shift, eps))
     h = linear(xn, w1, b1, activation="gelu")
-    y = linear(h, w2, b2, residual=x if residual else None)
+    y = _out_projection(h, w2, b2, x if residual else None, tp)
     _lib.launches["fused_ffn_block"] += 1
     return y
 

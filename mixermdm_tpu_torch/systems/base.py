@@ -26,6 +26,43 @@ from ..utils.normalizer import Normalizer
 COND_MASK_PROB = 0.1
 
 
+def data_parallel_sample(sample, mesh, cond: torch.Tensor, frame_shape: tuple, *,
+                         generator: Optional[torch.Generator] = None,
+                         noise: Optional[torch.Tensor] = None, rows: Optional[dict] = None,
+                         axis: str = "data", **kwargs):
+    """A system's ``sample`` with its batch split over ``mesh``'s data axis
+    (the JAX package's data-sharded sampling and ``_sharded_sample``): the
+    initial noise of the whole batch is drawn from ``generator`` (as the
+    single-rank call draws it) unless given, the batch is padded with its
+    last row to a multiple of the axis, each rank samples its rows
+    (``sample(cond rows, n_frames, noise=noise rows, **rows of rows,
+    **kwargs)``), and the outputs (and influence histories, batch second)
+    are gathered and the pad dropped.  Row i is the single-rank call's row
+    i up to the kernels' shape-dependent rounding."""
+    from ..parallel.mesh import data_sharded, gather_rows
+
+    B = cond.shape[0]
+    if noise is None:
+        noise = torch.randn((B,) + tuple(frame_shape), generator=generator, device=cond.device)
+    pad = (-B) % mesh.shape[axis]
+
+    def take(a):
+        if a is None:
+            return None
+        a = torch.as_tensor(a).to(cond.device)
+        if pad:
+            a = torch.cat([a, a[-1:].expand((pad,) + a.shape[1:])], 0)
+        return a[data_sharded(mesh, B + pad, axis)]
+
+    out = sample(take(cond), frame_shape[0], noise=take(noise),
+                 **{k: take(v) for k, v in (rows or {}).items()}, **kwargs)
+    if isinstance(out, tuple):
+        motion, hist = out
+        return (gather_rows(motion, mesh, axis)[:B],
+                tuple(gather_rows(h, mesh, axis, dim=1)[:, :B] for h in hist))
+    return gather_rows(out, mesh, axis)[:B]
+
+
 def generate_src_mask(T: int, lengths, B: int, device="cpu") -> torch.Tensor:
     """(B, T, 2) float mask, zero after each sequence's length."""
     lengths = torch.as_tensor(lengths, device=device)

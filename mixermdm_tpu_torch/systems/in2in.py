@@ -28,7 +28,7 @@ from ..models.cfg import cfg_dual_mdm, cfg_model, cfg_model_multiple
 from ..models.clip_text import ClipTextConfig
 from ..models.in2in import In2INDenoiser
 from ..utils.normalizer import Normalizer, hml3d_normalizer, interhuman_normalizer
-from .base import BaseModelSystem, generate_src_mask  # noqa: F401 (re-exported)
+from .base import BaseModelSystem, data_parallel_sample, generate_src_mask  # noqa: F401
 from .text import TextPipeline
 
 # Denoiser name -> denoiser mode, per system mode (JAX In2INSystem.__init__).
@@ -149,14 +149,23 @@ class In2INSystem(BaseModelSystem):
     def sample(self, cond: torch.Tensor, n_frames: int, *,
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None, normalize_output: bool = True,
-               traj_control=None, skip_timesteps: int = 0, init_image=None) -> torch.Tensor:
+               traj_control=None, skip_timesteps: int = 0, init_image=None,
+               mesh=None) -> torch.Tensor:
         """The whole CFG chain (reference in2in.py:285-356), DDIM or
         DPM-Solver++ by :attr:`sampler_type`: (B, n_frames, persons * 262),
         raw motion unless ``normalize_output`` is off.  The initial noise is
         ``noise`` or a draw from ``generator``.  ``traj_control`` (pinned
         every step) and ``init_image`` (the warm start, with
-        ``skip_timesteps``) are in the model's normalised space."""
+        ``skip_timesteps``) are in the model's normalised space.  With
+        ``mesh`` the batch splits over its data axis
+        (:func:`.base.data_parallel_sample`)."""
         cond = cond.to(self.device, torch.float32)
+        if mesh is not None:
+            return data_parallel_sample(
+                self.sample, mesh, cond, (n_frames, self.nfeats * self.persons),
+                generator=generator, noise=noise,
+                rows=dict(traj_control=traj_control, init_image=init_image),
+                normalize_output=normalize_output, skip_timesteps=skip_timesteps)
         model = self.cfg_model()
         out = self.run_chain(lambda x, t: model(x, t, None, cond),
                              (cond.shape[0], n_frames, self.nfeats * self.persons),

@@ -16,7 +16,7 @@ from ..models.cfg import cfg_model
 from ..models.clip_text import ClipTextConfig
 from ..models.intergen import InterDenoiser
 from ..utils.normalizer import Normalizer, interhuman_normalizer
-from .base import BaseModelSystem
+from .base import BaseModelSystem, data_parallel_sample
 from .text import TextPipeline
 
 
@@ -60,10 +60,15 @@ class InterGenSystem(BaseModelSystem):
     def sample(self, cond: torch.Tensor, n_frames: int, *,
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
-               normalize_output: bool = True) -> torch.Tensor:
+               normalize_output: bool = True, mesh=None) -> torch.Tensor:
         """The CFG chain, DDIM or DPM-Solver++: (B, n_frames, 524), raw motion
-        unless ``normalize_output`` is off."""
+        unless ``normalize_output`` is off; with ``mesh`` the batch splits
+        over its data axis (:func:`.base.data_parallel_sample`)."""
         cond = cond.to(self.device, torch.float32)
+        if mesh is not None:
+            return data_parallel_sample(self.sample, mesh, cond, (n_frames, 2 * self.nfeats),
+                                        generator=generator, noise=noise,
+                                        normalize_output=normalize_output)
         model = self.cfg_model()
         out = self.run_chain(lambda x, t: model(x, t, None, cond),
                              (cond.shape[0], n_frames, 2 * self.nfeats), generator=generator,

@@ -21,7 +21,7 @@ from ..models.clip_text import ClipTextConfig, ClipTextEncoder, default_tokenize
 from ..models.layers import Linear
 from ..models.mdm import MDMDenoiser
 from ..utils.normalizer import Normalizer, hml3d_normalizer
-from .base import BaseModelSystem
+from .base import BaseModelSystem, data_parallel_sample
 
 # MDM's text layout: 22 tokens at most, zero-padded to the tower's 77
 # (reference mdm.py:104-112).
@@ -80,10 +80,15 @@ class MDMSystem(BaseModelSystem):
     def sample(self, cond: torch.Tensor, n_frames: int, *,
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
-               normalize_output: bool = True) -> torch.Tensor:
+               normalize_output: bool = True, mesh=None) -> torch.Tensor:
         """The CFG chain, DDIM or DPM-Solver++: (B, n_frames, 262), raw motion
-        unless ``normalize_output`` is off."""
+        unless ``normalize_output`` is off; with ``mesh`` the batch splits
+        over its data axis (:func:`.base.data_parallel_sample`)."""
         cond = cond.to(self.device, torch.float32)
+        if mesh is not None:
+            return data_parallel_sample(self.sample, mesh, cond, (n_frames, self.nfeats),
+                                        generator=generator, noise=noise,
+                                        normalize_output=normalize_output)
         model = self.cfg_model()
         out = self.run_chain(lambda x, t: model(x, t, None, cond),
                              (cond.shape[0], n_frames, self.nfeats), generator=generator,

@@ -63,8 +63,8 @@ from ..models.discriminator import DiscriminatorTransformer
 from ..models.layers import w8a8_scope
 from ..models.mixer import MixerConfig, MixerCore, make_mixer_forward
 from ..utils.normalizer import Normalizer, hml3d_normalizer, interhuman_normalizer
-from .base import COND_MASK_PROB, cast_params_, generate_src_mask, quantise_blocks_, \
-    resolve_compute_dtype
+from .base import COND_MASK_PROB, cast_params_, data_parallel_sample, generate_src_mask, \
+    quantise_blocks_, resolve_compute_dtype
 from .in2in import In2INSystem
 from .text import TextPipeline
 
@@ -342,9 +342,10 @@ class MixerMDMSystem(nn.Module):
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None, collect_influence: bool = False,
                force_influence_val=_FIV_FROM_CONFIG, traj_control=None,
-               skip_timesteps: int = 0, init_image=None):
+               skip_timesteps: int = 0, init_image=None, mesh=None):
         """Full dual-stream CFG chain (reference mixermdm.py:490-548), DDIM
-        or DPM-Solver++ by :attr:`sampler_type`.
+        or DPM-Solver++ by :attr:`sampler_type`.  With ``mesh`` the batch
+        splits over its data axis (:func:`.base.data_parallel_sample`).
 
         Returns raw motion (B, n_frames, 2 * 262) f32; with
         ``collect_influence`` also the per-step (infl1, infl2) histories.
@@ -359,6 +360,12 @@ class MixerMDMSystem(nn.Module):
                else force_influence_val)
         dev = self.device
         cond = cond.to(dev, torch.float32)
+        if mesh is not None:
+            return data_parallel_sample(
+                self.sample, mesh, cond, (n_frames, self.nfeats * 2), generator=generator,
+                noise=noise, rows=dict(traj_control=traj_control, init_image=init_image),
+                collect_influence=collect_influence, force_influence_val=fiv,
+                skip_timesteps=skip_timesteps)
         as_f32 = lambda a: None if a is None else torch.as_tensor(a).to(dev, torch.float32)  # noqa: E731
         model = cfg_model_x2(self._mixer_eval(fiv, collect_influence), self.cfg_weight,
                              with_influence=collect_influence)

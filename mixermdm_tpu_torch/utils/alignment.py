@@ -15,6 +15,7 @@ card as plain tensor code (small elementwise work, no kernel of their own).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -173,6 +174,18 @@ def align_motions(motion1: torch.Tensor, motion2: torch.Tensor,
     (reference alignment.py:108-158)."""
     pos, vel = _aligned(motion1, motion2, mask)
     return motion1, torch.cat([pos, vel, motion2[..., 132:201]], dim=-1)
+
+
+@contextlib.contextmanager
+def geometry_batch_scope(mesh=None, data_axis: str = "data", model_axis: str = "model"):
+    """The JAX package's ``geometry_batch_scope``: there it pins the chain's
+    geometry tensors to batch-over-data sharding under a dp x tp mesh, so
+    the partitioner does not reshard them along the model axis.  Here every
+    rank of a model group holds the same rows whole (the tensor-parallel
+    modules give back replicated outputs), so the geometry runs on those
+    rows as it is: the scope is the identity, kept so the sampling paths
+    read as the JAX package's do."""
+    yield
 
 
 def center_motion(motion: torch.Tensor) -> torch.Tensor:

@@ -262,7 +262,8 @@ def test_port_runs_without_jax_yaml_or_the_jax_package(tmp_path):
             importlib.import_module(m)
         import chip_smoke
         assert "mixermdm_tpu_torch.scripts.exp_kernels" in mods
-        for name in ("data.native", "diffusion.guidance", "diffusion.vlb", "utils.skeleton"):
+        for name in ("data.native", "diffusion.guidance", "diffusion.vlb", "utils.skeleton",
+                     "parallel.comm", "parallel.launch", "parallel.mesh", "parallel.pipeline"):
             assert "mixermdm_tpu_torch." + name in mods, name
         from mixermdm_tpu_torch.scripts import exp_kernels
         import torch
